@@ -1,0 +1,59 @@
+"""Device placement for the single-GPU path (counterpart: the one-device
+subset of fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — upload,
+replicate, fetch; no mesh and no collectives).
+
+Entry points run on ``cuda`` unless the caller asks for ``cpu``.  With no
+CUDA device and no such request, :func:`resolve_device` raises
+``InputError``: the port never quietly runs on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from fastapriori_tpu_torch.errors import InputError
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None):
+    """``None``/``"cuda"`` -> the current CUDA device (InputError when
+    there is none); ``"cpu"`` -> the CPU, where every kernel wrapper runs
+    its plain PyTorch version."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise InputError(
+                "no CUDA device is available; this port runs on the GPU "
+                "unless asked otherwise (--platform cpu on the CLI, "
+                "device='cpu' in the API)"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        # The pair Gram and the heavy-row corrections are float matmuls
+        # that are exact only in full precision (models/apriori.py): keep
+        # cuBLAS off TF32 for the process.
+        torch.backends.cuda.matmul.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise InputError(f"unsupported device {str(dev)!r}: use cuda or cpu")
+    return dev
+
+
+class DeviceContext:
+    """One device: host arrays go up with :meth:`upload`, results come
+    back with :meth:`fetch`."""
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+
+    @property
+    def platform(self) -> str:
+        return self.device.type
+
+    def upload(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    @staticmethod
+    def fetch(x: torch.Tensor) -> np.ndarray:
+        return x.cpu().numpy()

@@ -1,0 +1,207 @@
+"""Association-rule recommender (counterpart: fastapriori_tpu/models/
+recommender.py ``AssociationRules.run`` on the matrix path; reference
+C10 + C12, AssociationRules.scala:17-113).
+
+``run``: dedupe the user baskets keeping the original row indexes (C10);
+generate, prune and priority-sort the rules once per instance (C11,
+rules/gen.py); first match per distinct basket (C12) — on the host for
+small problems, else through K2 over the padded rule table on the device
+(the same ``len(baskets) · n_rules >= 3·10^7`` rule as the reference);
+fan results out to every original row; empty baskets get "0" (:49).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from fastapriori_tpu_torch.config import MinerConfig
+from fastapriori_tpu_torch.device import DeviceContext
+from fastapriori_tpu_torch.ops.bitmap import build_bitmap, next_pow2, pad_axis
+from fastapriori_tpu_torch.ops.contain import rule_table, strided_match_scan
+from fastapriori_tpu_torch.preprocess import dedup_user_baskets
+from fastapriori_tpu_torch.rules.gen import (
+    gen_rule_arrays_levels,
+    sort_rule_arrays,
+)
+from fastapriori_tpu_torch.utils.logging import MetricsLogger
+
+# Distinct baskets x rules at which the device scan takes over.
+DEVICE_MIN_CHECKS = 30_000_000
+
+
+class AssociationRules:
+    """``AssociationRules(freq_items, item_to_rank, levels, item_counts)
+    .run(user_lines)`` returns ``[(original row index, recommended item
+    string or "0"), ...]``.  ``levels``/``item_counts`` are the miner's
+    matrix-form result (models/apriori.py).  ``device`` as for
+    :class:`~fastapriori_tpu_torch.models.apriori.FastApriori`."""
+
+    def __init__(
+        self,
+        freq_items: Sequence[str],
+        item_to_rank: Dict[str, int],
+        levels,
+        item_counts,
+        config: Optional[MinerConfig] = None,
+        device=None,
+    ):
+        self.freq_items = list(freq_items)
+        self.item_to_rank = dict(item_to_rank)
+        self.config = config or MinerConfig()
+        self.ctx = DeviceContext(device)
+        self.metrics = MetricsLogger(enabled=self.config.log_metrics)
+        self._levels = levels
+        self._item_counts = item_counts
+        # Sorted rule arrays (ant [R, k_max] 0-padded, lens, cons, conf),
+        # built once per instance like the reference's single genRules.
+        self._rule_arrays: Optional[tuple] = None
+        # Device copy of the padded rule table, uploaded on first use.
+        self._table_dev: Optional[tuple] = None
+
+    @property
+    def n_rules(self) -> int:
+        return len(self.rule_arrays()[1])
+
+    def rule_arrays(self) -> tuple:
+        if self._rule_arrays is None:
+            with self.metrics.timed("gen_rules") as m:
+                surv = gen_rule_arrays_levels(self._levels, self._item_counts)
+                self._rule_arrays = sort_rule_arrays(surv, self.freq_items)
+                m.update(rules=len(self._rule_arrays[1]))
+        return self._rule_arrays
+
+    def run(
+        self,
+        user_lines: Sequence[Sequence[str]],
+        use_device: Optional[bool] = None,
+    ) -> List[Tuple[int, str]]:
+        """``use_device=None`` picks the device scan when distinct baskets
+        × rules reaches 3·10^7 (the host scan early-exits per user, the
+        device path pays fixed transfer costs)."""
+        with self.metrics.timed("user_dedup") as m:
+            baskets, indexes, empty = dedup_user_baskets(
+                user_lines, self.item_to_rank
+            )
+            m.update(users=len(user_lines), distinct=len(baskets),
+                     empty=len(empty))
+        n_rules = self.n_rules
+        out: List[Tuple[int, str]] = [(i, "0") for i in empty]
+        if not baskets:
+            return out
+        if not n_rules:
+            for rows in indexes:
+                out.extend((i, "0") for i in rows)
+            return out
+        if use_device is None:
+            use_device = len(baskets) * n_rules >= DEVICE_MIN_CHECKS
+        with self.metrics.timed("first_match", device=use_device) as m:
+            if use_device:
+                recs = self._device_first_match(baskets, m)
+            else:
+                recs = self._host_first_match(baskets)
+        for rows, rec in zip(indexes, recs):
+            item = self.freq_items[rec] if rec >= 0 else "0"
+            out.extend((i, item) for i in rows)
+        return out
+
+    def _host_first_match(self, baskets: List[np.ndarray]) -> List[int]:
+        """Reference-semantics scan (AssociationRules.scala:88-102) in
+        numpy: per basket block, containment as a boolean gather+all over
+        the padded antecedent table (padding points at an always-present
+        sentinel column F), first match the argmax of the chunk's
+        eligibility, chunks in priority order with an early exit."""
+        ant0, lens0, cons, _ = self.rule_arrays()
+        f = len(self.freq_items)
+        r = len(cons)
+        k_max = max(ant0.shape[1], 1)
+        ant = np.full((r, k_max), f, dtype=np.int64)
+        mask = np.arange(k_max)[None, :] < lens0[:, None]
+        ant[mask] = ant0[mask]
+        lens = lens0.astype(np.int64)
+        cons = np.asarray(cons)
+        recs = np.full(len(baskets), -1, dtype=np.int64)
+        blen = np.fromiter((len(b) for b in baskets), np.int64, len(baskets))
+        rule_chunk = 8192
+        for b0 in range(0, len(baskets), 2048):
+            rows = range(b0, min(b0 + 2048, len(baskets)))
+            member = np.zeros((len(rows), f + 1), dtype=bool)
+            member[:, f] = True  # antecedent-padding sentinel column
+            for i, bi in enumerate(rows):
+                member[i, np.asarray(baskets[bi], dtype=np.int64)] = True
+            best = np.full(len(rows), -1, dtype=np.int64)
+            unmatched = np.arange(len(rows))
+            bl = blen[b0 : b0 + len(rows)]
+            for base in range(0, r, rule_chunk):
+                a = ant[base : base + rule_chunk]
+                sub = member[unmatched]
+                contained = sub[
+                    np.arange(len(unmatched))[:, None, None], a[None, :, :]
+                ].all(axis=2)
+                eligible = (
+                    contained
+                    & (lens[None, base : base + rule_chunk]
+                       <= bl[unmatched][:, None])
+                    & ~sub[:, cons[base : base + rule_chunk]]
+                )
+                hit = eligible.any(axis=1)
+                first = np.argmax(eligible, axis=1)
+                best[unmatched[hit]] = base + first[hit]
+                unmatched = unmatched[~hit]
+                if unmatched.size == 0:
+                    break
+            matched = best >= 0
+            recs[b0 : b0 + len(rows)][matched] = cons[best[matched]]
+        return recs.tolist()
+
+    def rec_batch_rows(self) -> int:
+        """Scan micro-batch rows: ``config.rec_batch_rows``, pow2-bucketed
+        (floor 32)."""
+        return max(next_pow2(self.config.rec_batch_rows), 32)
+
+    def table(self) -> tuple:
+        """The padded rule table on the device, uploaded once per
+        instance: ``(ant, size, consequent)`` (ops/contain.py
+        ``rule_table``)."""
+        if self._table_dev is None:
+            ant0, lens, cons, _ = self.rule_arrays()
+            f = len(self.freq_items)
+            f_pad = pad_axis(f + 1, self.config.item_tile)
+            self._table_dev = tuple(
+                self.ctx.upload(x)
+                for x in rule_table(ant0, lens, cons, f, f_pad,
+                                    self.config.rule_chunk)
+            )
+        return self._table_dev
+
+    def micro_batches(self, baskets: List[np.ndarray]):
+        """Yield ``(b0, n, bitmap [mb, F_pad] int8, lengths [mb] int32)``
+        host micro-batches; padding rows have length 0."""
+        f = len(self.freq_items)
+        nb = len(baskets)
+        mb = max(min(next_pow2(max(nb, 1)), self.rec_batch_rows()), 32)
+        for b0 in range(0, nb, mb):
+            block = baskets[b0 : b0 + mb]
+            bm = build_bitmap(block, f, mb, self.config.item_tile)
+            blen = np.zeros(mb, dtype=np.int32)
+            blen[: len(block)] = [len(b) for b in block]
+            yield b0, len(block), bm, blen
+
+    def _device_first_match(self, baskets: List[np.ndarray],
+                            stats: dict) -> List[int]:
+        """K2 over the resident rule table, one launch per basket
+        micro-batch; only the selected consequents come back."""
+        ctx = self.ctx
+        ant, size, consequent = self.table()
+        recs = np.full(len(baskets), -1, dtype=np.int64)
+        launches = 0
+        for b0, n, bm, blen in self.micro_batches(baskets):
+            _, cons = strided_match_scan(
+                ctx.upload(bm), ctx.upload(blen), ant, size, consequent
+            )
+            recs[b0 : b0 + n] = ctx.fetch(cons)[:n]
+            launches += 1
+        stats.update(rules=self.n_rules, table_rows=int(ant.shape[0]),
+                     launches=launches)
+        return recs.tolist()

@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source in ``fastapriori_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface, loaded
+with ``ctypes``.  Libraries land in ``fastapriori_tpu_torch/_build/``
+(git-ignored) under a name that carries a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one is reused.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for all of them.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+# kernel name -> source file under csrc/
+SOURCES = {
+    "level_counts": "level_counts.cu",
+    "first_match": "first_match.cu",
+}
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``$CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels of "
+            "fastapriori_tpu_torch build from source at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    process each, all started together.  Returns, per kernel, the build
+    seconds (0.0 when reused) and the compiler's register/shared-memory
+    report.  Raises RuntimeError with the compiler output on failure."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report: Dict[str, dict] = {}
+    procs = []
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            report[name] = {"seconds": 0.0, "ptxas": "reused"}
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / SOURCES[name])]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs.append((name, out, tmp, proc))
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):"
+                f"\n{log}"
+            )
+        os.replace(tmp, out)
+        report[name] = {
+            "seconds": round(time.perf_counter() - t0, 3),
+            "ptxas": " | ".join(
+                line.strip() for line in log.splitlines()
+                if "registers" in line or "bytes stack" in line
+            ),
+        }
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib
