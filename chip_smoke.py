@@ -5,8 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. Build both CUDA kernels from ``fastapriori_tpu_torch/csrc/`` with nvcc
-   for sm_90a (one nvcc per source, started together).
+1. Build the three CUDA kernels from ``fastapriori_tpu_torch/csrc/`` with
+   nvcc for sm_90a (one nvcc per source, started together).
 2. A quick check of each kernel against its plain PyTorch version at
    ragged shapes, before anything depends on them.
 3. The main path: generate the T10I4D100K-shape corpus with the port's
@@ -15,15 +15,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``--min-support 0.0025`` and compare the SHA-256 of ``freqItemset`` and
    ``recommends`` with the digests the JAX package's CLI writes for the
    same files (``--platform cpu --engine level --num-devices 1``;
-   tests/test_torch_e2e.py recomputes them).  Kernel launch counts are
-   set to 0 just before and read just after; both kernels must have
-   launched.  The CLI's phase walls (its ``--metrics`` stderr lines) are
-   printed again as one stdout line.
-4. Each kernel against its plain version at the main path's shapes
-   (exact equality: every output is an integer count or rank), with the
-   kernel's, the plain version's and, for K1, a library formulation's
-   times from CUDA events, and the least time the card could take for
-   the same work.
+   tests/test_torch_e2e.py recomputes them).  Auto picks the bitmap
+   layout there: K1 and K2 must have launched, K3 not.
+4. The vertical path: the kosarak-shape corpus (990,000 transactions over
+   41,000 items, length 8, seed 2017; 10,000 user baskets, seed 2018),
+   the CLI at ``--min-support 0.002`` with ``FA_MINE_ENGINE=vertical``
+   set for that call only, both digests against the JAX CLI's
+   (tests/test_torch_vertical.py recomputes them).  K3 and K2 must have
+   launched, K1 not.
+   In phases 3 and 4 the launch counts are set to 0 just before the CLI
+   call and read just after, and the CLI's ``--metrics`` stderr lines
+   are printed again on stdout: one line of phase walls, one of the
+   phases' other fields (shapes, counts, launches).
+5. Each kernel against its plain version at the shapes of each path
+   that runs it (K1 on the main path, K2 on both, K3 on the vertical
+   path; exact equality: every output is an integer count or rank),
+   with the kernel's, the plain version's and, for K1, a library
+   formulation's times from CUDA events, and the least time the card
+   could take for the same work.  On each path's baskets, the
+   recommender's host scan against its device path near its switch
+   point (``DEVICE_MIN_CHECKS``).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -48,9 +59,26 @@ FREQ_SHA256 = "c3bdd20e19b8b42fc922ba854fc51efe81bf9803fb1bc62ae3eecff32ab4a707"
 REC_SHA256 = "731e69db1ad76336588bfd65aefc2cdceca2895a396fe2cdf3a6d8e3e51f513a"
 MIN_SUPPORT = "0.0025"
 
+# Phase 4: the kosarak shape (bench.py:90) and the digests written by
+# `FA_MINE_ENGINE=vertical python -m fastapriori_tpu <in>/ <out>/
+# --min-support 0.002 --platform cpu --engine level --num-devices 1`.
+KOSARAK = {
+    "n_txns": 990_000, "n_items": 41_000, "avg_txn_len": 8, "seed": 2017,
+    "n_users": 10_000, "user_seed": 2018, "min_support": "0.002",
+    "freq_sha256":
+        "9b510238756f3acba31addfac72f3c07255e57f1c88065fc4658129854799167",
+    "rec_sha256":
+        "b5a59dffec02a2fe3563f321739f211b889a4dea93807b682efa1d0b470f850b",
+}
+
 # Published H100 SXM peaks (dense; NVIDIA data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+# Per-SM results per clock for compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), and the SMs.
+BITWISE32_PER_CLK_SM = 64
+POPC_PER_CLK_SM = 16
+H100_SMS = 132
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke")
@@ -72,6 +100,16 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -114,8 +152,9 @@ def require_equal(name: str, got, want) -> int:
 
 
 def quick_checks(device) -> None:
-    """Phase 2: both kernels at ragged shapes (T, M, F, MB, R not tile
-    multiples; k1 >= 128) against their plain versions."""
+    """Phase 2: the three kernels at ragged shapes (K1 and K2: T, M, F,
+    MB, R not tile multiples, k1 >= 128; K3: :func:`k3_quick_checks`)
+    against their plain versions."""
     import numpy as np
     import torch
 
@@ -159,93 +198,183 @@ def quick_checks(device) -> None:
             for x in (bask, blen, ant, size, cons)]
     require_equal("first_match ragged", first_match(*args),
                   first_match_plain(*args))
+    k3_quick_checks(device, rng)
     torch.cuda.synchronize()
 
 
-def phase_walls(stderr_text: str) -> dict:
-    """The CLI's ``--metrics`` phase walls and its two "==== Total time"
-    walls, from its stderr, as ``{phase: wall ms}``."""
-    walls = {}
+def k3_quick_checks(device, rng) -> None:
+    """K3 at ragged shapes: NL, P and C multiples of nothing, prefix widths
+    1..8 with padded positions (the zero column f_pad - 1), 1 and 11
+    planes, rows without candidates, the zero column as an extension; and
+    the compressed arena upload against the dense one."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.ops.vertical_kernel import (
+        vertical_counts,
+        vertical_counts_plain,
+    )
+
+    f_pad, nl, p = 200, 3001, 77
+    for n_planes in (1, 11):
+        arena = (rng.integers(0, 2**32, size=(f_pad + 1, nl), dtype=np.uint64)
+                 | rng.integers(0, 2**32, size=(f_pad + 1, nl),
+                                dtype=np.uint64)).astype(np.uint32)
+        arena[f_pad - 1] = 0
+        arena[f_pad] = 0xFFFFFFFF
+        planes = rng.integers(0, 2**32, size=(n_planes, nl),
+                              dtype=np.uint64).astype(np.uint32)
+        planes[:, -1] = 0  # the ragged last lane of a corpus
+        for k in range(1, 9):
+            prefix = rng.integers(0, f_pad - 1, size=(p, k)).astype(np.int32)
+            prefix[rng.random((p, k)) < 0.2] = f_pad - 1
+            prefix[-5:] = f_pad - 1
+            cand = []
+            for row in range(p - 5):
+                if row % 7 == 3:
+                    continue
+                ys = np.sort(rng.choice(f_pad, size=int(rng.integers(1, 40)),
+                                        replace=False))
+                cand += [row * f_pad + int(y) for y in ys]
+            cand.append((p - 6) * f_pad + f_pad - 1)
+            args = (
+                torch.from_numpy(arena.view(np.int32)).to(device),
+                torch.from_numpy(planes.view(np.int32)).to(device),
+                [1 << b for b in range(n_planes)],
+                torch.from_numpy(prefix).to(device),
+                torch.tensor(cand, dtype=torch.int32, device=device),
+            )
+            require_equal(f"vertical_counts ragged B={n_planes} K={k}",
+                          vertical_counts(*args), vertical_counts_plain(*args))
+    # The compressed arena upload (sparse corpora) lands the same words
+    # as the dense one, top bits included.
+    from fastapriori_tpu_torch.device import DeviceContext
+    from fastapriori_tpu_torch.ops.vertical import compress_arena
+
+    sparse = arena * (rng.random(arena.shape) < 0.01)
+    sparse[f_pad] = 0xFFFFFFFF
+    ctx = DeviceContext(device)
+    dense, _ = ctx.upload_tid_arena(sparse)
+    packed, _ = ctx.upload_tid_arena(sparse, compress_arena(sparse, f_pad)[0])
+    require_equal("compressed arena upload", packed, dense)
+
+
+def phase_metrics(stderr_text: str) -> tuple:
+    """The CLI's ``--metrics`` lines and its two "==== Total time" walls,
+    from its stderr: ``({phase: wall ms}, {phase: other fields})``."""
+    walls, fields = {}, {}
     for line in stderr_text.splitlines():
         if line.startswith("==== Total time for "):
             name, _, ms = line[len("==== Total time for "):].rpartition(" ")
             walls[name] = float(ms)
         elif line.startswith("{"):
             rec = json.loads(line)
+            key = rec.pop("event") + (f" k={rec.pop('k')}" if "k" in rec
+                                      else "")
             if "wall_ms" in rec:
-                key = rec["event"] + (f" k={rec['k']}" if "k" in rec else "")
-                walls[key] = rec["wall_ms"]
-    return walls
+                walls[key] = rec.pop("wall_ms")
+            rec.pop("path", None)
+            fields[key] = rec
+    return walls, fields
 
 
-def main_path(in_dir: str, out_dir: str) -> dict:
-    """Phase 3: the port's CLI in-process on the T10I4D100K-shape corpus;
-    returns the kernels' launch counts on this run."""
-    from fastapriori_tpu_torch import cli
+def kernel_launches() -> dict:
     from fastapriori_tpu_torch.ops.level_kernel import level_counts
     from fastapriori_tpu_torch.ops.match_kernel import first_match
+    from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts
+
+    return {"level_counts": level_counts,
+            "first_match": first_match,
+            "vertical_counts": vertical_counts}
+
+
+def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
+                 seed: int, n_users: int, user_seed: int) -> None:
     from fastapriori_tpu_torch.utils.datagen import (
         generate_transactions,
         generate_user_baskets,
     )
 
     os.makedirs(in_dir, exist_ok=True)
-    os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     with open(os.path.join(in_dir, "D.dat"), "w") as f:
         f.write("\n".join(generate_transactions(
-            n_txns=100_000, n_items=1000, seed=2017)) + "\n")
+            n_txns=n_txns, n_items=n_items, avg_txn_len=avg_txn_len,
+            seed=seed)) + "\n")
     with open(os.path.join(in_dir, "U.dat"), "w") as f:
         f.write("\n".join(generate_user_baskets(
-            n_users=10_000, n_items=1000, seed=2018)) + "\n")
-    log(f"datagen: {time.perf_counter() - t0:.3f} s")
+            n_users=n_users, n_items=n_items, seed=user_seed)) + "\n")
+    log(f"datagen {in_dir}: {time.perf_counter() - t0:.3f} s")
 
+
+def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
+             digests: dict, mine_engine=None) -> dict:
+    """Phases 3 and 4: the port's CLI in-process, with FA_MINE_ENGINE set
+    to ``mine_engine`` (unset for None) for this call only; checks both
+    output digests and returns the kernels' launch counts on this run."""
+    from fastapriori_tpu_torch import cli
+
+    os.makedirs(out_dir, exist_ok=True)
+    kernels = kernel_launches()
     captured = io.StringIO()
-    level_counts.launches = 0
-    first_match.launches = 0
+    saved = os.environ.pop("FA_MINE_ENGINE", None)
+    if mine_engine is not None:
+        os.environ["FA_MINE_ENGINE"] = mine_engine
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(captured):
             rc = cli.main([in_dir + "/", out_dir + "/", "--min-support",
-                           MIN_SUPPORT, "--metrics"])
+                           min_support, "--metrics"])
     finally:
         wall = time.perf_counter() - t0
-        launches = {"level_counts": level_counts.launches,
-                    "first_match": first_match.launches}
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        if saved is None:
+            os.environ.pop("FA_MINE_ENGINE", None)
+        else:
+            os.environ["FA_MINE_ENGINE"] = saved
         sys.stderr.write(captured.getvalue())
     if rc != 0:
-        raise SystemExit(f"main path: CLI exited {rc}")
-    log(f"main path: CLI wall {wall:.3f} s, launches {launches}")
-    log("main path phases (wall ms): "
-        + json.dumps(phase_walls(captured.getvalue())))
-    for name, want in (("freqItemset", FREQ_SHA256),
-                       ("recommends", REC_SHA256)):
-        got = sha256(os.path.join(out_dir, name))
+        raise SystemExit(f"{name}: CLI exited {rc}")
+    log(f"{name}: CLI wall {wall:.3f} s, launches {launches}")
+    walls, fields = phase_metrics(captured.getvalue())
+    log(f"{name} phases (wall ms): " + json.dumps(walls))
+    log(f"{name} phase metrics: " + json.dumps(fields))
+    for out_name, want in digests.items():
+        got = sha256(os.path.join(out_dir, out_name))
         if got != want:
-            raise SystemExit(f"main path: {name} sha256 {got} != the JAX "
+            raise SystemExit(f"{name}: {out_name} sha256 {got} != the JAX "
                              f"package's {want}")
-        log(f"main path: {name} sha256 matches the JAX package ({got})")
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"main path: kernel {name} never launched")
+        log(f"{name}: {out_name} sha256 matches the JAX package ({got})")
     return launches
 
 
-def mine(in_dir: str, device):
-    """The main path's phase 1 through the API (after the counted run):
-    the inputs of the kernels' measurements."""
+def require_launches(name: str, launches: dict, ran, idle) -> None:
+    for k in ran:
+        if launches[k] <= 0:
+            raise SystemExit(f"{name}: kernel {k} never launched")
+    for k in idle:
+        if launches[k] != 0:
+            raise SystemExit(f"{name}: kernel {k} launched {launches[k]} "
+                             f"times; this path must not run it")
+
+
+def mine(in_dir: str, device, min_support: str, mine_engine: str = "auto"):
+    """A path's phase 1 through the API (after its counted run): the
+    inputs of the kernels' measurements."""
     from fastapriori_tpu_torch.config import MinerConfig
     from fastapriori_tpu_torch.models.apriori import FastApriori
     from fastapriori_tpu_torch.preprocess import preprocess_file
 
-    cfg = MinerConfig(min_support=float(MIN_SUPPORT))
+    cfg = MinerConfig(min_support=float(min_support), mine_engine=mine_engine)
     data = preprocess_file(os.path.join(in_dir, "D.dat"), cfg.min_support)
     levels = FastApriori(config=cfg, device=device).mine_levels_raw(data)
     return cfg, data, levels
 
 
 def k1_measure(cfg, data, levels, device) -> dict:
-    """Phase 4, K1: the heaviest level-count launch of the main path (the
+    """Phase 5, K1: the heaviest level-count launch of the main path (the
     level whose prefix chunk is largest)."""
     import numpy as np
     import torch
@@ -316,8 +445,47 @@ def k1_measure(cfg, data, levels, device) -> dict:
             "library_ms": library_ms}
 
 
-def k2_measure(in_dir: str, data, levels, device) -> dict:
-    """Phase 4, K2: the first scan micro-batch of the main path."""
+def scan_crossover(path: str, rec, baskets) -> None:
+    """The recommender's host scan against its whole device path (rule
+    table build and upload, K2 launches, fetch) on the path's first n
+    distinct baskets, for n near 10^5 .. 3·10^7 basket x rule checks:
+    wall clock on the host, the median of 3 runs each.  These are the
+    numbers ``models/recommender.py`` ``DEVICE_MIN_CHECKS`` rests on."""
+    import statistics
+
+    from fastapriori_tpu_torch.models.recommender import DEVICE_MIN_CHECKS
+
+    def wall_ms(fn) -> float:
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    def device(sub):
+        rec._table_dev = None  # the table upload is part of the path
+        return rec._device_first_match(sub, {})
+
+    n_rules = rec.n_rules
+    sizes = sorted({min(max(round(c / n_rules), 1), len(baskets))
+                    for c in (1e5, 3e5, 1e6, 3e6, 1e7, 3e7)})
+    for n in sizes:
+        sub = baskets[:n]
+        if device(sub) != rec._host_first_match(sub):
+            raise SystemExit(f"{path}: device scan disagrees with the host "
+                             f"scan on {n} baskets")
+        host_ms = wall_ms(lambda: rec._host_first_match(sub))
+        dev_ms = wall_ms(lambda: device(sub))
+        log(f"scan crossover {path}: {n} baskets x {n_rules} rules = "
+            f"{n * n_rules} checks: host {host_ms:.3f} ms, device path "
+            f"{dev_ms:.3f} ms (DEVICE_MIN_CHECKS {DEVICE_MIN_CHECKS} picks "
+            f"{'device' if n * n_rules >= DEVICE_MIN_CHECKS else 'host'})")
+
+
+def k2_measure(path: str, in_dir: str, data, levels, device) -> dict:
+    """Phase 5, K2: the path's first scan micro-batch (each path's
+    recommend runs one), then :func:`scan_crossover` on its baskets."""
     import torch
 
     from fastapriori_tpu_torch.io.reader import read_dat
@@ -339,10 +507,11 @@ def k2_measure(in_dir: str, data, levels, device) -> dict:
             ant, size, cons)
     mb, f = bm.shape
     r, k = ant.shape
-    log(f"K2 shapes: MB={mb} F={f} R={r} K={k} (rules {rec.n_rules})")
+    log(f"K2 shapes ({path}): MB={mb} ({len(baskets)} distinct baskets) "
+        f"F={f} R={r} K={k} (rules {rec.n_rules})")
     got = first_match(*args)
     want = first_match_plain(*args)
-    err = require_equal("first_match main shape", got, want)
+    err = require_equal(f"first_match {path} shape", got, want)
     ms = time_ms(lambda: first_match(*args), iters=20)
     plain_ms = time_ms(lambda: first_match_plain(*args), iters=2, warmup=1)
     # Each real basket (length > 0; padding rows match nothing) needs the
@@ -353,9 +522,96 @@ def k2_measure(in_dir: str, data, levels, device) -> dict:
     n_ops = 2 * f * int(scanned.sum().item())
     n_bytes = mb * f + 4 * mb + 4 * r * k + 8 * r + 4 * mb
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"K2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    log(f"K2 ({path}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); matched "
         f"{int((got < NO_MATCH).sum().item())} of {len(baskets)} baskets")
+    scan_crossover(path, rec, baskets)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:
+    """Phase 5, K3: the vertical path's heaviest launch (the prefix chunk
+    with the most candidates; every launch has the same lanes and
+    planes)."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.models.apriori import level_chunks
+    from fastapriori_tpu_torch.models.candidates import gen_candidates_arrays
+    from fastapriori_tpu_torch.ops.vertical import (
+        build_tid_arena_csr,
+        weight_bit_planes,
+    )
+    from fastapriori_tpu_torch.ops.vertical_kernel import (
+        vertical_counts,
+        vertical_counts_plain,
+    )
+
+    arena_np, f_pad, t_pad = build_tid_arena_csr(
+        data.basket_indices, data.basket_offsets, data.num_items, 32,
+        cfg.item_tile)
+    planes_np, scales = weight_bit_planes(
+        np.asarray(data.weights, dtype=np.int64), t_pad)
+    best = None
+    for i, (mat, _) in enumerate(levels):
+        if mat.shape[0] < i + 3:  # the level loop stops here
+            break
+        x_idx, ys = gen_candidates_arrays(mat)
+        for prefix_cols, cand_idx, _ in level_chunks(mat, x_idx, ys, f_pad,
+                                                     cfg):
+            if best is None or cand_idx.size > best[1].size:
+                best = (prefix_cols, cand_idx, i + 3)
+    prefix_cols, cand_np, k = best
+    args = (
+        torch.from_numpy(arena_np.view(np.int32)).to(device),
+        torch.from_numpy(planes_np.view(np.int32)).to(device),
+        scales,
+        torch.from_numpy(prefix_cols).to(device),
+        torch.from_numpy(cand_np.astype(np.int32)).to(device),
+    )
+    nl, n_planes = arena_np.shape[1], len(scales)
+    p, width = prefix_cols.shape
+    got = vertical_counts(*args)
+    want = vertical_counts_plain(*args, cand_chunk=cfg.vertical_cand_chunk)
+    err = require_equal("vertical_counts path shape", got, want)
+    ms = time_ms(lambda: vertical_counts(*args), iters=20)
+    plain_ms = time_ms(lambda: vertical_counts_plain(
+        *args, cand_chunk=cfg.vertical_cand_chunk), iters=3, warmup=1)
+
+    # Real work only: prefix rows that have candidates, their positions
+    # that name an item, candidates whose extension is an item, lanes
+    # that hold a transaction, and per plane only its non-zero words (an
+    # AND with a zero plane word, and its popcount, add nothing).
+    rows = np.unique(cand_np // f_pad)
+    pos = prefix_cols[rows] != f_pad - 1
+    real = cand_np[cand_np % f_pad != f_pad - 1]
+    lanes = -(-data.total_count // 32)
+    plane_words = np.count_nonzero(planes_np[:, :lanes], axis=1)
+    items_read = np.union1d(prefix_cols[rows][pos], real % f_pad).size
+    n_bytes = (4 * nl * (items_read + n_planes) + 4 * int(pos.sum())
+               + 4 * 2 * cand_np.size)
+    n_and = (int(pos.sum()) * lanes
+             + real.size * (lanes + int(plane_words.sum())))
+    n_popc = real.size * int(plane_words.sum())
+    clk = clock_mhz * 1e6 * H100_SMS
+    t_and = n_and / (BITWISE32_PER_CLK_SM * clk) * 1e3
+    t_popc = n_popc / (POPC_PER_CLK_SM * clk) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    # AND and population count issue to different units, so the least
+    # time for the operations is the slower of the two.
+    t_ops = max(t_and, t_popc)
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    log(f"K3 shapes: level k={k} arena [{f_pad + 1}, {nl}] B={n_planes} "
+        f"P={p} ({rows.size} with candidates) K={width} C={cand_np.size} "
+        f"({real.size} real); non-zero words per plane "
+        f"{plane_words.tolist()} of {lanes} real lanes; "
+        f"ANDs {n_and} ({t_and:.4f} ms), popcounts {n_popc} "
+        f"({t_popc:.4f} ms), bytes {n_bytes} ({t_bytes:.4f} ms) at "
+        f"{clock_mhz:.0f} MHz")
+    log(f"K3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
@@ -363,6 +619,7 @@ def k2_measure(in_dir: str, data, levels, device) -> dict:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -372,27 +629,71 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
+    clock = sm_clock_mhz()
+    log(f"max SM clock: {clock:.0f} MHz")
     t0 = time.perf_counter()
     report = build.build()
     log(f"build: {time.perf_counter() - t0:.3f} s {json.dumps(report)}")
     quick_checks(device)
-    log("quick checks: both kernels equal their plain versions")
+    log("quick checks: the three kernels equal their plain versions")
 
     in_dir, out_dir = os.path.join(WORK, "in"), os.path.join(WORK, "out")
-    launches = main_path(in_dir, out_dir)
-    cfg, data, levels = mine(in_dir, device)
+    write_corpus(in_dir, n_txns=100_000, n_items=1000, avg_txn_len=10,
+                 seed=2017, n_users=10_000, user_seed=2018)
+    main_launches = cli_path(
+        "main path", in_dir, out_dir, MIN_SUPPORT,
+        {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256})
+    require_launches("main path", main_launches,
+                     ran=("level_counts", "first_match"),
+                     idle=("vertical_counts",))
+
+    k_in, k_out = os.path.join(WORK, "kin"), os.path.join(WORK, "kout")
+    write_corpus(k_in, **{key: KOSARAK[key] for key in (
+        "n_txns", "n_items", "avg_txn_len", "seed", "n_users", "user_seed")})
+    vert_launches = cli_path(
+        "vertical path", k_in, k_out, KOSARAK["min_support"],
+        {"freqItemset": KOSARAK["freq_sha256"],
+         "recommends": KOSARAK["rec_sha256"]}, mine_engine="vertical")
+    require_launches("vertical path", vert_launches,
+                     ran=("vertical_counts", "first_match"),
+                     idle=("level_counts",))
+
+    cfg, data, levels = mine(in_dir, device, MIN_SUPPORT)
     k1 = k1_measure(cfg, data, levels, device)
-    k2 = k2_measure(in_dir, data, levels, device)
+    k2 = k2_measure("t10i4d100k", in_dir, data, levels, device)
+    del cfg, data, levels
+    kcfg, kdata, klevels = mine(k_in, device, KOSARAK["min_support"],
+                                "vertical")
+    k2v = k2_measure("kosarak_vertical", k_in, kdata, klevels, device)
+    k3 = k3_measure(kcfg, kdata, klevels, device, clock)
+
+    def by_path(name):
+        return {"t10i4d100k": main_launches[name],
+                "kosarak_vertical": vert_launches[name]}
+
+    # Top-level numbers: the first path in "measured_by_path".
     kernels = [
         {"name": "level_counts", "route": "cuda",
          "source": "fastapriori_tpu_torch/csrc/level_counts.cu",
          "replaces": "fastapriori_tpu/ops/pallas_level.py:57",
-         "launches": launches["level_counts"], **k1},
+         "launches": main_launches["level_counts"], "path": "t10i4d100k",
+         "launches_by_path": by_path("level_counts"), **k1,
+         "measured_by_path": {"t10i4d100k": k1}},
         {"name": "first_match", "route": "cuda",
          "source": "fastapriori_tpu_torch/csrc/first_match.cu",
          "replaces": "fastapriori_tpu/ops/pallas_vertical.py:210",
-         "launches": launches["first_match"], **k2},
+         "launches": main_launches["first_match"], "path": "t10i4d100k",
+         "launches_by_path": by_path("first_match"), **k2,
+         "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v}},
+        {"name": "vertical_counts", "route": "cuda",
+         "source": "fastapriori_tpu_torch/csrc/vertical_counts.cu",
+         "replaces": "fastapriori_tpu/ops/pallas_vertical.py:88",
+         "launches": vert_launches["vertical_counts"],
+         "path": "kosarak_vertical",
+         "launches_by_path": by_path("vertical_counts"), **k3,
+         "measured_by_path": {"kosarak_vertical": k3}},
     ]
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

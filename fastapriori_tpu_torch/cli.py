@@ -12,7 +12,10 @@ reference C1, Main.scala:15-41).
 - a third positional argument is accepted and ignored, like the
   reference;
 - ``--platform default`` runs on the CUDA device (an error without one);
-  ``--platform cpu`` runs every kernel's plain PyTorch version on the CPU.
+  ``--platform cpu`` runs every kernel's plain PyTorch version on the CPU;
+- the mining layout has no flag, as in the JAX package's CLI: the
+  environment variable ``FA_MINE_ENGINE`` (``auto``, ``bitmap`` or
+  ``vertical``; strictly parsed) picks it, ``auto`` by default.
 
 User-correctable failures print one line and exit 2.
 """
@@ -33,6 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="fastapriori_tpu_torch",
         description="Apriori mining + association-rule recommendation on "
         "one CUDA GPU (reference-compatible CLI)",
+        epilog="The environment variable FA_MINE_ENGINE=auto|bitmap|vertical "
+        "picks the mining layout (default auto: vertical on sparse corpora "
+        "with many frequent items, else bitmap).",
     )
     p.add_argument("input", help="input prefix containing D.dat and U.dat")
     p.add_argument("output", help="output prefix for freqItemset/recommends")

@@ -13,6 +13,9 @@ DEFAULT_MIN_SUPPORT = 0.092
 
 ENGINES = ("auto", "level")
 
+# Mining layouts (models/apriori.py ``FastApriori._mine_engine``).
+MINE_ENGINES = ("auto", "bitmap", "vertical")
+
 
 @dataclasses.dataclass
 class MinerConfig:
@@ -38,5 +41,17 @@ class MinerConfig:
     # engine is not ported yet); "level" runs one K1 launch per prefix
     # chunk of each level.
     engine: str = "auto"
+    # Mining layout: "bitmap" counts with the transaction x item bitmap
+    # (K1); "vertical" with per-item packed tid lanes (the Eclat-style
+    # engine, K3); "auto" picks vertical when at least
+    # `vertical_min_items` items are frequent and the density
+    # Σ item_counts / (n_raw · F) is at most `vertical_density_max`.
+    # FA_MINE_ENGINE overrides, strictly parsed.
+    mine_engine: str = "auto"
+    vertical_density_max: float = 0.01
+    vertical_min_items: int = 512
+    # Candidates per step of K3's plain version (bounds its [chunk, NL]
+    # intermediate; the CUDA kernel does not read it).
+    vertical_cand_chunk: int = 1 << 12
     # Emit per-phase structured metrics as JSON lines on stderr.
     log_metrics: bool = False

@@ -1,6 +1,7 @@
 """Device placement for the single-GPU path (counterpart: the one-device
 subset of fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — upload,
-replicate, fetch; no mesh and no collectives).
+the vertical engine's arena and plane uploads, fetch; no mesh and no
+collectives).
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.  With no
 CUDA device and no such request, :func:`resolve_device` raises
@@ -9,12 +10,13 @@ CUDA device and no such request, :func:`resolve_device` raises
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.ops.vertical import assemble_arena
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None):
@@ -53,6 +55,36 @@ class DeviceContext:
 
     def upload(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def upload_tid_arena(
+        self, arena_np: np.ndarray, buckets=None
+    ) -> Tuple[torch.Tensor, int]:
+        """Place the vertical engine's uint32 ``[f_pad+1, NL]`` arena as
+        an int32 tensor with the same bits (the one-device subset of
+        fastapriori_tpu/parallel/mesh.py ``upload_tid_arena``).
+        ``buckets``: its index-compressed form (ops/vertical.py
+        ``compress_arena``), uploaded and scattered into the dense arena
+        on the device; None uploads the dense arena.  Returns ``(arena,
+        upload_bytes)``."""
+        if buckets is None:
+            return self.upload(arena_np.view(np.int32)), arena_np.nbytes
+        dev = [
+            (self.upload(ids), self.upload(segs),
+             self.upload(words.view(np.int32)))
+            for ids, segs, words in buckets
+        ]
+        payload = sum(
+            ids.nbytes + segs.nbytes + words.nbytes
+            for ids, segs, words in buckets
+        )
+        f_pad = arena_np.shape[0] - 1
+        return assemble_arena(dev, f_pad, arena_np.shape[1], self.device), \
+            payload
+
+    def upload_lane_planes(self, planes_np: np.ndarray) -> torch.Tensor:
+        """The uint32 ``[B, NL]`` weight bit-planes as int32 (the same
+        bits), beside the arena."""
+        return self.upload(planes_np.view(np.int32))
 
     @staticmethod
     def fetch(x: torch.Tensor) -> np.ndarray:

@@ -31,6 +31,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {
     "level_counts": "level_counts.cu",
     "first_match": "first_match.cu",
+    "vertical_counts": "vertical_counts.cu",
 }
 
 NVCC_FLAGS = (

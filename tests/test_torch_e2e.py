@@ -24,9 +24,14 @@ from fastapriori_tpu_torch import convert
 from fastapriori_tpu_torch.cli import main as torch_main
 from fastapriori_tpu_torch.io.reader import read_dat, tokenize_line
 from fastapriori_tpu_torch.models.apriori import FastApriori
-from fastapriori_tpu_torch.models.recommender import AssociationRules
+from fastapriori_tpu_torch.models.recommender import (
+    DEVICE_MIN_CHECKS,
+    AssociationRules,
+    device_scan_wanted,
+)
 from fastapriori_tpu_torch.ops.level_kernel import level_counts
 from fastapriori_tpu_torch.ops.match_kernel import first_match
+from fastapriori_tpu_torch.preprocess import dedup_user_baskets
 from fastapriori_tpu_torch.utils.datagen import (
     generate_transactions,
     generate_user_baskets,
@@ -133,6 +138,45 @@ def test_cpu_run_launches_no_kernel(tmp_path):
                                                          use_device=True)
     assert level_counts.launches == 0
     assert first_match.launches == 0
+
+
+def test_scan_side_at_the_smoke_paths_sizes():
+    """Both recommend problems of chip_smoke.py (distinct baskets x
+    rules) take the device scan, and so K2 launches on both paths;
+    below DEVICE_MIN_CHECKS the host scan stays."""
+    assert device_scan_wanted(232, 46_098)  # kosarak shape, vertical
+    assert device_scan_wanted(3_321, 123_377)  # T10I4D100K shape
+    assert device_scan_wanted(1, DEVICE_MIN_CHECKS)
+    assert not device_scan_wanted(1, DEVICE_MIN_CHECKS - 1)
+    assert not device_scan_wanted(2, 46_098)
+
+
+@pytest.mark.parametrize("n_users", [3, 400])
+def test_run_takes_the_side_the_threshold_names(tmp_path, monkeypatch,
+                                                n_users):
+    d_path, users = _small_phase1(tmp_path)
+    levels, data = FastApriori(0.02, device="cpu").run_file_raw(d_path)
+    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
+                           data.item_counts, device="cpu")
+    users = users[:n_users]
+    host = rec.run(users, use_device=False)
+    sides = []
+    for name in ("_host_first_match", "_device_first_match"):
+        real = getattr(rec, name)
+
+        def spy(*args, _real=real, _name=name):
+            sides.append(_name)
+            return _real(*args)
+
+        monkeypatch.setattr(rec, name, spy)
+    assert rec.run(users) == host
+    baskets, _, _ = dedup_user_baskets(users, data.item_to_rank)
+    want = ("_device_first_match"
+            if device_scan_wanted(len(baskets), rec.n_rules)
+            else "_host_first_match")
+    assert sides == [want]
+    assert want == ("_device_first_match" if n_users == 400
+                    else "_host_first_match")
 
 
 def test_chip_smoke_digests_are_the_jax_packages(tmp_path):

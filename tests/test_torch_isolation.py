@@ -7,6 +7,10 @@
   raises InputError (the CLI exits 2), and chip_smoke.py exits non-zero
   without a result line;
 - the engines this slice does not have are refused by name.
+
+The vertical engine's modules (ops/vertical.py, ops/vertical_kernel.py,
+utils/env.py) are imported by name, and a forced vertical mine without
+a CUDA device is refused like any other run.
 """
 
 import ast
@@ -29,7 +33,9 @@ FORBIDDEN = {"jax", "fastapriori_tpu"}
 def test_import_leaves_jax_out():
     code = (
         "import sys, fastapriori_tpu_torch, fastapriori_tpu_torch.cli, "
-        "fastapriori_tpu_torch.convert\n"
+        "fastapriori_tpu_torch.convert, fastapriori_tpu_torch.ops.vertical, "
+        "fastapriori_tpu_torch.ops.vertical_kernel, "
+        "fastapriori_tpu_torch.utils.env\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'fastapriori_tpu'))\n"
         "print(','.join(bad))\n"
@@ -55,6 +61,10 @@ def test_no_module_of_the_port_names_jax():
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {os.path.join("fastapriori_tpu_torch", "ops", "vertical.py"),
+            os.path.join("fastapriori_tpu_torch", "ops", "vertical_kernel.py"),
+            os.path.join("fastapriori_tpu_torch", "utils", "env.py")} <= names
     for path in files:
         assert FORBIDDEN.isdisjoint(_imported_roots(path)), path
 
@@ -71,6 +81,13 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch, tmp_path, capsys):
     assert rc == 2
     assert "CUDA" in capsys.readouterr().err
     assert not (tmp_path / "out-freqItemset").exists()
+    monkeypatch.setenv("FA_MINE_ENGINE", "vertical")
+    rc = torch_main([str(tmp_path) + "/", str(tmp_path) + "/out-"])
+    assert rc == 2
+    assert "CUDA" in capsys.readouterr().err
+    with pytest.raises(InputError, match="CUDA"):
+        FastApriori(0.1, config=MinerConfig(mine_engine="vertical"))
+    monkeypatch.delenv("FA_MINE_ENGINE")
     # Asked for explicitly, the CPU is fine.
     assert FastApriori(0.1, device="cpu").ctx.platform == "cpu"
 
