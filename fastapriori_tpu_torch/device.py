@@ -17,6 +17,7 @@ import torch
 
 from fastapriori_tpu_torch.errors import InputError
 from fastapriori_tpu_torch.ops.vertical import assemble_arena
+from fastapriori_tpu_torch.ops.vertical_kernel import lane_plane_mask
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None):
@@ -83,8 +84,11 @@ class DeviceContext:
 
     def upload_lane_planes(self, planes_np: np.ndarray) -> torch.Tensor:
         """The uint32 ``[B, NL]`` weight bit-planes as int32 (the same
-        bits), beside the arena."""
-        return self.upload(planes_np.view(np.int32))
+        bits), beside the arena; K3's per-lane plane mask is derived from
+        them here, once (ops/vertical_kernel.py ``lane_plane_mask``)."""
+        planes = self.upload(planes_np.view(np.int32))
+        lane_plane_mask(planes)
+        return planes
 
     @staticmethod
     def fetch(x: torch.Tensor) -> np.ndarray:

@@ -22,7 +22,9 @@ masked in the kernel) and the overlap is int32, so k1 may exceed 127.
 
 :func:`level_counts` launches the kernel for CUDA tensors and runs
 :func:`level_counts_plain` only for CPU tensors; its ``launches``
-attribute counts kernel launches.
+attribute counts kernel launches.  Everything the kernel derives from
+its inputs (packed B, each prefix row's word list, the packed WB rows,
+the tile work list) is derived on the device inside that launch.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from fastapriori_tpu_torch.ops import build
 
-# csrc/level_counts.cu kMaxWords: packed 32-bit words per row.
+# csrc/level_counts.cu: F <= 32 kMaxWords.
 MAX_F = 12288
 
 
@@ -55,12 +57,6 @@ def level_counts_plain(
         common = (s @ b.T == k1).to(torch.float64)  # [M, tc]
         out += common @ wb[t0 : t0 + t_chunk].to(torch.float64)
     return out.to(torch.int32)
-
-
-def packed_words(f: int) -> int:
-    """32-bit words per bit-packed row of F columns (the packed layout of
-    csrc/level_counts.cu: four words per 128 columns)."""
-    return 4 * ((f + 127) // 128)
 
 
 def _check(bitmap, wb, s_mat) -> None:
@@ -88,14 +84,16 @@ def _check_widths(s_mat, k1) -> None:
                              f"takes rows of at most k1={k1} items")
 
 
-def _kernel_fn():
-    fn = build.load("level_counts").fa_level_counts
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = build.load("level_counts")
+    if lib.fa_level_counts.argtypes is None:
+        lib.fa_level_counts_scratch.argtypes = [ctypes.c_int] * 4
+        lib.fa_level_counts_scratch.restype = ctypes.c_longlong
+        lib.fa_level_counts.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int
+        ] * 4 + [ctypes.c_void_p]
+        lib.fa_level_counts.restype = ctypes.c_int
+    return lib
 
 
 def level_counts(
@@ -121,11 +119,13 @@ def level_counts(
     out = torch.zeros((m, f), dtype=torch.int32, device=bitmap.device)
     if t == 0 or f == 0 or m == 0:
         return out
-    # Bit-packed copies of B and S (csrc/level_counts.cu, first pass).
-    scratch = torch.empty((t + m) * packed_words(f), dtype=torch.int32,
-                          device=bitmap.device)
+    lib = _lib()
+    # Packed B and WB, each prefix row's word list, the tile work list
+    # and the work counter (csrc/level_counts.cu `Scratch`).
+    scratch = torch.empty(lib.fa_level_counts_scratch(t, f, m, int(k1)),
+                          dtype=torch.uint8, device=bitmap.device)
     stream = torch.cuda.current_stream(bitmap.device).cuda_stream
-    err = _kernel_fn()(
+    err = lib.fa_level_counts(
         bitmap.data_ptr(), wb.data_ptr(), s_mat.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), t, f, m, int(k1), stream,
     )

@@ -28,12 +28,16 @@ fails the launch (a CUDA error at the next synchronisation).
 
 :func:`vertical_counts` launches the kernel for CUDA tensors and runs
 :func:`vertical_counts_plain` only for CPU tensors; its ``launches``
-attribute counts kernel launches.
+attribute counts kernel launches.  The kernel reads plane words only
+where :func:`lane_plane_mask` says a plane is non-zero, a mask derived on
+the device once per planes upload; the run starts of the candidates are
+derived by the launch itself.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Sequence
 
 import torch
@@ -153,22 +157,32 @@ def _check_contract(arena, prefix_cols, cand_idx) -> None:
                              "row (cand_idx // f_pad non-decreasing)")
 
 
-def _run_starts(cand_idx: torch.Tensor, f_pad: int, p: int) -> torch.Tensor:
-    """int32 [P + 1]: prefix row ``p``'s candidates are
-    ``cand_idx[start[p]:start[p + 1]]``.  The starts rise from 0 to C
-    whatever the input, so every candidate lies in exactly one row's
-    range, where the kernel asserts that its row is that row."""
-    rows = cand_idx.long() // f_pad
-    grid = torch.arange(p + 1, device=cand_idx.device, dtype=torch.int64)
-    start = torch.searchsorted(rows, grid).clamp_(max=cand_idx.shape[0])
-    start[0], start[p] = 0, cand_idx.shape[0]
-    return torch.cummax(start, dim=0).values.to(torch.int32)
+# (weak reference to the planes tensor, its version, its lane mask) of the
+# last lane_plane_mask call.
+_last_mask: list = [None, None, None]
+
+
+def lane_plane_mask(w_planes: torch.Tensor) -> torch.Tensor:
+    """int32 [NL]: bit ``b`` set where plane ``b`` is non-zero in that
+    lane, the planes the kernel reads for a non-zero intersection word
+    there (a zero plane word adds nothing).  Cached for the last planes
+    tensor seen (and its in-place version), so the vertical engine derives
+    it once per upload (device.py ``upload_lane_planes``)."""
+    ref, version, mask = _last_mask
+    if ref is not None and ref() is w_planes and version == w_planes._version:
+        return mask
+    bits = torch.arange(w_planes.shape[0], dtype=torch.int32,
+                        device=w_planes.device)
+    mask = ((w_planes != 0).to(torch.int32) << bits[:, None]).sum(
+        dim=0, dtype=torch.int32)
+    _last_mask[:] = [weakref.ref(w_planes), w_planes._version, mask]
+    return mask
 
 
 def _kernel_fn():
     fn = build.load("vertical_counts").fa_vertical_counts
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -205,12 +219,15 @@ def vertical_counts(
         return out
     if p == 0:
         raise ValueError("cand_idx holds candidates but prefix_cols no row")
-    starts = _run_starts(cand_idx, f_pad, p)
+    mask = lane_plane_mask(w_planes)
+    # The work counter (8 bytes) and the run starts [P + 1], written by
+    # the kernel's first pass.
+    scratch = torch.empty(p + 3, dtype=torch.int32, device=arena.device)
     stream = torch.cuda.current_stream(arena.device).cuda_stream
     err = _kernel_fn()(
-        arena.data_ptr(), w_planes.data_ptr(), prefix_cols.data_ptr(),
-        cand_idx.data_ptr(), starts.data_ptr(), out.data_ptr(), f_pad, nl,
-        w_planes.shape[0], p, k, c, stream,
+        arena.data_ptr(), w_planes.data_ptr(), mask.data_ptr(),
+        prefix_cols.data_ptr(), cand_idx.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), f_pad, nl, w_planes.shape[0], p, k, c, stream,
     )
     if err != 0:
         raise RuntimeError(f"vertical_counts kernel launch failed: CUDA "

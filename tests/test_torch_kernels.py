@@ -84,6 +84,49 @@ def test_level_counts_refuses_row_wider_than_k1():
         level_counts(_t(bitmap), _t(wb), _t(s), 2)
 
 
+def _k1_by_row_words(bitmap, wb, s, k1):
+    """K1's packed, word-sparse membership in numpy: 32-column words (bit
+    j = column 32 w + j), each prefix row reduced to its non-zero words; a
+    row of exactly k1 items holds a transaction iff none of its listed
+    words has a bit the transaction lacks, and a row with fewer items
+    never matches."""
+    t, f = bitmap.shape
+    words = -(-f // 32)
+
+    def pack(x):
+        bits = np.zeros((x.shape[0], words * 32), dtype=np.uint64)
+        bits[:, :f] = x != 0
+        return (bits.reshape(x.shape[0], words, 32)
+                << np.arange(32, dtype=np.uint64)).sum(axis=2)
+
+    bp, sp = pack(bitmap), pack(s)
+    out = np.zeros(s.shape, dtype=np.int64)
+    for m in range(s.shape[0]):
+        if (s[m] != 0).sum() != k1:
+            continue
+        listed = np.nonzero(sp[m])[0]
+        held = np.ones(t, dtype=bool)
+        for w in listed:
+            held &= (sp[m, w] & ~bp[:, w]) == 0
+        out[m] = wb[held].astype(np.int64).sum(axis=0)
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("k, f", [(2, 256), (3, 200), (5, 256)])
+def test_k1_row_word_decomposition_matches_pallas(k, f):
+    bitmap, w, wb, s = _case(k, T_TILE * 2, M_TILE, f, k)
+    s[3] = 0
+    s[3, :k - 2] = 1  # a row of k - 2 items: it never matches
+    want = np.asarray(
+        level_counts_pallas(
+            jnp.asarray(bitmap), jnp.asarray(wb), jnp.asarray(s),
+            jnp.int32(k - 1), t_tile=T_TILE, m_tile=M_TILE, interpret=True,
+        )
+    )
+    assert (_k1_by_row_words(bitmap, wb, s, k - 1) == want).all()
+    assert (want[3] == 0).all() and want.sum() > 0
+
+
 def _match_case(seed, mb=64, f=128, r=256, k=4):
     """Baskets with padding rows (len 0), a rule table with padding rules
     (size > F) pointing at the all-zero column, and some baskets that no

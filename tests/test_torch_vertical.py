@@ -39,6 +39,7 @@ from fastapriori_tpu_torch.models import apriori as tv_apriori
 from fastapriori_tpu_torch.models.apriori import FastApriori
 from fastapriori_tpu_torch.ops import vertical as tv
 from fastapriori_tpu_torch.ops.vertical_kernel import (
+    lane_plane_mask,
     vertical_counts,
     vertical_counts_plain,
 )
@@ -205,6 +206,70 @@ def test_vertical_counts_refuses_what_breaks_the_contract():
         case[i] = _t(np.asarray(bad, dtype=np.int32)) if i > 2 else bad
         with pytest.raises(ValueError, match=msg):
             vertical_counts(*case)
+
+
+@pytest.mark.parametrize("max_weight", [1, 700, 2**31 - 1])
+def test_lane_plane_mask_encodes_the_jax_planes(max_weight):
+    # Bit b of lane l is set iff plane b of the JAX package's bit-planes is
+    # non-zero there: the planes K3 reads for a non-zero intersection word.
+    rng = np.random.default_rng(max_weight % 1000)
+    t = 2000
+    weights = rng.integers(1, max_weight + 1, size=t)
+    weights[:200] = 1  # lanes of weight-1 transactions: plane 0 only
+    t_pad = -(-t // 32) * 32 + 64  # two all-padding lanes
+    jplanes, _ = jv.weight_bit_planes(weights, t_pad)
+    jplanes = np.asarray(jplanes)
+    ctx = DeviceContext("cpu")
+    planes = ctx.upload_lane_planes(jplanes)
+    mask = lane_plane_mask(planes)
+    assert mask.dtype == torch.int32 and mask.shape == (jplanes.shape[1],)
+    want = ((jplanes != 0).astype(np.int64)
+            << np.arange(jplanes.shape[0])[:, None]).sum(axis=0)
+    assert (mask.numpy().astype(np.int64) & 0xFFFFFFFF == want).all()
+    assert (mask.numpy()[:6] == 1).all() and (mask.numpy()[-2:] == 0).all()
+    # Derived once per upload: the same tensor gives the cached mask ...
+    assert lane_plane_mask(planes) is mask
+    # ... until it is changed in place, or another tensor comes.
+    planes[:, 0] = 0
+    assert lane_plane_mask(planes)[0] == 0
+    other = planes.clone()
+    assert lane_plane_mask(other) is not lane_plane_mask(planes)
+
+
+def _k3_by_listed_lanes(arena, planes, prefix, cand):
+    """K3's decomposition in numpy: per prefix row only its non-zero AND
+    words, and per intersection word only the planes its lane mask names."""
+    f_pad = arena.shape[0] - 1
+    mask = ((planes != 0).astype(np.int64)
+            << np.arange(planes.shape[0])[:, None]).sum(axis=0)
+    popc = np.vectorize(lambda v: bin(int(v)).count("1"))
+    out = np.zeros(cand.shape[0], dtype=np.int64)
+    for c, ix in enumerate(cand):
+        row, y = divmod(int(ix), f_pad)
+        cols = np.where(prefix[row] == f_pad - 1, f_pad, prefix[row])
+        pref = np.bitwise_and.reduce(arena[cols], axis=0)
+        listed = np.nonzero(pref)[0]
+        x = pref[listed] & arena[y, listed]
+        for lane, word in zip(listed[x != 0], x[x != 0]):
+            for b in range(planes.shape[0]):
+                if (mask[lane] >> b) & 1:
+                    out[c] += int(popc(word & planes[b, lane])) << b
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_planes", [2, 5])
+def test_k3_listed_lane_decomposition_matches_pallas(n_planes):
+    arena, planes, prefix, cand = _k3_case(20 + n_planes, n_planes, nl=45)
+    planes[1:, 10:30] = 0  # lanes whose planes above 0 are zero
+    arena[3] = 0  # an item in no transaction: empty intersections
+    scales = tuple(1 << b for b in range(n_planes))
+    want = np.asarray(vertical_counts_pallas(
+        jnp.asarray(arena), jnp.asarray(planes), jnp.asarray(prefix),
+        jnp.asarray(cand), scales, cand_tile=128, lane_tile=128,
+        interpret=True,
+    ))
+    assert (_k3_by_listed_lanes(arena, planes, prefix, cand) == want).all()
+    assert (want > 0).sum() > len(cand) // 4
 
 
 # ---------------------------------------------------------------------------
