@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Build the three CUDA kernels from ``fastapriori_tpu_torch/csrc/`` with
    nvcc for sm_90a (one nvcc per source, started together).
 2. A quick check of each kernel against its plain PyTorch version at
-   ragged shapes, before anything depends on them.
+   ragged shapes and at the edges of its design (K2 up to F = 41,088),
+   before anything depends on them.
 3. The main path: generate the T10I4D100K-shape corpus with the port's
    datagen (100,000 transactions over 1,000 items, seed 2017; 10,000 user
    baskets, seed 2018), run the port's CLI in-process at
@@ -34,10 +35,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``per_launch_ms``, ``ms_all_launches``); the replay must make as many
    launches as phases 3 and 4 counted.  At the heaviest launch, the
    kernel's, the plain version's and, for K1, a library formulation's
-   times from CUDA events, and the least time the card could take for
-   the same work (K3's counted two ways).  On each path's baskets, the
-   recommender's host scan against its device path near its switch
-   point (``DEVICE_MIN_CHECKS``).
+   times from CUDA events (for K2 also its device time from
+   torch.profiler, which leaves out the host's launch overhead), and the
+   least time the card could take for the same work (K3's counted two
+   ways).  On each path's baskets, the recommender's host scan against
+   its device path from one basket up, around its switch point
+   (``DEVICE_MIN_CHECKS``).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -133,6 +136,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of device time: every CUDA kernel that
+    ``iters`` calls launch, summed from torch.profiler.  Unlike
+    :func:`time_ms` it leaves out the card's idle gaps when the host's
+    launch overhead outlasts the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type.name == "CUDA")
+    if total_us <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    return total_us / iters / 1e3
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
@@ -156,34 +180,115 @@ def require_equal(name: str, got, want) -> int:
 
 def quick_checks(device) -> None:
     """Phase 2: the three kernels at ragged shapes and at the edges of
-    their designs (:func:`k1_quick_checks`, :func:`k3_quick_checks`; K2:
-    MB and R not tile multiples) against their plain versions."""
+    their designs (:func:`k1_quick_checks`, :func:`k2_quick_checks`,
+    :func:`k3_quick_checks`) against their plain versions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    k1_quick_checks(device, rng)
+    k2_quick_checks(device, rng)
+    k3_quick_checks(device, rng)
+    torch.cuda.synchronize()
+
+
+def k2_case(rng, mb: int, f: int, r: int, k: int, density: float) -> list:
+    """Baskets of about ``density * F`` items (the last three rows padding,
+    length 0; the column F - 1 zero everywhere), rules of 1..K items of
+    which a third are taken from a basket's own items (so matches land at
+    many ranks), the rest random, and the last 10 rules padding (size
+    F + 1); antecedent padding positions point at column F - 1."""
+    import numpy as np
+
+    zcol = f - 1
+    bask = (rng.random((mb, f)) < density).astype(np.int8)
+    bask[:, zcol] = 0
+    bask[max(mb - 3, 1):] = 0
+    size = rng.integers(1, k + 1, size=r).astype(np.int32)
+    ant = rng.integers(0, zcol, size=(r, k)).astype(np.int32)
+    donors = rng.integers(0, mb, size=r)
+    for q in np.flatnonzero(rng.random(r) < 1 / 3):
+        items = np.flatnonzero(bask[donors[q]])
+        if len(items) >= size[q]:
+            ant[q, : size[q]] = rng.choice(items, size=size[q], replace=False)
+    ant[np.arange(k)[None, :] >= size[:, None]] = zcol
+    size[-10:] = f + 1
+    ant[-10:] = zcol
+    cons = rng.integers(0, zcol, size=r).astype(np.int32)
+    return [bask, bask.sum(axis=1).astype(np.int32), ant, size, cons]
+
+
+def k2_quick_checks(device, rng) -> None:
+    """K2 against its plain version, exactly: F = 7,296 (above the 7,168
+    an earlier design of the kernel took), F = 41,088 (the kosarak-shape
+    corpus's 41,000 items padded, MB = 4,096, R = 65,536: the form that
+    reads baskets from device memory), F not a multiple of 32 (200 and
+    1,000: the packing pass's byte loop; 208: a last word of one 16-byte
+    load), MB = 1 and MB not a
+    multiple of the 64-basket group, R not a multiple of the 256-rule
+    tile, a batch no rule matches (a full sweep), one that matches rule 0
+    everywhere, rules whose consequent lies in every basket ahead of the
+    first that fires, and K = 1, 16 and 40 (positions past the 32 staged
+    ones read from device memory)."""
     import numpy as np
     import torch
 
     from fastapriori_tpu_torch.ops.match_kernel import (
+        NO_MATCH,
         first_match,
         first_match_plain,
     )
 
-    rng = np.random.default_rng(7)
-    k1_quick_checks(device, rng)
-    mb, f2, r, k = 77, 200, 1000, 5
-    bask = (rng.random((mb, f2)) < 0.1).astype(np.int8)
-    bask[:, f2 - 1] = 0  # the all-zero padding column
+    def check(name, case, want_np=None):
+        args = [torch.from_numpy(x).to(device) for x in case]
+        want = first_match_plain(*args)
+        if want_np is not None and not torch.equal(
+                want.cpu(), torch.from_numpy(want_np)):
+            raise SystemExit(f"first_match {name}: the case is not what it "
+                             f"claims")
+        require_equal(f"first_match {name}", first_match(*args), want)
+
+    for name, mb, f, r, k, density in (
+        ("ragged", 77, 200, 1000, 5, 0.1),
+        ("F=208", 100, 208, 3000, 4, 0.05),
+        ("F=1000", 130, 1000, 3000, 4, 0.02),
+        ("F=7296", 300, 7296, 5000, 8, 0.003),
+        ("F=41088", 4096, 41_088, 65_536, 6, 8 / 41_088),
+        ("MB=1", 1, 384, 2000, 4, 0.05),
+        ("K=1", 200, 384, 4000, 1, 0.03),
+        ("K=16", 200, 384, 4000, 16, 0.05),
+        ("K=40", 64, 384, 2000, 40, 0.2),
+    ):
+        check(name, k2_case(rng, mb, f, r, k, density))
+    f = 384
+    # No basket holds an item of the rules' half of the columns.
+    bask, blen, ant, size, cons = k2_case(rng, 500, f, 20_000, 4, 0.03)
+    bask[:, f // 2:] = 0
     blen = bask.sum(axis=1).astype(np.int32)
-    blen[-3:] = 0
-    ant = rng.integers(0, f2 - 1, size=(r, k)).astype(np.int32)
-    size = rng.integers(1, k + 1, size=r).astype(np.int32)
-    ant[np.arange(k)[None, :] >= size[:, None]] = f2 - 1
-    size[-10:] = f2 + 1  # padding rules
-    cons = rng.integers(0, f2 - 1, size=r).astype(np.int32)
-    args = [torch.from_numpy(x).to(device)
-            for x in (bask, blen, ant, size, cons)]
-    require_equal("first_match ragged", first_match(*args),
-                  first_match_plain(*args))
-    k3_quick_checks(device, rng)
-    torch.cuda.synchronize()
+    ant[ant < f // 2] += f // 2
+    check("no match (full sweep)", [bask, blen, ant, size, cons],
+          np.full(500, NO_MATCH, dtype=np.int32))
+    # Column 0 in every real basket, column f - 2 in none: rule 0 fires.
+    bask, blen, ant, size, cons = k2_case(rng, 300, f, 3000, 4, 0.05)
+    bask[:-3, 0], bask[:, f - 2] = 1, 0
+    blen = bask.sum(axis=1).astype(np.int32)
+    size[0], ant[0], cons[0] = 1, [0, f - 1, f - 1, f - 1], f - 2
+    want = np.where(blen > 0, 0, NO_MATCH).astype(np.int32)
+    check("all match rule 0", [bask, blen, ant, size, cons], want)
+    # Rules 0..499 hold columns 0 and 1 of every real basket but name
+    # column 2, also in every basket, as consequent: none fires; rule 500
+    # does.
+    bask, blen, ant, size, cons = k2_case(rng, 300, f, 3000, 4, 0.05)
+    bask[:-3, :3], bask[:, f - 2] = 1, 0
+    blen = bask.sum(axis=1).astype(np.int32)
+    size[:500] = rng.integers(1, 3, size=500)
+    ant[:500] = f - 1
+    ant[:500, 0] = 0
+    ant[:500, 1] = np.where(size[:500] == 2, 1, f - 1)
+    cons[:500] = 2
+    size[500], ant[500], cons[500] = 1, [0, f - 1, f - 1, f - 1], f - 2
+    want = np.where(blen > 0, 500, NO_MATCH).astype(np.int32)
+    check("consequent in the basket", [bask, blen, ant, size, cons], want)
 
 
 def k1_quick_checks(device, rng) -> None:
@@ -523,7 +628,8 @@ def k1_measure(cfg, data, levels, device) -> dict:
 def scan_crossover(path: str, rec, baskets) -> None:
     """The recommender's host scan against its whole device path (rule
     table build and upload, K2 launches, fetch) on the path's first n
-    distinct baskets, for n near 10^5 .. 3·10^7 basket x rule checks:
+    distinct baskets, for n = 1 and n near 10^5 .. 3·10^7 basket x rule
+    checks:
     wall clock on the host, the median of 3 runs each.  These are the
     numbers ``models/recommender.py`` ``DEVICE_MIN_CHECKS`` rests on."""
     import statistics
@@ -543,8 +649,9 @@ def scan_crossover(path: str, rec, baskets) -> None:
         return rec._device_first_match(sub, {})
 
     n_rules = rec.n_rules
-    sizes = sorted({min(max(round(c / n_rules), 1), len(baskets))
-                    for c in (1e5, 3e5, 1e6, 3e6, 1e7, 3e7)})
+    # One distinct basket is the smallest problem the path can reach.
+    sizes = sorted({1} | {min(max(round(c / n_rules), 1), len(baskets))
+                          for c in (1e5, 3e5, 1e6, 3e6, 1e7, 3e7)})
     for n in sizes:
         sub = baskets[:n]
         if device(sub) != rec._host_first_match(sub):
@@ -588,6 +695,7 @@ def k2_measure(path: str, in_dir: str, data, levels, device) -> dict:
     want = first_match_plain(*args)
     err = require_equal(f"first_match {path} shape", got, want)
     ms = time_ms(lambda: first_match(*args), iters=20)
+    dev_ms = device_ms(lambda: first_match(*args), iters=20)
     plain_ms = time_ms(lambda: first_match_plain(*args), iters=2, warmup=1)
     # Each real basket (length > 0; padding rows match nothing) needs the
     # rules up to its first match, or all real rules.
@@ -597,14 +705,16 @@ def k2_measure(path: str, in_dir: str, data, levels, device) -> dict:
     n_ops = 2 * f * int(scanned.sum().item())
     n_bytes = mb * f + 4 * mb + 4 * r * k + 8 * r + 4 * mb
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"K2 ({path}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    log(f"K2 ({path}): kernel {ms:.4f} ms (device time {dev_ms:.4f} ms: "
+        f"the packing pass and the match kernel), plain {plain_ms:.4f} ms, "
+        f"bound "
         f"{bound_ms:.4f} ms ({bound_by}); matched "
         f"{int((got < NO_MATCH).sum().item())} of {len(baskets)} baskets")
     scan_crossover(path, rec, baskets)
     # Each path's recommend launches K2 once: this micro-batch.
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "ms_all_launches": ms, "per_launch_ms": [ms]}
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "ms_all_launches": ms, "per_launch_ms": [ms]}
 
 
 def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:

@@ -32,10 +32,11 @@ from fastapriori_tpu_torch.utils.logging import MetricsLogger
 # Distinct baskets x rules at which the device scan takes over.  On an
 # H100 the whole device path (rule table build and upload, K2, fetch)
 # beat the host scan at every size chip_smoke.py times on its two
-# corpora ("scan crossover" lines), the smallest being 92,196 checks
-# (3.419 against 6.376 ms, kosarak-shape baskets) and 123,377 checks
-# (12.059 against 17.031 ms, T10I4D100K-shape baskets).  Nothing smaller
-# is measured, so problems under 10^5 checks stay on the host.
+# corpora ("scan crossover" lines), down to one distinct basket: 46,098
+# checks (4.019 against 5.440 ms, kosarak-shape baskets) and 123,377
+# checks (7.788 against 10.771 ms, T10I4D100K-shape baskets).  Only the
+# kosarak-shape path can reach below 10^5 checks, so the threshold stays
+# until a second corpus shows the device ahead there too.
 DEVICE_MIN_CHECKS = 100_000
 
 
