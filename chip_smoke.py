@@ -6,10 +6,11 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Build the three CUDA kernels from ``fastapriori_tpu_torch/csrc/`` with
-   nvcc for sm_90a (one nvcc per source, started together).
+   nvcc for sm_90a and the native ingest library (``preprocess.cc``) with
+   the host compiler, one compiler per source, started together.
 2. A quick check of each kernel against its plain PyTorch version at
-   ragged shapes and at the edges of its design (K2 up to F = 41,088),
-   before anything depends on them.
+   ragged shapes and at the edges of its design (K1 and K2 up to
+   F = 41,088), before anything depends on them.
 3. The main path: generate the T10I4D100K-shape corpus with the port's
    datagen (100,000 transactions over 1,000 items, seed 2017; 10,000 user
    baskets, seed 2018), run the port's CLI in-process at
@@ -27,7 +28,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    In phases 3 and 4 the launch counts are set to 0 just before the CLI
    call and read just after, and the CLI's ``--metrics`` stderr lines
    are printed again on stdout: one line of phase walls, one of the
-   phases' other fields (shapes, counts, launches).
+   phases' other fields (shapes, counts, launches).  Both runs must have
+   ingested natively (``"native": true`` on the ``preprocess`` line).
+   Then each corpus goes once through the Python ingest and once
+   through the native one in-process: the arrays must be equal, and one
+   line gives both walls and the thread count.
 5. Each kernel against its plain version at the shapes of each path
    that runs it (K1 on the main path, K2 on both, K3 on the vertical
    path; exact equality: every output is an integer count or rank).
@@ -42,7 +47,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its device path from one basket up, around its switch point
    (``DEVICE_MIN_CHECKS``).
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+Prints the card's name and power limit, the host's CPU model and core
+count (ingest runs on the host), one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a result when there is no CUDA device.
 """
@@ -106,6 +112,24 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def host_line() -> str:
+    """The host's CPU (vendor, family, model number and model name, as
+    the first processor of /proc/cpuinfo gives them: a virtualised host
+    may report its model name as "unknown") and the cores this process
+    may use."""
+    fields = {}
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    cpu = " ".join(f"{k} {fields[k]}" for k in (
+        "vendor_id", "cpu family", "model", "model name") if k in fields)
+    return f"{cpu or 'unknown CPU'}, nproc {len(os.sched_getaffinity(0))}"
 
 
 def sm_clock_mhz() -> float:
@@ -294,12 +318,13 @@ def k2_quick_checks(device, rng) -> None:
 def k1_quick_checks(device, rng) -> None:
     """K1: T not a multiple of the 512-transaction sub-tile, M not a
     multiple of the 32-row tile, F not a multiple of 32 and F from 33 to
-    12,288 (F = 1,000, 2,500 and 6,000 select the 256-, 128- and
-    64-transaction sub-tiles; 300 the 512, 12,288 the 32), k1 = 3 and 130,
-    rows that cannot match (k1 - 1 items, empty), an S of padding rows
-    only (one item in the zero column), and WB rows of more than one
-    value (within a 32-column word and across words), which the kernel
-    reads as bytes."""
+    41,088 (F = 1,000, 2,500 and 6,000 select the 256-, 128- and
+    64-transaction sub-tiles; 300 the 512, 12,288 the 32; 12,320 and
+    41,088, the kosarak-shape corpus's items padded, the form that reads
+    B from device memory), k1 = 3 and 130, rows that cannot match
+    (k1 - 1 items, empty), an S of padding rows only (one item in the
+    zero column), and WB rows of more than one value (within a 32-column
+    word and across words), which the kernel reads as bytes."""
     import numpy as np
     import torch
 
@@ -324,7 +349,9 @@ def k1_quick_checks(device, rng) -> None:
 
     for t, f, m, density in ((5003, 300, 77, 0.3), (1111, 33, 45, 0.5),
                              (1500, 1000, 70, 0.05), (900, 2500, 40, 0.03),
-                             (700, 6000, 40, 0.02), (700, 12288, 41, 0.02)):
+                             (700, 6000, 40, 0.02), (700, 12288, 41, 0.02),
+                             (700, 12320, 41, 0.02),
+                             (600, 41_088, 37, 0.002)):
         b = (rng.random((t, f)) < density).astype(np.int8)
         b[rng.random(t) < 0.05] = 1  # dense rows, so wide prefixes match
         wb = b * rng.integers(1, 128, size=(t, 1)).astype(np.int8)
@@ -335,7 +362,7 @@ def k1_quick_checks(device, rng) -> None:
         pad = np.zeros((m, f), dtype=np.int8)
         pad[:, f - 1] = 1  # padding rows only: never k1 = 3 items
         check(f"T={t} F={f} padding rows only", b, wb, pad, 3)
-        if f <= 1000:
+        if f <= 1000 or f > 12288:
             # A third of the rows keep one value, a third take one per
             # 32-column word, a third one per entry.
             mixed = wb.copy()
@@ -498,6 +525,10 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     walls, fields = phase_metrics(captured.getvalue())
     log(f"{name} phases (wall ms): " + json.dumps(walls))
     log(f"{name} phase metrics: " + json.dumps(fields))
+    pre = fields.get("preprocess", {})
+    if pre.get("native") is not True:
+        raise SystemExit(f"{name}: the CLI did not ingest natively "
+                         f"({pre.get('native_reason')})")
     for out_name, want in digests.items():
         got = sha256(os.path.join(out_dir, out_name))
         if got != want:
@@ -505,6 +536,40 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
                              f"package's {want}")
         log(f"{name}: {out_name} sha256 matches the JAX package ({got})")
     return launches
+
+
+def ingest_compare(name: str, in_dir: str, min_support: str) -> None:
+    """The corpus once through the Python ingest and once through the
+    native one, in-process: every array of the two CompressedData must be
+    equal (dtypes included)."""
+    import numpy as np
+
+    from fastapriori_tpu_torch.preprocess import (
+        ingest_thread_count,
+        preprocess_file,
+    )
+
+    path = os.path.join(in_dir, "D.dat")
+    t0 = time.perf_counter()
+    py = preprocess_file(path, float(min_support), native=False)
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = preprocess_file(path, float(min_support), native=True)
+    nat_s = time.perf_counter() - t0
+    for field in ("n_raw", "min_count", "freq_items", "item_to_rank"):
+        if getattr(py, field) != getattr(nat, field):
+            raise SystemExit(f"{name}: native ingest {field} differs from "
+                             f"the Python ingest's")
+    for field in ("item_counts", "basket_indices", "basket_offsets",
+                  "weights"):
+        a, b = getattr(py, field), getattr(nat, field)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise SystemExit(f"{name}: native ingest {field} differs from "
+                             f"the Python ingest's")
+    log(f"ingest {name}: python {py_s:.3f} s, native {nat_s:.3f} s, equal "
+        f"arrays ({nat.total_count} baskets, {nat.num_items} items); the "
+        f"native scan runs on 1 thread, the arena build on "
+        f"{ingest_thread_count(None)}")
 
 
 def require_launches(name: str, launches: dict, ran, idle) -> None:
@@ -535,13 +600,16 @@ def level_launches(cfg, levels, f_pad: int):
     models/apriori.py ``_level_loop`` makes them: ``(k, prefix_cols,
     cand_idx)`` per prefix chunk of each level k >= 3 that runs."""
     from fastapriori_tpu_torch.models.apriori import level_chunks
-    from fastapriori_tpu_torch.models.candidates import gen_candidates_arrays
+    from fastapriori_tpu_torch.models.candidates import (
+        concat_blocks,
+        gen_candidates_stream,
+    )
 
     for i, (mat, _) in enumerate(levels):
         k = i + 3
         if mat.shape[0] < k:  # the level loop stops here
             break
-        x_idx, ys = gen_candidates_arrays(mat)
+        x_idx, ys = concat_blocks(gen_candidates_stream(mat))
         for prefix_cols, cand_idx, _ in level_chunks(mat, x_idx, ys, f_pad,
                                                      cfg):
             yield k, prefix_cols, cand_idx
@@ -851,6 +919,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
+    log(f"host: {host_line()}")
     clock = sm_clock_mhz()
     log(f"max SM clock: {clock:.0f} MHz")
     t0 = time.perf_counter()
@@ -879,6 +948,8 @@ def main() -> int:
     require_launches("vertical path", vert_launches,
                      ran=("vertical_counts", "first_match"),
                      idle=("level_counts",))
+    ingest_compare("t10i4d100k", in_dir, MIN_SUPPORT)
+    ingest_compare("kosarak", k_in, KOSARAK["min_support"])
 
     cfg, data, levels = mine(in_dir, device, MIN_SUPPORT)
     k1 = k1_measure(cfg, data, levels, device)

@@ -7,6 +7,7 @@ carried over, with the reference package's defaults.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 # Reference default: Main.scala:23.
 DEFAULT_MIN_SUPPORT = 0.092
@@ -53,5 +54,9 @@ class MinerConfig:
     # Candidates per step of K3's plain version (bounds its [chunk, NL]
     # intermediate; the CUDA kernel does not read it).
     vertical_cand_chunk: int = 1 << 12
+    # Host threads for the native ingest and the arena build's reduce
+    # pass.  None = one thread per core; FA_INGEST_THREADS overrides,
+    # strictly parsed.
+    ingest_threads: Optional[int] = None
     # Emit per-phase structured metrics as JSON lines on stderr.
     log_metrics: bool = False

@@ -61,6 +61,14 @@
 //   per 32-row tile, does F multiply-adds per pair where the packed form
 //   does k1 tests, and needs a second barrier per sub-tile; it was
 //   dropped.
+// - Any F.  A row's word list is bounded by k1, not by F; what grows with
+//   F is the packed B sub-tile the staged form copies into shared memory
+//   (all F / 32 words of 32 G transactions).  Up to kMaxStagedWords words
+//   (F <= 12,288) B is staged; above, the membership reads each listed
+//   word of B from device memory (one 128-byte access per warp and group,
+//   only for the words a row lists), the stages hold only the counting
+//   side, and G = 16.  The packing grid loops over words past the grid's
+//   y limit, and every index into the scratch is 64-bit.
 // Ragged T, M and F are masked in the kernel, and k1 is an int32, so
 // there is no k1 <= 127 limit and no tile-divisibility requirement.
 
@@ -77,7 +85,9 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kMT = kWarps * kRowsPerWarp;  // 32 prefix rows per tile
 constexpr int kWordsPerLane = 3;            // int8x4 words of WB per lane
 constexpr int kFS = 128 * kWordsPerLane;    // 384 columns per F slice
-constexpr int kMaxWords = 384;              // packed words per row: F <= 12288
+constexpr int kMaxStagedWords = 384;        // B staged in shared memory up
+                                            // to F = 12,288
+constexpr int kMaxGridY = 65535;
 constexpr int kTPad = 512;                  // packed B row padding
 constexpr int kItemsPerBlock = 16;
 constexpr int kSlots = 4 * kWordsPerLane;   // accumulator slots per lane
@@ -126,7 +136,8 @@ __device__ __forceinline__ uint32_t load4(const int8_t* row, int c, int F,
   return word;
 }
 
-// One thread per (transaction t, word w), grid (T blocks, words): B ->
+// One thread per (transaction t, word w), grid (T blocks, words, looping
+// past the grid's y limit): B ->
 // word-major packed bits (word w holds columns 32 w .. 32 w + 31, bit j =
 // column 32 w + j); WB -> its non-zero bits in the same layout,
 // transaction-major, and its value when every non-zero entry of the row
@@ -137,7 +148,7 @@ __global__ void pack_kernel(const int8_t* __restrict__ B,
                             const int8_t* __restrict__ WB, Scratch sc, int T,
                             int F, int words, int Tp, int aligned4,
                             int aligned16) {
-  const int w = blockIdx.y;
+  for (int w = blockIdx.y; w < sc.wstride; w += gridDim.y) {
   for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < Tp;
        t += gridDim.x * blockDim.x) {
     uint32_t b_bits = 0, w_bits = 0;
@@ -185,6 +196,7 @@ __global__ void pack_kernel(const int8_t* __restrict__ B,
       const int32_t old = atomicCAS(sc.wv + t, 0, v0);
       if (old != 0 && old != v0) atomicExch(sc.wv + t, kMixed);
     }
+  }
   }
 }
 
@@ -337,12 +349,14 @@ __device__ __forceinline__ void flush(int (&acc)[kRowsPerWarp][kSlots],
 
 // The packed, word-sparse form.  Shared memory: two stages of a sub-tile
 // of 32 G transactions, each [words][32 G] packed B words (word-major, for
-// the membership), [32 G][12] packed WB bits of the item's F slice and
-// [32 G] WB row values (for the counting).  Sub-tile i + 1 streams in by
-// cp.async while sub-tile i is tested and counted from shared memory, so
-// no warp waits on device memory between barriers.  Each warp owns four
-// prefix rows and their register accumulators.
-template <int G>
+// the membership; only with kStageB), [32 G][12] packed WB bits of the
+// item's F slice and [32 G] WB row values (for the counting).  Sub-tile
+// i + 1 streams in by cp.async while sub-tile i is tested and counted from
+// shared memory, so with kStageB no warp waits on device memory between
+// barriers; without it (F > 12,288) the membership reads the listed words
+// of B from device memory.  Each warp owns four prefix rows and their
+// register accumulators.
+template <int G, bool kStageB>
 __global__ void __launch_bounds__(kThreads, 2)
 level_counts_packed(const int8_t* __restrict__ WB, int32_t* __restrict__ out,
                     Scratch sc, int T, int F, int M, int Tp, int L,
@@ -352,8 +366,9 @@ level_counts_packed(const int8_t* __restrict__ WB, int32_t* __restrict__ out,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int words = sc.words;
-  // B words, the F slice's WB bits, WB values
-  const int stage_words = words * kTT + kSliceWords * kTT + kTT;
+  // B words (staged form only), the F slice's WB bits, WB values
+  const int b_words = kStageB ? words * kTT : 0;
+  const int stage_words = b_words + kSliceWords * kTT + kTT;
   // The tile's rows: listed words (the first kListCap of each) and counts,
   // read once per item.
   __shared__ uint2 lists_s[kMT][kListCap];
@@ -377,19 +392,22 @@ level_counts_packed(const int8_t* __restrict__ WB, int32_t* __restrict__ out,
       if (s >= n_sub) return;
       uint32_t* dst = smem + (s & 1) * stage_words;
       const int t0 = it.t_begin + s * kTT;
-      for (int i = threadIdx.x; i < words * kTT / 4; i += kThreads) {
-        const int wi = i / (kTT / 4);
-        const int q = i - wi * (kTT / 4);
-        cp_async16(dst + wi * kTT + 4 * q, sc.bp + (size_t)wi * Tp + t0 + 4 * q);
+      if (kStageB) {
+        for (int i = threadIdx.x; i < words * kTT / 4; i += kThreads) {
+          const int wi = i / (kTT / 4);
+          const int q = i - wi * (kTT / 4);
+          cp_async16(dst + wi * kTT + 4 * q,
+                     sc.bp + (size_t)wi * Tp + t0 + 4 * q);
+        }
       }
       for (int i = threadIdx.x; i < kTT * kSliceWords / 4; i += kThreads) {
         const int r = i / (kSliceWords / 4);
         const int q = i - r * (kSliceWords / 4);
-        cp_async16(dst + words * kTT + kSliceWords * r + 4 * q,
+        cp_async16(dst + b_words + kSliceWords * r + 4 * q,
                    sc.wm + (size_t)(t0 + r) * sc.wstride + it.f0 / 32 + 4 * q);
       }
       for (int i = threadIdx.x; i < kTT / 4; i += kThreads)
-        cp_async16(dst + (words + kSliceWords) * kTT + 4 * i, sc.wv + t0 + 4 * i);
+        cp_async16(dst + b_words + kSliceWords * kTT + 4 * i, sc.wv + t0 + 4 * i);
       cp_async_commit();
     };
     stage_in(0);
@@ -401,9 +419,9 @@ level_counts_packed(const int8_t* __restrict__ WB, int32_t* __restrict__ out,
       const uint32_t* bs = stage + lane;
       const int t0 = it.t_begin + s * kTT;
       const bool full = t0 + kTT <= it.t_end;
-      const Rows w{WB, stage + words * kTT,
+      const Rows w{WB, stage + b_words,
                    reinterpret_cast<const int32_t*>(
-                       stage + (words + kSliceWords) * kTT),
+                       stage + b_words + kSliceWords * kTT),
                    t0, kSliceWords, F, words, it.f0, wb_aligned != 0};
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -416,9 +434,15 @@ level_counts_packed(const int8_t* __restrict__ WB, int32_t* __restrict__ out,
         const uint2* lst = sc.slist + (size_t)(m0 + rr) * L;
         for (int j = 0; j < nw; ++j) {
           const uint2 e = j < kListCap ? lists_s[r][j] : __ldg(lst + j);
-          const uint32_t* col = bs + e.x * kTT;
+          if (kStageB) {
+            const uint32_t* col = bs + e.x * kTT;
 #pragma unroll
-          for (int g = 0; g < G; ++g) miss[g] |= e.y & ~col[32 * g];
+            for (int g = 0; g < G; ++g) miss[g] |= e.y & ~col[32 * g];
+          } else {
+            const uint32_t* col = sc.bp + (size_t)e.x * Tp + t0 + lane;
+#pragma unroll
+            for (int g = 0; g < G; ++g) miss[g] |= e.y & ~__ldg(col + 32 * g);
+          }
         }
         uint32_t mine = 0;
 #pragma unroll
@@ -461,15 +485,16 @@ int pick_g(int words) {
   return g;
 }
 
-template <int G>
+template <int G, bool kStageB = true>
 int launch_packed(const void* WB, void* out, const Scratch& sc, int T, int F,
                   int M, int Tp, int L, int aligned, cudaStream_t st) {
-  const size_t smem =
-      (size_t)2 * (sc.words + kSliceWords + 1) * 32 * G * sizeof(uint32_t);
+  const size_t smem = (size_t)2 * ((kStageB ? sc.words : 0) + kSliceWords + 1) *
+                      32 * G * sizeof(uint32_t);
   int blocks = 0;
-  const int err = persistent_blocks(level_counts_packed<G>, smem, &blocks);
+  const int err =
+      persistent_blocks(level_counts_packed<G, kStageB>, smem, &blocks);
   if (err) return err;
-  level_counts_packed<G><<<blocks, kThreads, smem, st>>>(
+  level_counts_packed<G, kStageB><<<blocks, kThreads, smem, st>>>(
       (const int8_t*)WB, (int32_t*)out, sc, T, F, M, Tp, L, aligned);
   return 0;
 }
@@ -500,7 +525,6 @@ extern "C" int fa_level_counts(const void* B, const void* WB, const void* S,
                                int k1, void* stream) {
   if (T <= 0 || F <= 0 || M <= 0) return 0;
   const int words = (F + 31) / 32;
-  if (words > kMaxWords) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int Tp = (T + kTPad - 1) / kTPad * kTPad;
   const int L = k1 < 1 ? 1 : (k1 < words ? k1 : words);
@@ -536,7 +560,8 @@ extern "C" int fa_level_counts(const void* B, const void* WB, const void* S,
   err = cudaMemsetAsync(sc.wv, 0, (size_t)4 * Tp, st);
   if (err != cudaSuccess) return (int)err;
   const int pack_x = (Tp + kThreads - 1) / kThreads;
-  pack_kernel<<<dim3(pack_x < 2 * sms ? pack_x : 2 * sms, sc.wstride),
+  pack_kernel<<<dim3(pack_x < 2 * sms ? pack_x : 2 * sms,
+                     sc.wstride < kMaxGridY ? sc.wstride : kMaxGridY),
                 kThreads, 0, st>>>(
       (const int8_t*)B, (const int8_t*)WB, sc, T, F, words, Tp,
       F % 4 == 0 && (uintptr_t)B % 4 == 0 && (uintptr_t)WB % 4 == 0,
@@ -545,6 +570,11 @@ extern "C" int fa_level_counts(const void* B, const void* WB, const void* S,
   prep_rows_kernel<<<row_blocks < 8 * sms ? row_blocks : 8 * sms, kThreads, 0,
                      st>>>((const int8_t*)S, sc, M, F, words, L, k1);
   int rc = 0;
+  if (words > kMaxStagedWords) {
+    rc = launch_packed<16, false>(WB, out, sc, T, F, M, Tp, L, aligned, st);
+    if (rc) return rc;
+    return (int)cudaGetLastError();
+  }
   switch (pick_g(words)) {
     case 16: rc = launch_packed<16>(WB, out, sc, T, F, M, Tp, L, aligned, st); break;
     case 8: rc = launch_packed<8>(WB, out, sc, T, F, M, Tp, L, aligned, st); break;

@@ -17,8 +17,10 @@ Two layouts count the same lattice:
 ``mine_engine`` (``FA_MINE_ENGINE`` over ``MinerConfig.mine_engine``)
 picks the layout; a forced ``vertical`` runs the vertical engine or
 raises InputError, never the bitmap engine.  Both layouts share the level
-loop: candidates generated on the host (models/candidates.py), one launch
-per chunk of at most ``level_prefix_cap`` prefix rows (:func:`level_chunks`).
+loop: candidates generated on the host (models/candidates.py
+``gen_candidates_stream``: the native join + prune when its library is
+available), one launch per chunk of at most ``level_prefix_cap`` prefix
+rows (:func:`level_chunks`).
 The result is the reference's ``[(int32[N, k] lex-sorted member matrix,
 int64[N] counts), ...]`` for k = 2, 3, ...; 1-itemsets live in
 ``data.item_counts``.
@@ -38,7 +40,10 @@ import numpy as np
 from fastapriori_tpu_torch.config import ENGINES, MINE_ENGINES, MinerConfig
 from fastapriori_tpu_torch.device import DeviceContext
 from fastapriori_tpu_torch.errors import InputError
-from fastapriori_tpu_torch.models.candidates import gen_candidates_arrays
+from fastapriori_tpu_torch.models.candidates import (
+    concat_blocks,
+    gen_candidates_stream,
+)
 from fastapriori_tpu_torch.ops.bitmap import (
     build_bitmap,
     build_bitmap_csr,
@@ -60,7 +65,12 @@ from fastapriori_tpu_torch.ops.vertical import (
     vertical_pair_local,
     weight_bit_planes,
 )
-from fastapriori_tpu_torch.preprocess import CompressedData, preprocess_file
+from fastapriori_tpu_torch.preprocess import (
+    CompressedData,
+    ingest_thread_count,
+    native_choice,
+    preprocess_file,
+)
 from fastapriori_tpu_torch.utils.env import env_choice
 from fastapriori_tpu_torch.utils.logging import MetricsLogger
 
@@ -75,9 +85,9 @@ HEAVY_SPLIT_BYTES = 16 << 20
 def resolve_engine(engine: str) -> str:
     if engine == "fused":
         raise InputError(
-            "engine 'fused' is not ported yet: the fused whole-loop engine "
-            "(fastapriori_tpu/ops/fused.py) comes in a later slice of the "
-            "PyTorch port; use 'level' or 'auto'"
+            "engine 'fused' is not ported yet: the JAX package's fused "
+            "whole-loop engine (its ops/fused.py) comes in a later slice of "
+            "the PyTorch port; use 'level' or 'auto'"
         )
     if engine not in ENGINES:
         raise InputError(
@@ -152,7 +162,9 @@ def level_chunks(
     at most ``level_prefix_cap`` prefixes and
     ``max(level_cand_cap, f_pad)`` candidates; P_cap is the level's prefix
     count in a power-of-two bucket, padded rows pointing at the all-zero
-    column (the reference's ``_count_level`` at one cand shard)."""
+    column (the reference's ``_count_level`` at one cand shard).  P_cap is
+    also the largest power of two with ``P_cap * f_pad < 2^31``, so every
+    flat position fits the kernels' int32 candidate indexes."""
     s = level.shape[1]
     zcol = f_pad - 1
     uniq_x, run_start = np.unique(x_idx, return_index=True)
@@ -160,6 +172,7 @@ def level_chunks(
     p_cap = min(
         max(next_pow2(uniq_x.size), config.min_prefix_bucket),
         config.level_prefix_cap,
+        1 << (((2**31 - 1) // f_pad).bit_length() - 1),
     )
     c_bound = max(config.level_cand_cap, f_pad)
     start = 0
@@ -204,14 +217,26 @@ class FastApriori:
     def run_file_raw(self, d_path: str) -> Tuple[Levels, CompressedData]:
         """Mine ``D.dat``: returns the level matrices (k >= 2) and the
         preprocessed data (item tables, 1-itemset counts)."""
+        # Parsed before the ingest, so a bad FA_INGEST_THREADS fails every
+        # run and not only a vertical one (the arena build reads it).
+        ingest_thread_count(self.config.ingest_threads)
         with self.metrics.timed("preprocess", path=d_path) as m:
-            data = preprocess_file(d_path, self.config.min_support)
+            # A file always passes the native size gate.  The one-call
+            # scan runs on one thread: the threaded block ingest dedups
+            # each block apart, so its arrays are not these.
+            native, reason = native_choice(None, 1 << 62)
+            data = preprocess_file(d_path, self.config.min_support,
+                                   native=native)
             m.update(
                 n_raw=data.n_raw,
                 min_count=data.min_count,
                 num_items=data.num_items,
                 total_count=data.total_count,
+                native=native,
+                threads=1,
             )
+            if not native:
+                m.update(native_reason=reason)
         return self.mine_levels_raw(data), data
 
     def mine_levels_raw(self, data: CompressedData) -> Levels:
@@ -336,10 +361,11 @@ class FastApriori:
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
+        n_threads = ingest_thread_count(cfg.ingest_threads)
         with self.metrics.timed("arena_build") as m:
             arena_np, f_pad, t_pad = build_tid_arena_csr(
                 data.basket_indices, data.basket_offsets, f, 32,
-                cfg.item_tile,
+                cfg.item_tile, n_threads=n_threads,
             )
             planes_np, scales = weight_bit_planes(
                 np.asarray(data.weights, dtype=np.int64), t_pad
@@ -360,6 +386,7 @@ class FastApriori:
                 compressed=use_compressed,
                 occupancy=seg_stats["occupancy"],
                 upload_bytes=upload_bytes + planes_np.nbytes,
+                threads=n_threads,
             )
 
         with self.metrics.timed("level", k=2) as m:
@@ -423,7 +450,7 @@ class FastApriori:
         ctx = self.ctx
         s = level.shape[1]
         f_pad = table.shape[0] - 1 if vertical else table.shape[1]
-        x_idx, ys = gen_candidates_arrays(level)
+        x_idx, ys = concat_blocks(gen_candidates_stream(level))
         stats = {"candidates": int(x_idx.size), "launches": 0, "p_cap": 0}
         counts = np.zeros(x_idx.size, dtype=np.int64)
         hb, hw = heavy if heavy is not None else (None, None)

@@ -18,7 +18,8 @@ never matches.  :func:`level_counts` raises ValueError for a wider row
 on the CPU; on the card the kernel's device-side assert fails the launch
 (a CUDA error at the next synchronisation).
 Unlike the TPU wrapper, any T, M and F are accepted (ragged edges are
-masked in the kernel) and the overlap is int32, so k1 may exceed 127.
+masked in the kernel; T and M below 2^31) and the overlap is int32, so k1
+may exceed 127.
 
 :func:`level_counts` launches the kernel for CUDA tensors and runs
 :func:`level_counts_plain` only for CPU tensors; its ``launches``
@@ -34,10 +35,6 @@ import ctypes
 import torch
 
 from fastapriori_tpu_torch.ops import build
-
-# csrc/level_counts.cu: F <= 32 kMaxWords.
-MAX_F = 12288
-
 
 def level_counts_plain(
     bitmap: torch.Tensor,
@@ -72,6 +69,14 @@ def _check(bitmap, wb, s_mat) -> None:
             f"shape mismatch: bitmap {tuple(bitmap.shape)}, wb "
             f"{tuple(wb.shape)}, s_mat {tuple(s_mat.shape)}"
         )
+
+
+def check_limits(t: int, f: int, m: int) -> None:
+    """The kernel's size limits, checked on the host before a launch: T,
+    F and M below 2^31 (any F: csrc/level_counts.cu sizes its scratch
+    from F and reads B from device memory past F = 12,288)."""
+    if max(t, f, m) >= 2**31:
+        raise ValueError(f"K1 takes T, F, M < 2^31; got T={t} F={f} M={m}")
 
 
 def _check_widths(s_mat, k1) -> None:
@@ -112,9 +117,7 @@ def level_counts(
         raise ValueError(f"K1 runs on cuda or cpu, not {bitmap.device}")
     t, f = bitmap.shape
     m = s_mat.shape[0]
-    if f > MAX_F or max(t, m) >= 2**31:
-        raise ValueError(f"K1 takes F <= {MAX_F} and T, M < 2^31; got "
-                         f"T={t} F={f} M={m}")
+    check_limits(t, f, m)
     bitmap, wb, s_mat = (x.contiguous() for x in (bitmap, wb, s_mat))
     out = torch.zeros((m, f), dtype=torch.int32, device=bitmap.device)
     if t == 0 or f == 0 or m == 0:

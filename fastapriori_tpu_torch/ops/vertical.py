@@ -21,8 +21,8 @@ same bits (torch's unsigned 32-bit type lacks the operations needed).
   (ops/vertical_kernel.py, which also holds the JAX module's
   ``_prefix_and`` and ``_popcount_weighted`` beside K3's plain version).
 
-The arena build is single-threaded here (the JAX package can split it
-over its ingest thread pool).
+The arena build's reduce pass can be split over host threads
+(:func:`build_tid_arena_csr` ``n_threads``, the ingest's thread count).
 """
 
 from __future__ import annotations
@@ -68,18 +68,29 @@ def weight_bit_planes(
     return planes, [1 << b for b in range(b_planes)]
 
 
+# Below this many (item, lane) runs the thread-pool split of the
+# reduceat pass costs more in pool setup than it saves.
+_ARENA_THREAD_MIN_RUNS = 1 << 16
+
+
 def build_tid_arena_csr(
     indices: np.ndarray,
     offsets: np.ndarray,
     num_items: int,
     txn_multiple: int = 32,
     item_multiple: int = 128,
+    n_threads: int = 1,
 ) -> Tuple[np.ndarray, int, int]:
     """The dense tid-lane arena from the basket CSR: returns
     ``(arena uint32[f_pad+1, NL], f_pad, t_pad)`` with
     ``t_pad = pad_axis(T, lcm(txn_multiple, 32))`` and row ``f_pad`` all
     ones.  One sorted segment-reduce (``np.bitwise_or.reduceat`` over the
-    (item, lane) runs) builds every item's lanes."""
+    (item, lane) runs) builds every item's lanes.
+
+    ``n_threads > 1`` splits the reduceat pass over a thread pool from
+    :data:`_ARENA_THREAD_MIN_RUNS` runs on: runs are independent and
+    write disjoint arena slots, so the split is a run-aligned partition
+    of the sorted stream, with identical output (each run stays whole)."""
     t = len(offsets) - 1
     mult = txn_multiple * 32 // math.gcd(txn_multiple, 32)
     t_pad = pad_axis(t, mult)
@@ -97,8 +108,34 @@ def build_tid_arena_csr(
         key = indices.astype(np.int64) * nl + word
         order = np.argsort(key, kind="stable")
         skey = key[order]
+        bit_sorted = bit[order]
         uniq, start = np.unique(skey, return_index=True)
-        arena.reshape(-1)[uniq] = np.bitwise_or.reduceat(bit[order], start)
+        flat = arena.reshape(-1)
+        n_runs = len(uniq)
+        if n_threads > 1 and n_runs >= _ARENA_THREAD_MIN_RUNS:
+            from concurrent.futures import ThreadPoolExecutor
+
+            # Thread j owns runs [lo, hi): its reduceat sees every element
+            # of its runs (the next thread's first run starts at
+            # start[hi]) and its scatter targets are its own uniq slots.
+            bounds = [(n_runs * j) // n_threads for j in range(n_threads + 1)]
+            end = np.concatenate(
+                [start[1:], np.asarray([len(skey)], dtype=start.dtype)]
+            )
+
+            def _reduce(j):
+                lo, hi = bounds[j], bounds[j + 1]
+                if lo >= hi:
+                    return
+                base = start[lo]
+                flat[uniq[lo:hi]] = np.bitwise_or.reduceat(
+                    bit_sorted[base : end[hi - 1]], start[lo:hi] - base
+                )
+
+            with ThreadPoolExecutor(n_threads) as pool:
+                list(pool.map(_reduce, range(n_threads)))
+        else:
+            flat[uniq] = np.bitwise_or.reduceat(bit_sorted, start)
     arena[f_pad, :] = ONES_WORD
     return arena, f_pad, t_pad
 

@@ -1,6 +1,6 @@
 """Host-side preprocessing: frequent-item discovery and transaction
-compression (counterpart: fastapriori_tpu/preprocess.py, numpy path;
-reference components C3/C4/C10, FastApriori.scala:52-85 and
+compression (counterpart: fastapriori_tpu/preprocess.py; reference
+components C3/C4/C10, FastApriori.scala:52-85 and
 AssociationRules.scala:33-64).
 
 Produces the miner's whole input:
@@ -14,20 +14,30 @@ Produces the miner's whole input:
   transaction keep the frequent items, map them to ranks, drop baskets of
   size <= 1, and merge identical baskets into one weighted row.
 
-The native C++ scanner of the reference package is not ported yet.
+Two engines give the same arrays: the native C++ scanner
+(csrc/preprocess.cc through native/loader.py, one pass over the raw
+bytes), taken whenever its library is available (:func:`_use_native`),
+and the Python path (:func:`_python_preprocess`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from collections import Counter
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from fastapriori_tpu_torch.io.reader import read_dat
+from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.io.reader import JAVA_WS, read_dat
+from fastapriori_tpu_torch.utils.env import env_int
 from fastapriori_tpu_torch.utils.order import item_sort_key
+
+# In-memory token lists take the native path from this many lines on
+# (below it, re-serializing them costs more than the scan saves).
+NATIVE_MIN_LINES = 50_000
 
 
 @dataclasses.dataclass
@@ -104,11 +114,9 @@ def dedup_baskets(
     return indices, offsets, weights
 
 
-def preprocess(
+def _python_preprocess(
     transactions: Sequence[Sequence[str]], min_support: float
 ) -> CompressedData:
-    """Full phase-1 preprocessing (genFreqItems, FastApriori.scala:46-86)
-    from already-tokenized lines."""
     n_raw = len(transactions)
     min_count = int(math.ceil(min_support * n_raw))
     counts = count_item_occurrences(transactions)
@@ -126,9 +134,136 @@ def preprocess(
     )
 
 
-def preprocess_file(path: str, min_support: float) -> CompressedData:
-    """Phase-1 preprocessing straight from a ``D.dat`` file."""
-    return preprocess(read_dat(path), min_support)
+def _native_result_to_data(result) -> CompressedData:
+    n_raw, min_count, freq_items, item_counts, indices, offsets, weights = (
+        result
+    )
+    return CompressedData(
+        n_raw=n_raw,
+        min_count=min_count,
+        freq_items=freq_items,
+        item_to_rank={item: r for r, item in enumerate(freq_items)},
+        item_counts=item_counts,
+        basket_indices=indices,
+        basket_offsets=offsets,
+        weights=weights,
+    )
+
+
+def native_choice(
+    native: Optional[bool], size_hint: int
+) -> Tuple[bool, Optional[str]]:
+    """The ingest engine: ``(use_native, reason)``, the reason being why
+    not when ``use_native`` is false.  ``native``: False forbids the
+    native path, True requires it (InputError when the library is
+    unavailable), None takes it when the library is available and the
+    input has at least :data:`NATIVE_MIN_LINES` lines (``size_hint``)."""
+    if native is False:
+        return False, "forced off"
+    from fastapriori_tpu_torch.native import unavailable_reason
+
+    reason = unavailable_reason()
+    if native is True:
+        if reason is not None:
+            raise InputError(
+                f"native preprocessing requested but the library is "
+                f"unavailable: {reason}"
+            )
+        return True, None
+    if reason is not None:
+        return False, reason
+    if size_hint < NATIVE_MIN_LINES:
+        return False, f"below the gate ({size_hint} < {NATIVE_MIN_LINES} lines)"
+    return True, None
+
+
+def _use_native(native: Optional[bool], size_hint: int) -> bool:
+    return native_choice(native, size_hint)[0]
+
+
+def ingest_thread_count(configured: Optional[int]) -> int:
+    """Host threads for the arena build's reduce pass (and the
+    ``n_threads`` of the native block ingest): the
+    ``FA_INGEST_THREADS`` environment variable (strictly parsed: a value
+    that is not a positive integer is an InputError) over the config,
+    over one thread per core."""
+    n = env_int("FA_INGEST_THREADS", 0, minimum=1)
+    if n:
+        return n
+    if configured:
+        return configured
+    return os.cpu_count() or 1
+
+
+def preprocess(
+    transactions: Sequence[Sequence[str]],
+    min_support: float,
+    native: Optional[bool] = None,
+) -> CompressedData:
+    """Full phase-1 preprocessing (genFreqItems, FastApriori.scala:46-86)
+    from already-tokenized lines.
+
+    ``native``: force (True) or forbid (False) the C++ path; None takes
+    it when the library is available and the input is large.  Lines
+    whose tokens would not survive re-serialization take the Python path
+    either way (:func:`_tokens_serialize_exactly`)."""
+    if _use_native(native, len(transactions)) and _tokens_serialize_exactly(
+        transactions
+    ):
+        from fastapriori_tpu_torch.native.loader import (
+            join_transactions,
+            preprocess_buffer,
+        )
+
+        return _native_result_to_data(
+            preprocess_buffer(join_transactions(transactions), min_support)
+        )
+    return _python_preprocess(transactions, min_support)
+
+
+def _tokens_serialize_exactly(transactions) -> bool:
+    """True iff re-serializing the token lists for the native byte
+    scanner round-trips exactly: a token whose first or last char is
+    <= 0x20 (e.g. a bare "\\x01" token from a "7 \\x01 8" line) would be
+    eaten by the scanner's Java trim at a line edge or glued to a
+    neighbour, and a token holding Java \\s anywhere (only possible
+    through the API, since the tokenizer splits on \\s) would be re-split
+    into other items.  Interior control chars that are not Java \\s are
+    safe.  An empty token is safe only as a line's sole token (the
+    empty-line form, which serializes to an empty line); a zero-token
+    line has no serialized form at all.  Such input takes the Python
+    path; file input is scanned as raw bytes and never re-serialized."""
+    return all(
+        (len(line) == 1 and line[0] == "")
+        or (
+            bool(line)
+            and all(
+                t
+                and t[0] > "\x20"
+                and t[-1] > "\x20"
+                and JAVA_WS.isdisjoint(t)
+                for t in line
+            )
+        )
+        for line in transactions
+    )
+
+
+def preprocess_file(
+    path: str, min_support: float, native: Optional[bool] = None
+) -> CompressedData:
+    """Phase-1 preprocessing straight from a ``D.dat`` file: the native
+    path parses the raw bytes without building Python token lists (the
+    reference's ingest and first shuffle, Utils.scala:21 +
+    FastApriori.scala:52-85, as one C++ scan); a file always passes the
+    size gate."""
+    if _use_native(native, 1 << 62):
+        from fastapriori_tpu_torch.native.loader import (
+            preprocess_file as native_file,
+        )
+
+        return _native_result_to_data(native_file(path, min_support))
+    return _python_preprocess(read_dat(path), min_support)
 
 
 def dedup_user_baskets(

@@ -1,9 +1,10 @@
 """Strict environment parsing (counterpart: fastapriori_tpu/utils/env.py
-``env_choice``).
+``env_choice`` and ``env_int``).
 
-The port reads one environment variable, ``FA_MINE_ENGINE``
-(models/apriori.py); a value it does not know is an error, never a quiet
-default.
+The port reads two environment variables, ``FA_MINE_ENGINE``
+(models/apriori.py) and ``FA_INGEST_THREADS`` (preprocess.py
+``ingest_thread_count``); a value it does not know is an error, never a
+quiet default.
 """
 
 from __future__ import annotations
@@ -29,3 +30,20 @@ def env_choice(
         f"unrecognized {name} value {raw!r}: use one of "
         f"{'/'.join(choices)} (or unset for the config default)"
     )
+
+
+def env_int(name: str, default: int, minimum: Optional[int] = None) -> int:
+    """Strict integer knob: unset -> ``default``, an integer of at least
+    ``minimum`` -> itself, anything else -> ``InputError``."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        raise InputError(
+            f"unrecognized {name} value {raw!r}: expected an integer"
+        ) from None
+    if minimum is not None and val < minimum:
+        raise InputError(f"{name}={val} is out of range: must be >= {minimum}")
+    return val

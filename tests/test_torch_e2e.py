@@ -75,6 +75,26 @@ def test_cli_matches_jax_cli_and_oracle(tmp_path, seed):
                     random_dataset(seed + 10, n_txns=25), 0.08)
 
 
+def test_cli_python_ingest_matches_jax_cli_and_oracle(tmp_path,
+                                                     monkeypatch):
+    # The CLI ingests natively whenever the library builds; this case
+    # forces the Python ingest, so both engines stay held to the bytes.
+    from fastapriori_tpu_torch.models import apriori
+    from fastapriori_tpu_torch.native import loader
+
+    real = apriori.native_choice
+    monkeypatch.setattr(apriori, "native_choice",
+                        lambda native, hint: real(False, hint))
+
+    def no_native(*_):
+        raise AssertionError("the native ingest ran")
+
+    monkeypatch.setattr(loader, "preprocess_file", no_native)
+    monkeypatch.setattr(loader, "preprocess_buffer", no_native)
+    _cli_three_ways(tmp_path, random_dataset(5),
+                    random_dataset(15, n_txns=25), 0.08)
+
+
 def test_cli_datagen_corpus_matches(tmp_path):
     d_raw = generate_transactions(n_txns=3000, n_items=100, seed=5)
     u_raw = generate_user_baskets(n_users=500, n_items=100, seed=6)

@@ -6,7 +6,9 @@
 - without a CUDA device, every entry point that was not asked for the CPU
   raises InputError (the CLI exits 2), and chip_smoke.py exits non-zero
   without a result line;
-- the engines this slice does not have are refused by name.
+- the engines this slice does not have are refused by name;
+- no code of the port names a path under the JAX package (it builds and
+  loads only its own native sources).
 
 The vertical engine's modules (ops/vertical.py, ops/vertical_kernel.py,
 utils/env.py) are imported by name, and a forced vertical mine without
@@ -15,6 +17,7 @@ a CUDA device is refused like any other run.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -35,7 +38,8 @@ def test_import_leaves_jax_out():
         "import sys, fastapriori_tpu_torch, fastapriori_tpu_torch.cli, "
         "fastapriori_tpu_torch.convert, fastapriori_tpu_torch.ops.vertical, "
         "fastapriori_tpu_torch.ops.vertical_kernel, "
-        "fastapriori_tpu_torch.utils.env\n"
+        "fastapriori_tpu_torch.utils.env, fastapriori_tpu_torch.native, "
+        "fastapriori_tpu_torch.native.loader\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'fastapriori_tpu'))\n"
         "print(','.join(bad))\n"
@@ -67,6 +71,56 @@ def test_no_module_of_the_port_names_jax():
             os.path.join("fastapriori_tpu_torch", "utils", "env.py")} <= names
     for path in files:
         assert FORBIDDEN.isdisjoint(_imported_roots(path)), path
+
+
+# A path under the JAX package: "fastapriori_tpu/...", or the bare
+# directory name as a path component (not fastapriori_tpu_torch).
+JAX_PATH = re.compile(r"fastapriori_tpu(?![\w])(/|\\|$)")
+
+
+def _code_strings(path):
+    """The string constants of a Python file, docstrings left out."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
+def test_no_source_of_the_port_names_a_jax_package_path():
+    checked = set()
+    for dirpath, _, names in os.walk(PKG):
+        if "_build" in dirpath.split(os.sep):
+            continue
+        for n in names:
+            path = os.path.join(dirpath, n)
+            if n.endswith(".py"):
+                strings = list(_code_strings(path))
+            elif n.endswith((".cc", ".cu")):
+                with open(path) as f:
+                    text = f.read()
+                strings = re.findall(r'"(?:[^"\\\n]|\\.)*"', text)
+                strings += re.findall(r"#include\s*<[^>]*>", text)
+            else:
+                continue
+            checked.add(os.path.relpath(path, PKG))
+            for text in strings:
+                assert not JAX_PATH.search(text), (path, text)
+    assert {os.path.join("csrc", "preprocess.cc"),
+            os.path.join("native", "loader.py"),
+            os.path.join("ops", "build.py")} <= checked
+    assert JAX_PATH.search("fastapriori_tpu/native/libfa_native.so")
+    assert JAX_PATH.search("fastapriori_tpu")
+    assert not JAX_PATH.search("fastapriori_tpu_torch/csrc/preprocess.cc")
 
 
 def test_no_cuda_means_an_error_not_the_cpu(monkeypatch, tmp_path, capsys):

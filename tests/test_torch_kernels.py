@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from fastapriori_tpu.ops.pallas_level import level_counts_pallas
 from fastapriori_tpu.ops.pallas_vertical import strided_best_rank_pallas
+from fastapriori_tpu_torch.ops import level_kernel
 from fastapriori_tpu_torch.ops.level_kernel import (
     level_counts,
     level_counts_plain,
@@ -87,6 +88,33 @@ def test_level_counts_refuses_row_wider_than_k1():
     s[0, :4] = 1
     with pytest.raises(ValueError, match="at most k1=2"):
         level_counts(_t(bitmap), _t(wb), _t(s), 2)
+
+
+@pytest.mark.parametrize("f", [12_416, 41_088])
+def test_k1_check_limits_takes_any_f(f):
+    # The wrapper's host checks accept F past the 12,288 an earlier form
+    # of the kernel took, and the plain version answers there.
+    assert not hasattr(level_kernel, "MAX_F")
+    level_kernel.check_limits(71_304, f, 8192)
+    level_kernel.check_limits(1, 10**7, 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        level_kernel.check_limits(2**31, f, 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        level_kernel.check_limits(1, f, 2**31)
+    rng = np.random.default_rng(f)
+    t, m, k1 = 40, 9, 3
+    bitmap = (rng.random((t, f)) < 0.001).astype(np.int8)
+    bitmap[::4, :64] = 1
+    s = np.zeros((m, f), dtype=np.int8)
+    for i in range(m - 1):
+        s[i, rng.choice(64, size=k1, replace=False)] = 1
+    s[-1, f - 1] = 1  # a padding row
+    w = rng.integers(1, 128, size=t).astype(np.int64)
+    wb = (bitmap * w[:, None]).astype(np.int8)
+    got = level_counts(_t(bitmap), _t(wb), _t(s), k1).numpy()
+    want = _expected(bitmap, w, s, k1 + 1)
+    assert want.sum() > 0
+    assert (got == want).all()
 
 
 def _k1_by_row_words(bitmap, wb, s, k1):

@@ -38,6 +38,7 @@ from fastapriori_tpu_torch.device import DeviceContext
 from fastapriori_tpu_torch.models import apriori as tv_apriori
 from fastapriori_tpu_torch.models.apriori import FastApriori
 from fastapriori_tpu_torch.ops import vertical as tv
+from fastapriori_tpu_torch.ops import vertical_kernel
 from fastapriori_tpu_torch.ops.vertical_kernel import (
     lane_plane_mask,
     vertical_counts,
@@ -188,6 +189,45 @@ def test_vertical_counts_prefix_widths(k):
     got = vertical_counts(_t(arena.view(np.int32)), _t(planes.view(np.int32)),
                           scales, _t(prefix), _t(cand)).numpy()
     assert (got == xla).all()
+
+
+def test_level_chunks_keep_p_times_f_pad_below_2_31():
+    """At f_pad = 131,072 a level with more than 8,192 distinct prefixes
+    must be cut into launches of P_cap * f_pad < 2^31 (K3's int32
+    candidate indexes; the default level_prefix_cap alone would give
+    16,384 * 131,072 = 2^31)."""
+    rng = np.random.default_rng(17)
+    f_pad = 131_072
+    firsts = np.sort(rng.choice(f_pad // 2, size=20_000, replace=False))
+    level = np.stack([firsts, firsts + 1], axis=1).astype(np.int32)
+    per_row = rng.integers(1, 4, size=level.shape[0])
+    x_idx = np.repeat(np.arange(level.shape[0], dtype=np.int64), per_row)
+    ys = np.concatenate([
+        np.sort(rng.choice(np.arange(row[1] + 1, f_pad - 1), size=n,
+                           replace=False))
+        for row, n in zip(level, per_row)
+    ]).astype(np.int32)
+    cfg = MinerConfig()
+    assert cfg.level_prefix_cap * f_pad >= 2**31
+    arena = torch.zeros((f_pad + 1, 1), dtype=torch.int32)
+    planes = torch.ones((1, 1), dtype=torch.int32)
+    covered, n_chunks = 0, 0
+    for prefix_cols, cand_idx, sl in tv_apriori.level_chunks(
+            level, x_idx, ys, f_pad, cfg):
+        p = prefix_cols.shape[0]
+        assert p * f_pad < 2**31
+        assert sl.start == covered  # in order, none skipped or repeated
+        covered = sl.stop
+        n_chunks += 1
+        rows = cand_idx // f_pad
+        assert np.array_equal(cand_idx % f_pad, ys[sl])
+        assert np.array_equal(prefix_cols[rows], level[x_idx[sl]])
+        args = (arena, planes, [1], torch.from_numpy(prefix_cols),
+                torch.from_numpy(cand_idx.astype(np.int32)))
+        vertical_kernel._check(*args)
+        vertical_kernel._check_contract(args[0], args[3], args[4])
+    assert covered == x_idx.size
+    assert n_chunks >= 3  # 20,000 prefixes at 8,192 a launch
 
 
 def test_vertical_counts_refuses_what_breaks_the_contract():
