@@ -18,7 +18,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``recommends`` with the digests the JAX package's CLI writes for the
    same files (``--platform cpu --engine level --num-devices 1``;
    tests/test_torch_e2e.py recomputes them).  Auto picks the bitmap
-   layout there: K1 and K2 must have launched, K3 not.
+   layout there: K1 and K2 must have launched, K3 not, and level 2 must
+   have come from the ingest-overlapped pair program.
 4. The vertical path: the kosarak-shape corpus (990,000 transactions over
    41,000 items, length 8, seed 2017; 10,000 user baskets, seed 2018),
    the CLI at ``--min-support 0.002`` with ``FA_MINE_ENGINE=vertical``
@@ -29,16 +30,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    call and read just after, and the CLI's ``--metrics`` stderr lines
    are printed again on stdout: one line of phase walls, one of the
    phases' other fields (shapes, counts, launches).  Both runs must have
-   ingested natively (``"native": true`` on the ``preprocess`` line).
+   ingested natively through the pipelined capture ingest on more than
+   one thread (``"native": true, "pipelined": true, "capture": true`` and
+   ``threads`` > 1 on the ``preprocess`` line); each kernel's launches
+   must equal what the run's own ``level`` and ``first_match`` events
+   count; float32 matmuls must run in full precision (no TF32); one line
+   gives level 3's source (``overlapped``, n2, p3, n3, cap3) and one the
+   run's peak device memory.
    Then each corpus goes once through the Python ingest and once
-   through the native one in-process: the arrays must be equal, and one
-   line gives both walls and the thread count.
+   through the native one-call scan in-process: the arrays must be
+   equal, and one line gives both walls and the thread count.  T10 is
+   mined in-process once through the capture path, with every operation
+   from the last block's arrival to the pair program's fetch under
+   ``torch.cuda.set_sync_debug_mode("error")``, and once through the
+   one-call scan (``ingest_pipeline_blocks=1``): the levels must be
+   equal.
 5. Each kernel against its plain version at the shapes of each path
    that runs it (K1 on the main path, K2 on both, K3 on the vertical
    path; exact equality: every output is an integer count or rank).
    Every launch of each path is replayed at its own shapes and timed
    (``per_launch_ms``, ``ms_all_launches``); the replay must make as many
-   launches as phases 3 and 4 counted.  At the heaviest launch, the
+   launches as phases 3 and 4 counted (the kernels' inputs come from the
+   same capture ingest at the same thread count, so their shapes are the
+   counted run's).  K1's level-3 shape is checked and timed even when
+   level 3 came from the pair program, labelled "not on the path", so
+   that its heaviest shape stays comparable.  At the heaviest launch, the
    kernel's, the plain version's and, for K1, a library formulation's
    times from CUDA events (for K2 also its device time from
    torch.profiler, which leaves out the host's launch overhead), and the
@@ -492,10 +508,14 @@ def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
 
 
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
-             digests: dict, mine_engine=None) -> dict:
+             digests: dict, mine_engine=None) -> tuple:
     """Phases 3 and 4: the port's CLI in-process, with FA_MINE_ENGINE set
     to ``mine_engine`` (unset for None) for this call only; checks both
-    output digests and returns the kernels' launch counts on this run."""
+    output digests and that the run took the pipelined capture ingest on
+    more than one thread, and returns the kernels' launch counts on this
+    run with the run's metrics fields."""
+    import torch
+
     from fastapriori_tpu_torch import cli
 
     os.makedirs(out_dir, exist_ok=True)
@@ -504,6 +524,7 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     saved = os.environ.pop("FA_MINE_ENGINE", None)
     if mine_engine is not None:
         os.environ["FA_MINE_ENGINE"] = mine_engine
+    torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -521,7 +542,8 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
         sys.stderr.write(captured.getvalue())
     if rc != 0:
         raise SystemExit(f"{name}: CLI exited {rc}")
-    log(f"{name}: CLI wall {wall:.3f} s, launches {launches}")
+    log(f"{name}: CLI wall {wall:.3f} s, launches {launches}, peak device "
+        f"memory {torch.cuda.max_memory_allocated()} bytes")
     walls, fields = phase_metrics(captured.getvalue())
     log(f"{name} phases (wall ms): " + json.dumps(walls))
     log(f"{name} phase metrics: " + json.dumps(fields))
@@ -529,13 +551,29 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     if pre.get("native") is not True:
         raise SystemExit(f"{name}: the CLI did not ingest natively "
                          f"({pre.get('native_reason')})")
+    if not (pre.get("pipelined") is True and pre.get("capture") is True
+            and pre.get("threads", 0) > 1):
+        raise SystemExit(f"{name}: the CLI did not take the pipelined "
+                         f"capture ingest on more than one thread: {pre}")
+    k3 = fields.get("level k=3", {})
+    log(f"{name}: level 3 overlapped={k3.get('overlapped')} n2="
+        f"{k3.get('n2', fields.get('level k=2', {}).get('frequent'))} "
+        f"p3={k3.get('p3')} n3={k3.get('n3', k3.get('frequent'))} "
+        f"cap3={k3.get('cap3')}; pair_l3_overflow "
+        f"{fields.get('pair_l3_overflow')}; float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}, allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise SystemExit(f"{name}: float32 matmuls may run as TF32; the "
+                         f"pair program's counts would not be exact")
     for out_name, want in digests.items():
         got = sha256(os.path.join(out_dir, out_name))
         if got != want:
             raise SystemExit(f"{name}: {out_name} sha256 {got} != the JAX "
                              f"package's {want}")
         log(f"{name}: {out_name} sha256 matches the JAX package ({got})")
-    return launches
+    return launches, fields
 
 
 def ingest_compare(name: str, in_dir: str, min_support: str) -> None:
@@ -572,27 +610,98 @@ def ingest_compare(name: str, in_dir: str, min_support: str) -> None:
         f"{ingest_thread_count(None)}")
 
 
-def require_launches(name: str, launches: dict, ran, idle) -> None:
+def expected_launches(fields: dict) -> dict:
+    """Each kernel's launches as the run's own metrics count them: K1 or
+    K3 (by the level events' engine) once per launch of each level that
+    ran through the level loop, K2 once per micro-batch of the device
+    first-match scan."""
+    level = sum(v.get("launches", 0) for k, v in fields.items()
+                if k.startswith("level k="))
+    vertical = fields.get("level k=2", {}).get("engine") == "vertical"
+    fm = fields.get("first_match", {})
+    return {"level_counts": 0 if vertical else level,
+            "vertical_counts": level if vertical else 0,
+            "first_match": fm.get("launches", 0) if fm.get("device") else 0}
+
+
+def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
+    """The counted launches must be what the run's metrics say, and each
+    kernel of ``ran`` must have launched."""
+    want = expected_launches(fields)
+    if launches != want:
+        raise SystemExit(f"{name}: launches {launches} != the run's level "
+                         f"and first_match events' {want}")
     for k in ran:
         if launches[k] <= 0:
             raise SystemExit(f"{name}: kernel {k} never launched")
-    for k in idle:
-        if launches[k] != 0:
-            raise SystemExit(f"{name}: kernel {k} launched {launches[k]} "
-                             f"times; this path must not run it")
+    log(f"{name}: launches {launches} match the run's own events")
 
 
 def mine(in_dir: str, device, min_support: str, mine_engine: str = "auto"):
-    """A path's phase 1 through the API (after its counted run): the
-    inputs of the kernels' measurements."""
+    """A path's phase 1 through the API (after its counted run), through
+    the same pipelined capture ingest and thread count as the counted
+    run, so that its arrays, and so the kernels' shapes, are the counted
+    run's (the CSR kept): the inputs of the kernels' measurements."""
     from fastapriori_tpu_torch.config import MinerConfig
     from fastapriori_tpu_torch.models.apriori import FastApriori
-    from fastapriori_tpu_torch.preprocess import preprocess_file
 
     cfg = MinerConfig(min_support=float(min_support), mine_engine=mine_engine)
-    data = preprocess_file(os.path.join(in_dir, "D.dat"), cfg.min_support)
-    levels = FastApriori(config=cfg, device=device).mine_levels_raw(data)
+    levels, data = FastApriori(config=cfg, device=device).run_file_raw(
+        os.path.join(in_dir, "D.dat"))
     return cfg, data, levels
+
+
+def capture_compare(in_dir: str, device, min_support: str) -> None:
+    """T10 in-process through the capture path, with every operation
+    from the last block's arrival to the pair program's fetch under
+    ``torch.cuda.set_sync_debug_mode("error")`` (device.py
+    ``sync_free``: a hidden wait for the device raises), and through the
+    one-call scan (``ingest_pipeline_blocks=1``): the levels must be
+    equal."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.models.apriori import FastApriori
+
+    path = os.path.join(in_dir, "D.dat")
+    runs = {}
+    for name, blocks in (("capture", 8), ("one-call", 1)):
+        cfg = MinerConfig(min_support=float(min_support),
+                          ingest_pipeline_blocks=blocks)
+        miner = FastApriori(config=cfg, device=device)
+        miner.ctx.sync_check = name == "capture"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        levels, _ = miner.run_file_raw(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = {r["event"] + (f" k={r['k']}" if "k" in r else ""): r
+              for r in miner.metrics.records}
+        runs[name] = (levels, ev)
+        log(f"capture compare, {name}: mine wall {wall:.3f} s; " + ", ".join(
+            f"{key} {ev[key]['wall_ms']} ms" for key in (
+                "preprocess", "bitmap_build", "level k=2", "level k=3")
+            if key in ev) + "; " + json.dumps({
+                key: ev[phase][key] for phase, keys in (
+                    ("preprocess", ("pass1_s", "pass2_s", "pack_s")),
+                    ("bitmap_build", ("upload_wait_ms", "pair_issue_ms",
+                                      "assemble_ms")),
+                    ("level k=2", ("pair_device_ms",)))
+                for key in keys if key in ev.get(phase, {})}))
+    (got, ev_c), (want, ev_1) = runs["capture"], runs["one-call"]
+    if len(got) != len(want) or not all(
+            np.array_equal(a, b) and np.array_equal(ca, cb)
+            for (a, ca), (b, cb) in zip(got, want)):
+        raise SystemExit("capture compare: the capture path's levels differ "
+                         "from the one-call scan's")
+    if not (ev_c["preprocess"].get("pipelined")
+            and ev_c["level k=2"].get("overlapped")
+            and not ev_1["preprocess"].get("pipelined")):
+        raise SystemExit("capture compare: the runs did not take the paths "
+                         "they name")
+    log(f"capture compare: equal levels ({len(got)}), no device wait in the "
+        f"pair dispatch (sync debug mode error)")
 
 
 def level_launches(cfg, levels, f_pad: int):
@@ -615,14 +724,19 @@ def level_launches(cfg, levels, f_pad: int):
             yield k, prefix_cols, cand_idx
 
 
-def k1_measure(cfg, data, levels, device) -> dict:
+def k1_measure(cfg, data, levels, device, fields) -> dict:
     """Phase 5, K1: every level-count launch of the main path replayed at
     its own shapes (held against the plain version, timed), then the
     heaviest (the first with the most prefix rows) in full: the plain
-    version, the library formulation and the bound."""
+    version, the library formulation and the bound.  When the counted
+    run (``fields``) took level 3 from the pair program, level 3's
+    launches are not on the path: they are checked and timed all the
+    same, so that the heaviest shape stays comparable with earlier runs,
+    but left out of the replay's count and sum."""
     import numpy as np
     import torch
 
+    from fastapriori_tpu_torch.models.apriori import txn_multiple
     from fastapriori_tpu_torch.ops.bitmap import build_bitmap_csr
     from fastapriori_tpu_torch.ops.count import prefix_onehot
     from fastapriori_tpu_torch.ops.level_kernel import (
@@ -630,8 +744,12 @@ def k1_measure(cfg, data, levels, device) -> dict:
         level_counts_plain,
     )
 
+    # The transaction axis padded as the pipelined ingest pads it.
+    n_chunks = max(1, -(-data.n_raw // cfg.level_txn_chunk))
     b_np = build_bitmap_csr(data.basket_indices, data.basket_offsets,
-                            data.num_items, cfg.txn_tile, cfg.item_tile)
+                            data.num_items, txn_multiple(cfg, n_chunks),
+                            cfg.item_tile)
+    folded = bool(fields.get("level k=3", {}).get("overlapped"))
     f_pad = b_np.shape[1]
     if data.weights.max() >= 128:
         raise SystemExit("K1 measurement expects single-digit weights")
@@ -639,26 +757,28 @@ def k1_measure(cfg, data, levels, device) -> dict:
     w = np.zeros(b_np.shape[0], dtype=np.int8)
     w[: data.total_count] = data.weights
     wb = bitmap * torch.from_numpy(w).to(device)[:, None]
-    per_launch, best = [], None
+    per_launch, off_path, best = [], [], None
     for k, prefix_cols, _ in level_launches(cfg, levels, f_pad):
         k1 = prefix_cols.shape[1]
         s_mat = prefix_onehot(torch.from_numpy(prefix_cols).to(device), f_pad)
         require_equal(f"level_counts k={k} launch",
                       level_counts(bitmap, wb, s_mat, k1),
                       level_counts_plain(bitmap, wb, s_mat, k1))
-        per_launch.append(time_ms(
-            lambda: level_counts(bitmap, wb, s_mat, k1), iters=10))
+        ms_k = time_ms(lambda: level_counts(bitmap, wb, s_mat, k1), iters=10)
+        (off_path if k == 3 and folded else per_launch).append(ms_k)
         if best is None or s_mat.shape[0] > best[0].shape[0]:
-            best = (s_mat, k1)
+            best = (s_mat, k1, not (k == 3 and folded))
     log(f"K1 per launch (ms): {json.dumps(per_launch)}, all launches "
-        f"{sum(per_launch):.4f} ms")
-    s_mat, k1 = best
+        f"{sum(per_launch):.4f} ms; level 3's launches, not on the path "
+        f"(level 3 came from the pair program): {json.dumps(off_path)}")
+    s_mat, k1, on_path = best
     t, f = bitmap.shape
     m = s_mat.shape[0]
     # Real prefixes hold k1 items; the pow2 padding rows hold one item
     # and the kernel gives tiles of only those no work.
     m_real = int((torch.count_nonzero(s_mat, dim=1) == k1).sum().item())
-    log(f"K1 shapes: T={t} F={f} M={m} ({m_real} real prefixes) k1={k1}")
+    log(f"K1 shapes: T={t} F={f} M={m} ({m_real} real prefixes) k1={k1}"
+        + ("" if on_path else " (not on the path)"))
 
     got = level_counts(bitmap, wb, s_mat, k1)
     want = level_counts_plain(bitmap, wb, s_mat, k1)
@@ -690,7 +810,8 @@ def k1_measure(cfg, data, levels, device) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "ms_all_launches": sum(per_launch),
-            "per_launch_ms": per_launch}
+            "per_launch_ms": per_launch, "heaviest_on_path": on_path,
+            "per_launch_ms_not_on_path": off_path}
 
 
 def scan_crossover(path: str, rec, baskets) -> None:
@@ -931,28 +1052,31 @@ def main() -> int:
     in_dir, out_dir = os.path.join(WORK, "in"), os.path.join(WORK, "out")
     write_corpus(in_dir, n_txns=100_000, n_items=1000, avg_txn_len=10,
                  seed=2017, n_users=10_000, user_seed=2018)
-    main_launches = cli_path(
+    main_launches, main_fields = cli_path(
         "main path", in_dir, out_dir, MIN_SUPPORT,
         {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256})
-    require_launches("main path", main_launches,
-                     ran=("level_counts", "first_match"),
-                     idle=("vertical_counts",))
+    require_launches("main path", main_launches, main_fields,
+                     ran=("level_counts", "first_match"))
+    if not main_fields.get("level k=2", {}).get("overlapped"):
+        raise SystemExit("main path: level 2 did not come from the "
+                         "ingest-overlapped pair program")
 
     k_in, k_out = os.path.join(WORK, "kin"), os.path.join(WORK, "kout")
     write_corpus(k_in, **{key: KOSARAK[key] for key in (
         "n_txns", "n_items", "avg_txn_len", "seed", "n_users", "user_seed")})
-    vert_launches = cli_path(
+    vert_launches, vert_fields = cli_path(
         "vertical path", k_in, k_out, KOSARAK["min_support"],
         {"freqItemset": KOSARAK["freq_sha256"],
          "recommends": KOSARAK["rec_sha256"]}, mine_engine="vertical")
-    require_launches("vertical path", vert_launches,
-                     ran=("vertical_counts", "first_match"),
-                     idle=("level_counts",))
+    require_launches("vertical path", vert_launches, vert_fields,
+                     ran=("vertical_counts", "first_match"))
     ingest_compare("t10i4d100k", in_dir, MIN_SUPPORT)
     ingest_compare("kosarak", k_in, KOSARAK["min_support"])
 
+    capture_compare(in_dir, device, MIN_SUPPORT)
+
     cfg, data, levels = mine(in_dir, device, MIN_SUPPORT)
-    k1 = k1_measure(cfg, data, levels, device)
+    k1 = k1_measure(cfg, data, levels, device, main_fields)
     require_replayed("K1 main path", k1, main_launches["level_counts"])
     k2 = k2_measure("t10i4d100k", in_dir, data, levels, device)
     require_replayed("K2 main path", k2, main_launches["first_match"])

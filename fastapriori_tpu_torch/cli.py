@@ -90,6 +90,9 @@ def _run(args) -> int:
         min_support=args.min_support,
         engine=args.engine,
         log_metrics=args.metrics,
+        # Nothing after mining reads the basket CSR: the pipelined ingest
+        # keeps none (the JAX CLI's setting).
+        retain_csr=False,
     )
     device = "cpu" if args.platform == "cpu" else "cuda"
     miner = FastApriori(config=config, device=device)

@@ -34,6 +34,25 @@ class MinerConfig:
     # Candidates and prefix rows per level-count launch.
     level_cand_cap: int = 1 << 18
     level_prefix_cap: int = 1 << 14
+    # Transaction-axis chunk of the level-3 fold's membership and count
+    # matmuls (ops/count.py ``l3_threshold_pack``): the pipelined ingest
+    # pads the transaction axis to whole chunks of about this many raw
+    # transactions, bounding the fold's [chunk, pair_l3_rows] float32
+    # intermediate.
+    level_txn_chunk: int = 1 << 14
+    # Survivor budget of the on-device pair threshold (ops/count.py
+    # ``pair_threshold_pack``): the packed fetch holds 2 * pair_cap + 2
+    # int32.  More frequent pairs than this re-extract once at the next
+    # power of two over the resident count matrix, and the grown budget
+    # is remembered for repeat runs on the same DeviceContext.
+    pair_cap: int = 1 << 14
+    # Level 3 inside the ingest-overlapped pair program (ops/count.py
+    # ``l3_threshold_pack``): pair_l3_rows frequent pairs are counted as
+    # prefixes, pair_l3_cap level-3 survivors are extracted.  More pairs
+    # or more survivors fall back to K1 for level 3 and remember the
+    # grown budgets; 0 rows turns the fold off.
+    pair_l3_rows: int = 1 << 13
+    pair_l3_cap: int = 1 << 14
     # Recommender: rules per chunk of the padded rule table, and basket
     # rows per first-match micro-batch (pow2-bucketed, floor 32).
     rule_chunk: int = 1 << 13
@@ -58,5 +77,17 @@ class MinerConfig:
     # pass.  None = one thread per core; FA_INGEST_THREADS overrides,
     # strictly parsed.
     ingest_threads: Optional[int] = None
+    # Pipelined capture ingest (models/apriori.py
+    # ``_run_file_pipelined_capture``): one native call cuts D.dat into
+    # this many line-aligned blocks, and each block's packed bitmap goes
+    # up to the device while the next block is compressed.  <= 1 turns
+    # the pipeline off (one-call scan, then the bitmap build).
+    ingest_pipeline_blocks: int = 8
+    # Keep the whole basket CSR in the CompressedData the pipelined
+    # ingest returns.  Mining does not read it there (the bitmap is
+    # packed block by block, heavy rows are pulled out in the block
+    # callback), so the CLI sets False; the library keeps the
+    # documented CompressedData contract by default.
+    retain_csr: bool = True
     # Emit per-phase structured metrics as JSON lines on stderr.
     log_metrics: bool = False

@@ -1,7 +1,18 @@
 """Device placement for the single-GPU path (counterpart: the one-device
 subset of fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — upload,
-the vertical engine's arena and plane uploads, fetch; no mesh and no
-collectives).
+the vertical engine's arena and plane uploads, fetch, the ingest-
+overlapped pair program ``ingest_pair_miner``, its overflow
+``pair_regather`` and the remembered pair budgets; no mesh and no
+collectives — and of fastapriori_tpu/reliability/retry.py
+``fetch_async``, without its retry policy: retries belong to the
+reliability core, which is not ported yet).
+
+The pipelined ingest's uploads (:class:`BlockUploader`) go through pinned
+host memory on a side stream, so they overlap the host's compression of
+the next block; the main stream waits for that stream before it reads
+them.  Nothing between the last block's arrival and the pair program's
+fetch waits for the device: :meth:`DeviceContext.sync_free` can hold that
+region to it (``torch.cuda.set_sync_debug_mode("error")``).
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.  With no
 CUDA device and no such request, :func:`resolve_device` raises
@@ -10,12 +21,21 @@ CUDA device and no such request, :func:`resolve_device` raises
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import contextlib
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.ops.bitmap import unpack_bitmap
+from fastapriori_tpu_torch.ops.count import (
+    frequent_pair_mask,
+    l3_threshold_pack,
+    local_pair_regather,
+    pair_threshold_pack,
+)
 from fastapriori_tpu_torch.ops.vertical import assemble_arena
 from fastapriori_tpu_torch.ops.vertical_kernel import lane_plane_mask
 
@@ -43,12 +63,87 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None):
     return dev
 
 
+class AsyncFetch:
+    """A device -> host copy issued without waiting: on CUDA a
+    non-blocking copy into pinned host memory and an event behind it,
+    which :meth:`result` waits on."""
+
+    def __init__(self, x: torch.Tensor):
+        if x.device.type == "cuda":
+            self._host = torch.empty(x.shape, dtype=x.dtype,
+                                     pin_memory=True)
+            self._host.copy_(x, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = x, None
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class BlockUploader:
+    """Host arrays to the device on one worker thread, in submission
+    order.  On CUDA each array is copied into pinned memory and sent on
+    a side stream (entered in the worker thread: the current stream is
+    per thread); the pinned buffers stay referenced until :meth:`close`
+    has waited for their copies.  On the CPU the array itself becomes
+    the tensor."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._stream = (
+            torch.cuda.Stream(device) if device.type == "cuda" else None
+        )
+        self._held: List[Tuple[torch.Tensor, torch.cuda.Event]] = []
+
+    def submit(self, x: np.ndarray) -> Future:
+        return self._pool.submit(self._put, x)
+
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(x)
+        if self._stream is None:
+            return host
+        with torch.cuda.stream(self._stream):
+            pinned = host.pin_memory()
+            dev = pinned.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._held.append((pinned, event))
+        return dev
+
+    def gather(self, futures: Sequence[Future]) -> List[torch.Tensor]:
+        """The uploaded tensors, with the current stream ordered after
+        their copies (and the tensors marked as used there, so their
+        memory is not handed out again before it has read them)."""
+        out = [fu.result() for fu in futures]
+        if self._stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(self._stream)
+            for t in out:
+                t.record_stream(cur)
+        return out
+
+    def close(self) -> None:
+        self._pool.shutdown()
+        for _, event in self._held:
+            event.synchronize()
+        self._held.clear()
+
+
 class DeviceContext:
     """One device: host arrays go up with :meth:`upload`, results come
-    back with :meth:`fetch`."""
+    back with :meth:`fetch`.  ``sync_check``: run the pipelined ingest's
+    pair dispatch under :meth:`sync_free` (a test of the overlap; off by
+    default)."""
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
+        self.sync_check = False
+        self._pair_caps: Dict[tuple, int] = {}
 
     @property
     def platform(self) -> str:
@@ -56,6 +151,110 @@ class DeviceContext:
 
     def upload(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def upload_async(self, x: np.ndarray) -> torch.Tensor:
+        """Like :meth:`upload`, but on CUDA through pinned memory with a
+        non-blocking copy on the current stream: the host does not wait
+        for the work already queued there."""
+        host = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def block_uploader(self) -> BlockUploader:
+        return BlockUploader(self.device)
+
+    @contextlib.contextmanager
+    def sync_free(self):
+        """With ``sync_check`` on CUDA: any operation in the block that
+        waits for the device raises (``torch.cuda.set_sync_debug_mode
+        ("error")``).  Else a no-op."""
+        if not (self.sync_check and self.device.type == "cuda"):
+            yield
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    def timing_event(self) -> Optional[torch.cuda.Event]:
+        """A timing event recorded now on the current stream (None off
+        CUDA); two of them give the device time between them once the
+        later one has passed."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def pair_cap_hint(self, key: tuple) -> Optional[int]:
+        """The last budget that held this profile's survivors: repeat
+        runs start there instead of paying the overflow path again."""
+        return self._pair_caps.get(key)
+
+    def record_pair_cap(self, key: tuple, cap: int) -> None:
+        self._pair_caps[key] = cap
+
+    def ingest_pair_miner(
+        self,
+        blocks: Sequence[torch.Tensor],  # packed uint8 [t_i, F // 8]
+        ws: Sequence[torch.Tensor],  # int32 [t_i] raw block weights
+        t_pad: int,
+        min_count: int,
+        num_items: int,
+        cap: int,
+        census: bool,
+        l3: Optional[Tuple[int, int, int]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """From the uploaded packed blocks to ``(bitmap int8[t_pad, F],
+        packed pair output, counts int32[F, F])`` in one sequence of
+        device work, issued the moment the last block has landed: concat,
+        zero tail rows, unpack, the pair Gram as one float32 product over
+        the raw weights (exact while every count < 2^24: the caller gates
+        on ``n_raw``; so no weight-digit split and no heavy-row
+        correction, which the host is still assembling), then
+        ops/count.py ``pair_threshold_pack``.  ``l3=(p3, cap3,
+        n_chunks)`` appends ``l3_threshold_pack``'s level 3, cut from the
+        same mask.  ``counts`` stays on the device for an overflow
+        :meth:`pair_regather`."""
+        pk = torch.cat(list(blocks)) if len(blocks) > 1 else blocks[0]
+        w = torch.cat(list(ws)) if len(ws) > 1 else ws[0]
+        total = pk.shape[0]
+        if t_pad > total:
+            pk = torch.cat([pk, pk.new_zeros((t_pad - total, pk.shape[1]))])
+            w = torch.cat([w, w.new_zeros(t_pad - total)])
+        bitmap = unpack_bitmap(pk)
+        b_f = bitmap.to(torch.float32)
+        w_f = w.to(torch.float32)
+        counts = ((b_f * w_f[:, None]).T @ b_f).to(torch.int32)
+        del b_f
+        packed = pair_threshold_pack(counts, min_count, num_items, cap,
+                                     census)
+        if l3 is not None:
+            p3, cap3, n_chunks = l3
+            mask = frequent_pair_mask(counts, min_count, num_items)
+            packed = torch.cat([packed, l3_threshold_pack(
+                bitmap, w_f, mask, packed[2 * cap], min_count, num_items,
+                p3, cap3, n_chunks,
+            )])
+        return bitmap, packed, counts
+
+    def pair_regather(
+        self, counts: torch.Tensor, min_count: int, num_items: int, cap: int
+    ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The first ``cap`` frequent pairs of a resident count matrix
+        (ops/count.py ``local_pair_regather``; the pair threshold's
+        overflow path): host int64 ``(flat_idx, counts, n2)``, one
+        fetch."""
+        idx, cnt, n2 = local_pair_regather(counts, min_count, num_items, cap)
+        out = self.fetch(torch.cat([idx, cnt.long(), n2.long()[None]]))
+        return out[:cap], out[cap : 2 * cap], int(out[2 * cap])
+
+    @staticmethod
+    def fetch_async(x: torch.Tensor) -> AsyncFetch:
+        return AsyncFetch(x)
 
     def upload_tid_arena(
         self, arena_np: np.ndarray, buckets=None

@@ -1,9 +1,29 @@
 """Mining engine (counterpart: fastapriori_tpu/models/apriori.py
-``FastApriori.run_file_raw`` on the level engine — ``_mine_levels``,
-``_split_weights``, ``_mine_engine``, ``_mine_vertical``,
-``_level_loop_impl`` and ``_count_level`` without the elastic, quorum,
-checkpoint, fused, tail, sparse, lane-tiled and pipelined-ingest
-branches; reference C6-C9, FastApriori.scala:31-160).
+``FastApriori.run_file_raw`` on the level engine — the pipelined capture
+ingest ``_run_file_pipelined_capture`` with ``_can_pipeline_ingest``,
+``_pipeline_engine_probe``, ``_assemble_blocks`` and the ingest-overlapped
+pair + level-3 program, then ``_mine_levels``, ``_split_weights``,
+``_mine_engine``, ``_mine_vertical``, ``_level_loop_impl`` and
+``_count_level`` without the elastic, quorum, checkpoint, fused, tail,
+sparse, lane-tiled and deferred-count branches; reference C6-C9,
+FastApriori.scala:31-160).
+
+``run_file_raw`` ingests D.dat in one native call that cuts it into
+``ingest_pipeline_blocks`` line-aligned blocks (pass 1 over
+``ingest_threads`` segments, then the blocks replayed on as many
+threads).  A pass-1 probe picks the layout before any block arrives.  On
+the bitmap layout each block is bit-packed in its callback and uploaded
+on a side stream while the next block is compressed; when the last block
+lands, one sequence of device work (device.py ``ingest_pair_miner``)
+builds the bitmap and counts levels 2 and 3, and its packed result is
+fetched asynchronously while the host assembles the weights.  Level 2,
+and level 3 when it fits its budgets, are then reads of that fetch.
+Without the native library, or with ``ingest_pipeline_blocks <= 1``, the
+one-call scan runs instead and the bitmap is built after it.
+
+Blocks are deduplicated apart: identical baskets of two blocks stay two
+weighted rows, so the arrays of the returned ``CompressedData`` depend on
+the block and thread counts, its weighted counts do not.
 
 Two layouts count the same lattice:
 
@@ -33,9 +53,12 @@ kernel and waits for a later slice of the port.
 from __future__ import annotations
 
 import dataclasses
+import mmap
+import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from fastapriori_tpu_torch.config import ENGINES, MINE_ENGINES, MinerConfig
 from fastapriori_tpu_torch.device import DeviceContext
@@ -47,12 +70,14 @@ from fastapriori_tpu_torch.models.candidates import (
 from fastapriori_tpu_torch.ops.bitmap import (
     build_bitmap,
     build_bitmap_csr,
+    build_packed_bitmap_csr,
     next_pow2,
     pad_axis,
+    unpack_bitmap,
     weight_digits,
 )
 from fastapriori_tpu_torch.ops.count import (
-    frequent_pair_mask,
+    TRI_F_CAP,
     heavy_pair_correction,
     local_level_gather,
     local_pair_counts,
@@ -121,13 +146,19 @@ def split_weights(
     offsets: np.ndarray,
     num_items: int,
     item_tile: int,
+    heavy_pre: Optional[List[np.ndarray]] = None,
 ):
     """Single-low-digit weight split (reference ``_split_weights``):
     every row runs the kernels with ``w % 128`` and the exact remainder
     ``w - w % 128`` of the rows with multiplicity >= 128 rides a small
     heavy-row bitmap.  Returns ``(w_digits int8[D, T_pad], scales,
     heavy_b | None, heavy_w | None)``; heavy None = every digit goes
-    through the kernels (no heavy rows, or too many)."""
+    through the kernels (no heavy rows, or too many).
+
+    ``heavy_pre``: the heavy rows' baskets, pulled out in the pipelined
+    ingest's block callback when no global CSR is kept
+    (``retain_csr=False``), in the order ``np.flatnonzero(weights >=
+    128)`` gives."""
     heavy_idx = np.flatnonzero(weights >= 128)
     f_pad = pad_axis(num_items + 1, item_tile)
     if (
@@ -140,11 +171,55 @@ def split_weights(
     w_digits, scales = weight_digits(
         (weights % 128).astype(np.int32), t_pad
     )
-    baskets = [indices[offsets[i] : offsets[i + 1]] for i in heavy_idx]
+    if heavy_pre is not None:
+        if len(heavy_pre) != heavy_idx.size:
+            raise ValueError(f"{len(heavy_pre)} heavy baskets for "
+                             f"{heavy_idx.size} heavy rows")
+        baskets = heavy_pre
+    else:
+        baskets = [indices[offsets[i] : offsets[i + 1]] for i in heavy_idx]
     heavy_b = build_bitmap(baskets, num_items, 8, item_tile)
     heavy_w = np.zeros(heavy_b.shape[0], dtype=np.int32)
     heavy_w[: heavy_idx.size] = weights[heavy_idx] - (weights[heavy_idx] % 128)
     return w_digits, scales, heavy_b, heavy_w
+
+
+def txn_multiple(config: MinerConfig, n_chunks: int) -> int:
+    """Padding multiple of the pipelined bitmap's transaction axis: whole
+    chunks for the level-3 fold (the reference's ``_txn_multiple``
+    without its TPU tile alignment)."""
+    return max(config.txn_tile, 32) * n_chunks
+
+
+def empty_compressed(
+    n_raw: int, min_count: int, freq_items, item_to_rank, item_counts
+) -> CompressedData:
+    """The global tables with no baskets (fewer than two frequent items,
+    or an ingest with no block)."""
+    return CompressedData(
+        n_raw=n_raw,
+        min_count=min_count,
+        freq_items=freq_items,
+        item_to_rank=item_to_rank,
+        item_counts=item_counts,
+        basket_indices=np.empty(0, np.int32),
+        basket_offsets=np.zeros(1, np.int64),
+        weights=np.empty(0, np.int32),
+    )
+
+
+def concat_block_csr(blocks):
+    """Block-order concatenation of per-block ``(indices, offsets,
+    weights)`` CSRs into one (each block's ``offsets[0] == 0``).
+    Identical baskets of two blocks stay two weighted rows."""
+    w_np = np.concatenate([bw for _, _, bw in blocks])
+    indices = np.concatenate([bi for bi, _, _ in blocks])
+    offs = [np.zeros(1, dtype=np.int64)]
+    base = 0
+    for _, bo, _ in blocks:
+        offs.append(bo[1:].astype(np.int64) + base)
+        base += int(bo[-1])
+    return indices, np.concatenate(offs), w_np
 
 
 def level_chunks(
@@ -197,13 +272,16 @@ class FastApriori:
     """Mining engine; API mirrors the reference class
     (``FastApriori(min_support).run_file_raw(path)``).  ``device``:
     ``None``/``"cuda"`` (the default: InputError without a GPU) or
-    ``"cpu"`` (every kernel wrapper runs its plain version)."""
+    ``"cpu"`` (every kernel wrapper runs its plain version).
+    ``context``: a DeviceContext to share (it remembers grown pair
+    budgets across runs); made from ``device`` when None."""
 
     def __init__(
         self,
         min_support: Optional[float] = None,
         config: Optional[MinerConfig] = None,
         device=None,
+        context: Optional[DeviceContext] = None,
     ):
         self.config = (
             dataclasses.replace(config) if config is not None else MinerConfig()
@@ -211,19 +289,22 @@ class FastApriori:
         if min_support is not None:
             self.config.min_support = min_support
         self.engine = resolve_engine(self.config.engine)
-        self.ctx = DeviceContext(device)
+        self.ctx = context if context is not None else DeviceContext(device)
         self.metrics = MetricsLogger(enabled=self.config.log_metrics)
 
     def run_file_raw(self, d_path: str) -> Tuple[Levels, CompressedData]:
         """Mine ``D.dat``: returns the level matrices (k >= 2) and the
-        preprocessed data (item tables, 1-itemset counts)."""
+        preprocessed data (item tables, 1-itemset counts).  Under the
+        pipelined ingest (the default) the data's rows are deduplicated
+        per block, and with ``retain_csr=False`` it holds no basket
+        CSR."""
         # Parsed before the ingest, so a bad FA_INGEST_THREADS fails every
-        # run and not only a vertical one (the arena build reads it).
-        ingest_thread_count(self.config.ingest_threads)
+        # run.
+        n_threads = ingest_thread_count(self.config.ingest_threads)
+        if self._can_pipeline_ingest():
+            return self._run_file_pipelined_capture(d_path, n_threads)
         with self.metrics.timed("preprocess", path=d_path) as m:
-            # A file always passes the native size gate.  The one-call
-            # scan runs on one thread: the threaded block ingest dedups
-            # each block apart, so its arrays are not these.
+            # A file always passes the native size gate.
             native, reason = native_choice(None, 1 << 62)
             data = preprocess_file(d_path, self.config.min_support,
                                    native=native)
@@ -233,17 +314,43 @@ class FastApriori:
                 num_items=data.num_items,
                 total_count=data.total_count,
                 native=native,
+                pipelined=False,
+                capture=False,
                 threads=1,
             )
             if not native:
                 m.update(native_reason=reason)
         return self.mine_levels_raw(data), data
 
-    def mine_levels_raw(self, data: CompressedData) -> Levels:
-        """Levels >= 2 as lex-sorted member matrices with counts."""
-        if data.num_items < 2 or data.total_count == 0:
-            return []
-        layout, requested, density = self._mine_engine(data)
+    def _can_pipeline_ingest(self) -> bool:
+        """The pipelined capture ingest runs whenever the native library
+        is available and ``ingest_pipeline_blocks > 1``.  The reference's
+        other conditions (one process, one device on each mesh axis, a
+        local path) always hold on the port's one device."""
+        if self.config.ingest_pipeline_blocks <= 1:
+            return False
+        return native_choice(None, 1 << 62)[0]
+
+    def _pipeline_engine_probe(
+        self, n_raw: int, num_items: int, occ_total: float
+    ) -> str:
+        """The layout from pass-1 tables alone, before any block arrives:
+        the decision of :meth:`_mine_engine` (the CSR is always there
+        on this path)."""
+        req = self._requested_mine_engine()
+        if req in ("bitmap", "vertical"):
+            return req
+        cfg = self.config
+        density = density_from_tables(n_raw, num_items, occ_total)
+        if (
+            num_items >= cfg.vertical_min_items
+            and density <= cfg.vertical_density_max
+        ):
+            return "vertical"
+        return "bitmap"
+
+    def _emit_mine_engine(self, layout: str, requested: str, density: float,
+                          **extra) -> None:
         self.metrics.emit(
             "mine_engine",
             engine=layout,
@@ -253,7 +360,300 @@ class FastApriori:
             level_engine_requested=self.config.engine,
             device=str(self.ctx.device),
             note="auto resolves to level: the fused engine is not ported yet",
+            **extra,
         )
+
+    def _upload_heavy(self, heavy_b, heavy_w):
+        """The heavy-row remainder arrays on the device (None -> None:
+        every weight digit goes through K1)."""
+        if heavy_b is None:
+            return None
+        return self.ctx.upload_async(heavy_b), self.ctx.upload_async(heavy_w)
+
+    @staticmethod
+    def _heavy_stats(heavy_b, heavy_w) -> Tuple[int, int]:
+        """(heavy rows, bytes uploaded for them)."""
+        if heavy_b is None:
+            return 0, 0
+        return int(np.count_nonzero(heavy_w)), heavy_b.nbytes + heavy_w.nbytes
+
+    def _assemble_blocks(self, blocks, multiple: int, f: int,
+                         heavy_pre=None):
+        """Host assembly of the per-block CSRs: concatenated weights, the
+        weight digits (the single-low-digit split when heavy rows are
+        few) and the global CSR.  ``heavy_pre`` (``retain_csr=False``):
+        the blocks carry no item arrays, no global CSR is built, and the
+        heavy rows' baskets come from the block callback."""
+        total = sum(len(bw) for _, _, bw in blocks)
+        t_pad = pad_axis(total, multiple)
+        if heavy_pre is None:
+            indices, offsets, w_np = concat_block_csr(blocks)
+        else:
+            w_np = np.concatenate([bw for _, _, bw in blocks])
+            indices = np.empty(0, np.int32)
+            offsets = np.zeros(1, np.int64)
+        w_digits_np, scales, heavy_b, heavy_w = split_weights(
+            w_np, t_pad, indices, offsets, f, self.config.item_tile,
+            heavy_pre=heavy_pre,
+        )
+        return (total, t_pad, w_np, w_digits_np, scales, indices, offsets,
+                heavy_b, heavy_w)
+
+    @staticmethod
+    def _device_concat_unpack(dev_blocks, total: int, t_pad: int,
+                              f_pad: int) -> torch.Tensor:
+        """The uploaded packed blocks concatenated on the device, zero
+        rows to ``t_pad``, unpacked to the int8 bitmap."""
+        parts = list(dev_blocks)
+        if t_pad > total:
+            parts.append(parts[0].new_zeros((t_pad - total, f_pad // 8)))
+        return unpack_bitmap(torch.cat(parts))
+
+    def _run_file_pipelined_capture(
+        self, d_path: str, n_threads: int
+    ) -> Tuple[Levels, CompressedData]:
+        """Capture-replay pipelined ingest: one native call
+        (native/loader.py ``preprocess_buffer_blocks``) runs pass 1 over
+        ``n_threads`` segments, assigns ranks, fires ``on_pass1`` (the
+        layout probe) and replays the blocks on ``n_threads`` threads;
+        each block arrives through a callback on this thread, in block
+        order, while the call runs.  On the bitmap layout the callback
+        packs the block and submits its upload, so transfers run while
+        the next block is compressed; on the vertical layout it keeps the
+        block CSR for the arena build.
+
+        The reference's re-tokenizing ``_run_file_pipelined`` serves only
+        a native library that lacks the blocks entry point; the port's
+        library always has it (native/loader.py
+        ``has_preprocess_buffer_blocks``), so that path is not ported."""
+        from fastapriori_tpu_torch.native.loader import (
+            preprocess_buffer_blocks,
+        )
+
+        cfg = self.config
+        ctx = self.ctx
+        blocks: list = []
+        heavy_pre: list = []
+        dev_futures: list = []
+        w_futures: list = []
+        state = {"f_pad": None, "upload_bytes": 0, "pack_s": 0.0}
+        req_engine = self._requested_mine_engine()
+        engine_state = {"engine": "bitmap" if req_engine == "auto"
+                        else req_engine}
+
+        def on_pass1(n_raw_, min_count_, f_, counts_):
+            engine_state["engine"] = self._pipeline_engine_probe(
+                n_raw_, f_, float(counts_.sum())
+            )
+
+        def on_block(f_, offsets, items, weights):
+            state.setdefault("t_first_block", time.perf_counter())
+            if engine_state["engine"] == "vertical":
+                # The arena build reads the CSR after the call; a
+                # copy_items=False view dies with this callback.
+                items_c = items if items.flags.writeable else items.copy()
+                blocks.append((items_c, offsets, weights))
+                return
+            tp0 = time.perf_counter()
+            pk, f_pad = build_packed_bitmap_csr(items, offsets, f_, 1,
+                                                cfg.item_tile)
+            state["pack_s"] += time.perf_counter() - tp0
+            state["f_pad"] = f_pad
+            state["upload_bytes"] += pk.nbytes + weights.nbytes
+            dev_futures.append(uploader.submit(pk))
+            # The raw weights go up too: the pair program counts with
+            # them before the host has split them into digits.
+            w_futures.append(uploader.submit(weights))
+            if cfg.retain_csr:
+                if not items.flags.writeable:
+                    raise RuntimeError(
+                        "retain_csr needs copy_items=True: a read-only "
+                        "item view lives only inside its callback"
+                    )
+                blocks.append((items, offsets, weights))
+                return
+            # retain_csr=False: `items` is valid only now, so the heavy
+            # rows' baskets are taken here (up to the split's cap: past
+            # it every digit goes through K1 and they are not read).
+            for i in np.flatnonzero(weights >= 128):
+                if len(heavy_pre) > HEAVY_SPLIT_CAP:
+                    break
+                heavy_pre.append(items[offsets[i] : offsets[i + 1]].copy())
+            blocks.append((None, offsets, weights))
+
+        uploader = ctx.block_uploader()
+        try:
+            with self.metrics.timed("preprocess", path=d_path) as m:
+                with open(d_path, "rb") as fh:
+                    try:
+                        buf = np.frombuffer(
+                            mmap.mmap(fh.fileno(), 0,
+                                      access=mmap.ACCESS_READ),
+                            dtype=np.uint8,
+                        )
+                    except (ValueError, OSError):  # an empty file
+                        buf = fh.read()
+                t0 = time.perf_counter()
+                n_raw, min_count, freq_items, item_counts = (
+                    preprocess_buffer_blocks(
+                        buf,
+                        cfg.min_support,
+                        max(cfg.ingest_pipeline_blocks, 1),
+                        on_block,
+                        n_threads=n_threads,
+                        copy_items=cfg.retain_csr,
+                        on_pass1=on_pass1 if req_engine == "auto" else None,
+                    )
+                )
+                t1 = time.perf_counter()
+                del buf
+                item_to_rank = {t: r for r, t in enumerate(freq_items)}
+                f = len(freq_items)
+                t_first = state.get("t_first_block", t1)
+                m.update(
+                    n_raw=n_raw,
+                    min_count=min_count,
+                    num_items=f,
+                    total_count=sum(len(bw) for _, _, bw in blocks),
+                    native=True,
+                    pipelined=True,
+                    capture=True,
+                    threads=n_threads,
+                    engine=engine_state["engine"],
+                    pass1_s=round(t_first - t0, 3),
+                    pass2_s=round(t1 - t_first, 3),
+                    pack_s=round(state["pack_s"], 3),
+                )
+            if f < 2 or not blocks:
+                return [], empty_compressed(
+                    n_raw, min_count, freq_items, item_to_rank, item_counts
+                )
+            density = density_from_tables(n_raw, f,
+                                          float(np.sum(item_counts)))
+            if engine_state["engine"] == "vertical":
+                indices, offsets, w_np = concat_block_csr(blocks)
+                data = CompressedData(
+                    n_raw=n_raw,
+                    min_count=min_count,
+                    freq_items=freq_items,
+                    item_to_rank=item_to_rank,
+                    item_counts=item_counts,
+                    basket_indices=indices,
+                    basket_offsets=offsets,
+                    weights=w_np,
+                )
+                self._emit_mine_engine("vertical", req_engine, density,
+                                       probe="pass1")
+                return self._mine_vertical(data), data
+            self._emit_mine_engine("bitmap", req_engine, density,
+                                   probe="pass1")
+            n_chunks = max(1, -(-n_raw // cfg.level_txn_chunk))
+            multiple = txn_multiple(cfg, n_chunks)
+            with self.metrics.timed("bitmap_build") as m:
+                f_pad = state["f_pad"]
+                pair_pre = None
+                # The pair program rides the ingest: issued now, it runs
+                # on the device while the host assembles the weights
+                # below.  Its float32 Gram is exact while every count <
+                # 2^24, and its packed output's int32 flat indexes need
+                # F_pad² < 2^31.
+                if n_raw < 2**24 and f_pad * f_pad < 2**31:
+                    t_pad_pre = pad_axis(sum(len(bw) for _, _, bw in blocks),
+                                         multiple)
+                    cap_key = ("pair_cap", t_pad_pre, f, min_count)
+                    cap = max(cfg.pair_cap, ctx.pair_cap_hint(cap_key) or 0)
+                    census = f_pad <= TRI_F_CAP
+                    l3_keys = (
+                        ("pair_l3p", t_pad_pre, f, min_count),
+                        ("pair_l3c", t_pad_pre, f, min_count),
+                    )
+                    l3 = None
+                    if census and cfg.pair_l3_rows > 0:
+                        p3 = min(max(cfg.pair_l3_rows,
+                                     ctx.pair_cap_hint(l3_keys[0]) or 0),
+                                 cap)
+                        cap3 = max(cfg.pair_l3_cap,
+                                   ctx.pair_cap_hint(l3_keys[1]) or 0)
+                        l3 = (p3, cap3, n_chunks)
+                    t_issue = time.perf_counter()
+                    with ctx.sync_free():
+                        dev_blocks = uploader.gather(dev_futures)
+                        dev_ws = uploader.gather(w_futures)
+                        t_landed = time.perf_counter()
+                        start = ctx.timing_event()
+                        bitmap, packed, counts_dev = ctx.ingest_pair_miner(
+                            dev_blocks, dev_ws, t_pad_pre, min_count, f, cap,
+                            census, l3,
+                        )
+                        pair_pre = {
+                            "events": (start, ctx.timing_event()),
+                            "fetch": ctx.fetch_async(packed),
+                            "counts_dev": counts_dev,
+                            "cap": cap,
+                            "cap_key": cap_key,
+                            "l3": l3,
+                            "l3_keys": l3_keys,
+                        }
+                    t_issued = time.perf_counter()
+                    m.update(
+                        upload_wait_ms=round((t_landed - t_issue) * 1e3, 3),
+                        pair_issue_ms=round((t_issued - t_landed) * 1e3, 3),
+                    )
+                t_asm = time.perf_counter()
+                (
+                    total, t_pad, w_np, w_digits_np, scales, indices,
+                    offsets, heavy_b, heavy_w,
+                ) = self._assemble_blocks(
+                    blocks, multiple, f,
+                    heavy_pre=None if cfg.retain_csr else heavy_pre,
+                )
+                if pair_pre is None:
+                    bitmap = self._device_concat_unpack(
+                        uploader.gather(dev_futures), total, t_pad, f_pad
+                    )
+                    # The raw weights went up for the pair program only.
+                    state["upload_bytes"] -= sum(
+                        bw.nbytes for _, _, bw in blocks
+                    )
+                w_digits = ctx.upload_async(w_digits_np)
+                heavy = self._upload_heavy(heavy_b, heavy_w)
+                heavy_rows, heavy_bytes = self._heavy_stats(heavy_b, heavy_w)
+                m.update(
+                    assemble_ms=round((time.perf_counter() - t_asm) * 1e3,
+                                      3),
+                    shape=[t_pad, f_pad],
+                    digits=len(scales),
+                    blocks=len(blocks),
+                    heavy_rows=heavy_rows,
+                    pair_overlapped=pair_pre is not None,
+                    upload_bytes=state["upload_bytes"] + w_digits_np.nbytes
+                    + heavy_bytes,
+                )
+        finally:
+            uploader.close()
+
+        data = CompressedData(
+            n_raw=n_raw,
+            min_count=min_count,
+            freq_items=freq_items,
+            item_to_rank=item_to_rank,
+            item_counts=item_counts,
+            basket_indices=indices,
+            basket_offsets=offsets,
+            weights=w_np,
+        )
+        levels = self._mine_levels(
+            data, preupload=(bitmap, w_digits, scales, t_pad, f_pad, heavy),
+            pair_pre=pair_pre,
+        )
+        return levels, data
+
+    def mine_levels_raw(self, data: CompressedData) -> Levels:
+        """Levels >= 2 as lex-sorted member matrices with counts."""
+        if data.num_items < 2 or data.total_count == 0:
+            return []
+        layout, requested, density = self._mine_engine(data)
+        self._emit_mine_engine(layout, requested, density)
         if layout == "vertical":
             return self._mine_vertical(data)
         return self._mine_levels(data)
@@ -302,56 +702,159 @@ class FastApriori:
             return "vertical", req, density
         return "bitmap", req, density
 
-    def _pair_level(self, counts, min_count: int, f: int, f_pad: int):
-        """Frequent pairs from the [f_pad, f_pad] pair count matrix:
-        ``(int32[N, 2] lex-sorted, int64[N] counts)``."""
+    def _pair_level(self, counts, min_count: int, f: int, cap_key: tuple):
+        """Level 2 from a resident [f_pad, f_pad] pair count matrix
+        without the pair program: the first ``pair_cap`` survivors in one
+        fetch; more survivors re-extract at the next power of two, and
+        the grown budget is remembered.  Returns host ``(flat_idx,
+        counts, n2, dispatches)``."""
         ctx = self.ctx
-        mask = frequent_pair_mask(counts, min_count, f)
-        idx = mask.reshape(-1).nonzero().reshape(-1)
-        cnt = ctx.fetch(counts.reshape(-1)[idx]).astype(np.int64)
-        idx = ctx.fetch(idx)
-        # Row-major upper triangle: already lex-sorted.
-        cur = np.stack([idx // f_pad, idx % f_pad], axis=1).astype(np.int32)
-        return cur, cnt
+        cap = max(self.config.pair_cap, ctx.pair_cap_hint(cap_key) or 0)
+        idx, cnt, n2 = ctx.pair_regather(counts, min_count, f, cap)
+        dispatches = 1
+        if n2 > cap:
+            self.metrics.emit("pair_cap_overflow", n2=n2, cap=cap)
+            cap = next_pow2(n2)
+            idx, cnt, _ = ctx.pair_regather(counts, min_count, f, cap)
+            ctx.record_pair_cap(cap_key, cap)
+            dispatches = 2
+        return idx, cnt, n2, dispatches
 
-    def _mine_levels(self, data: CompressedData) -> Levels:
+    @staticmethod
+    def _pair_fetch(pair_pre: dict):
+        """Host values of the ingest-overlapped pair program, fetched
+        once (level 2 and level 3 share the fetch): ``(flat_idx, counts,
+        n2, tri)``, and ``pair_pre["l3_host"] = (flat3, counts3, n3, p3,
+        cap3)`` when the program counted level 3."""
+        if "host" not in pair_pre:
+            out = pair_pre.pop("fetch").result()
+            cap = pair_pre["cap"]
+            pair_pre["host"] = (
+                out[:cap],
+                out[cap : 2 * cap],
+                int(out[2 * cap]),
+                int(out[2 * cap + 1]),
+            )
+            if pair_pre["l3"] is not None:
+                p3, cap3, _ = pair_pre["l3"]
+                base = 2 * cap + 2
+                pair_pre["l3_host"] = (
+                    out[base : base + cap3],
+                    out[base + cap3 : base + 2 * cap3],
+                    int(out[base + 2 * cap3]),
+                    p3,
+                    cap3,
+                )
+        return pair_pre["host"]
+
+    def _mine_levels(
+        self,
+        data: CompressedData,
+        preupload: Optional[tuple] = None,
+        pair_pre: Optional[dict] = None,
+    ) -> Levels:
+        """The bitmap layout's levels.  ``preupload``: ``(bitmap,
+        w_digits, scales, t_pad, f_pad, heavy)`` already on the device
+        from the pipelined ingest (the bitmap build below is skipped).
+        ``pair_pre``: the ingest-overlapped pair program in flight; level
+        2, and level 3 when it fits the program's budgets, are then reads
+        of its one fetch instead of launches."""
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
-        with self.metrics.timed("bitmap_build") as m:
-            bitmap_np = build_bitmap_csr(
-                data.basket_indices, data.basket_offsets, f, cfg.txn_tile,
-                cfg.item_tile,
-            )
-            t_pad, f_pad = bitmap_np.shape
-            w_digits_np, scales, heavy_b, heavy_w = split_weights(
-                data.weights, t_pad, data.basket_indices,
-                data.basket_offsets, f, cfg.item_tile,
-            )
-            bitmap = ctx.upload(bitmap_np)
-            w_digits = ctx.upload(w_digits_np)
-            heavy = (
-                (ctx.upload(heavy_b), ctx.upload(heavy_w))
-                if heavy_b is not None
-                else None
-            )
-            m.update(shape=[t_pad, f_pad], digits=len(scales),
-                     heavy_rows=0 if heavy_w is None
-                     else int(np.count_nonzero(heavy_w)))
+        min_count = data.min_count
+        if preupload is not None:
+            bitmap, w_digits, scales, t_pad, f_pad, heavy = preupload
+        else:
+            with self.metrics.timed("bitmap_build") as m:
+                bitmap_np = build_bitmap_csr(
+                    data.basket_indices, data.basket_offsets, f,
+                    cfg.txn_tile, cfg.item_tile,
+                )
+                t_pad, f_pad = bitmap_np.shape
+                w_digits_np, scales, heavy_b, heavy_w = split_weights(
+                    data.weights, t_pad, data.basket_indices,
+                    data.basket_offsets, f, cfg.item_tile,
+                )
+                bitmap = ctx.upload(bitmap_np)
+                w_digits = ctx.upload(w_digits_np)
+                heavy = self._upload_heavy(heavy_b, heavy_w)
+                m.update(shape=[t_pad, f_pad], digits=len(scales),
+                         heavy_rows=self._heavy_stats(heavy_b, heavy_w)[0])
 
         with self.metrics.timed("level", k=2) as m:
-            # Exact in float32 while every count < 2^24; counts are bounded
-            # by the raw transaction total.
-            counts = local_pair_counts(
-                bitmap, w_digits, scales, fast_f32=data.n_raw < 2**24
-            )
-            if heavy is not None:
-                counts = counts + heavy_pair_correction(*heavy)
-            cur, cnt = self._pair_level(counts, data.min_count, f, f_pad)
-            m.update(candidates=f * (f - 1) // 2, frequent=int(cur.shape[0]))
-        return self._level_loop(
-            [(cur, cnt)], bitmap, w_digits, scales, data.min_count, heavy
-        )
+            if pair_pre is not None:
+                idx, cnt, n2, tri = self._pair_fetch(pair_pre)
+                cap = pair_pre["cap"]
+                dispatches = 0  # the pair program rode the ingest
+                if n2 > cap:
+                    self.metrics.emit("pair_cap_overflow", n2=n2, cap=cap)
+                    cap = next_pow2(n2)
+                    idx, cnt, _ = ctx.pair_regather(
+                        pair_pre["counts_dev"], min_count, f, cap
+                    )
+                    ctx.record_pair_cap(pair_pre["cap_key"], cap)
+                    dispatches = 1
+                pair_pre["counts_dev"] = None  # free the [F, F] matrix
+                start, end = pair_pre["events"]
+                if start is not None:
+                    # The pair program's device time, from the uploads'
+                    # arrival to its packed output; the fetch has passed.
+                    m.update(pair_device_ms=round(
+                        start.elapsed_time(end), 3))
+            else:
+                # Exact in float32 while every count < 2^24; counts are
+                # bounded by the raw transaction total.
+                counts = local_pair_counts(
+                    bitmap, w_digits, scales, fast_f32=data.n_raw < 2**24
+                )
+                if heavy is not None:
+                    counts = counts + heavy_pair_correction(*heavy)
+                idx, cnt, n2, dispatches = self._pair_level(
+                    counts, min_count, f, ("pair_cap", t_pad, f, min_count))
+                tri = None
+                del counts
+            idx, cnt = idx[:n2], cnt[:n2]
+            # Row-major upper triangle: already lex-sorted.
+            cur = np.stack([idx // f_pad, idx % f_pad], axis=1).astype(
+                np.int32)
+            levels: Levels = [(cur, cnt.astype(np.int64))]
+            m.update(candidates=f * (f - 1) // 2, frequent=n2,
+                     overlapped=pair_pre is not None,
+                     dispatches=dispatches)
+            if tri is not None:
+                m.update(cand3=tri)
+            if ctx.device.type == "cuda":
+                m.update(device_peak_bytes=torch.cuda.max_memory_allocated(
+                    ctx.device))
+
+        l3h = pair_pre.get("l3_host") if pair_pre is not None else None
+        if l3h is not None and cur.shape[0] >= 3:
+            idx3, cnt3, n3, p3, cap3 = l3h
+            n2_now = cur.shape[0]
+            if n2_now <= p3 and n3 <= cap3:
+                with self.metrics.timed("level", k=3) as m:
+                    idx3, cnt3 = idx3[:n3], cnt3[:n3]
+                    # Row-major (pair slot, z) over a lex-sorted pair
+                    # level: already lex-sorted.
+                    nxt3 = np.concatenate(
+                        [cur[idx3 // f_pad], (idx3 % f_pad)[:, None]],
+                        axis=1,
+                    ).astype(np.int32)
+                    levels.append((nxt3, cnt3.astype(np.int64)))
+                    m.update(candidates=tri, frequent=n3, launches=0,
+                             overlapped=True, dispatches=0, n2=n2_now,
+                             p3=p3, n3=n3, cap3=cap3)
+            else:
+                l3p_key, l3c_key = pair_pre["l3_keys"]
+                if n2_now > p3:
+                    ctx.record_pair_cap(l3p_key, next_pow2(n2_now))
+                if n3 > cap3:
+                    ctx.record_pair_cap(l3c_key, next_pow2(n3))
+                self.metrics.emit("pair_l3_overflow", n2=n2_now, p3=p3,
+                                  n3=n3, cap3=cap3)
+        return self._level_loop(levels, bitmap, w_digits, scales, min_count,
+                                heavy)
 
     def _mine_vertical(self, data: CompressedData) -> Levels:
         """Vertical (Eclat-style) mining: the tid-lane arena and weight
@@ -397,12 +900,19 @@ class FastApriori:
                 arena, w_planes, scales, n_chunks,
                 fast_f32=data.n_raw < 2**24,
             )
-            cur, cnt = self._pair_level(counts, data.min_count, f, f_pad)
-            m.update(candidates=f * (f - 1) // 2, frequent=int(cur.shape[0]),
+            idx, cnt, n2, dispatches = self._pair_level(
+                counts, data.min_count, f,
+                ("vpair_cap", t_pad, f, data.min_count))
+            del counts
+            idx, cnt = idx[:n2], cnt[:n2]
+            cur = np.stack([idx // f_pad, idx % f_pad], axis=1).astype(
+                np.int32)
+            m.update(candidates=f * (f - 1) // 2, frequent=n2,
+                     overlapped=False, dispatches=dispatches,
                      engine="vertical", chunks=n_chunks)
         return self._level_loop(
-            [(cur, cnt)], arena, w_planes, scales, data.min_count,
-            vertical=True,
+            [(cur, cnt.astype(np.int64))], arena, w_planes, scales,
+            data.min_count, vertical=True,
         )
 
     def _level_loop(
@@ -415,10 +925,11 @@ class FastApriori:
         heavy: Optional[tuple] = None,
         vertical: bool = False,
     ) -> Levels:
-        """Levels >= 3 after the pair level, with the reference's
-        termination rule (FastApriori.scala:111)."""
+        """The levels after the last one in ``levels`` (the pair level,
+        or level 3 when the pair program counted it), with the
+        reference's termination rule (FastApriori.scala:111)."""
         cur = levels[-1][0]
-        k = 3
+        k = cur.shape[1] + 1
         while cur.shape[0] >= k:
             with self.metrics.timed("level", k=k) as m:
                 nxt, nxt_counts, stats = self._count_level(
@@ -426,6 +937,8 @@ class FastApriori:
                     vertical=vertical,
                 )
                 m.update(frequent=int(nxt.shape[0]), **stats)
+                if k == 3:
+                    m.update(overlapped=False, dispatches=stats["launches"])
             levels.append((nxt, nxt_counts))
             cur = nxt
             k += 1

@@ -1,7 +1,11 @@
 """Transaction x item bitmap and padding discipline (counterpart:
-fastapriori_tpu/ops/bitmap.py; reference C5, FastApriori.scala:195-210).
+fastapriori_tpu/ops/bitmap.py, and ``pack_bitmap`` / ``_unpack`` of
+fastapriori_tpu/ops/fused.py; reference C5, FastApriori.scala:195-210).
 
-The bitmap ``B ∈ {0,1}^{T'×F}`` is built in one host pass as int8.  The
+The bitmap ``B ∈ {0,1}^{T'×F}`` is built in one host pass as int8, or
+bit-packed on the host (MSB first, as ``numpy.packbits``) and unpacked
+on the device (:func:`unpack_bitmap`), which moves an eighth of the
+bytes to the card.  The
 item axis is padded so that at least one all-zero column lies beyond the
 real items (``f_pad >= num_items + 1``): padded prefix positions,
 padded candidate slots and padded rule antecedents point at it and count
@@ -14,6 +18,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def pad_axis(n: int, multiple: int) -> int:
@@ -71,6 +76,49 @@ def build_bitmap_csr(
         )
         b[rows, indices] = 1
     return b
+
+
+def build_packed_bitmap_csr(
+    indices: np.ndarray,
+    offsets: np.ndarray,
+    num_items: int,
+    txn_multiple: int = 8,
+    item_multiple: int = 128,
+) -> Tuple[np.ndarray, int]:
+    """Bit-packed variant of :func:`build_bitmap_csr`: returns ``(packed
+    uint8[t_pad, f_pad // 8], f_pad)``, MSB first in each byte like
+    ``numpy.packbits``.  The native filler sets the bits straight from
+    the CSR when its library is available; else the dense bitmap is
+    built and packed."""
+    t = len(offsets) - 1
+    t_pad = pad_axis(t, txn_multiple)
+    f_pad = pad_axis(num_items + 1, item_multiple)
+    packed = np.zeros((t_pad, f_pad // 8), dtype=np.uint8)
+    if t > 0 and len(indices) > 0:
+        from fastapriori_tpu_torch.native.loader import fill_packed_bitmap
+
+        if not fill_packed_bitmap(indices, offsets, packed):
+            dense = build_bitmap_csr(
+                indices, offsets, num_items, txn_multiple, item_multiple
+            )
+            packed = np.packbits(dense.astype(bool), axis=1)
+    return packed, f_pad
+
+
+def unpack_bitmap(packed: torch.Tensor) -> torch.Tensor:
+    """``[T, F // 8]`` uint8 -> ``[T, F]`` int8 0/1, MSB first in each
+    byte (the inverse of :func:`build_packed_bitmap_csr`), on the
+    tensor's device."""
+    # One bit mask per position, MSB first, made by fills: in a fresh
+    # process the first launch of a PyTorch kernel loads its module (tens
+    # of ms on the H100), and fills, AND and compare are loaded anyway
+    # where a power or a shift would load one more.
+    masks = torch.stack([
+        torch.full((), 128 >> j, dtype=torch.uint8, device=packed.device)
+        for j in range(8)
+    ])
+    bits = (packed[:, :, None] & masks) > 0
+    return bits.reshape(packed.shape[0], packed.shape[1] * 8).to(torch.int8)
 
 
 def weight_digits(

@@ -1,7 +1,8 @@
 """Support counting (counterpart: fastapriori_tpu/ops/count.py
 ``local_pair_counts``, ``heavy_pair_correction``,
-``heavy_level_correction``, ``frequent_pair_mask`` and
-``local_level_gather`` at ``axis_name=None``; reference C6/C8).
+``heavy_level_correction``, ``frequent_pair_mask``,
+``pair_threshold_pack``, ``l3_threshold_pack``, ``local_pair_regather``
+and ``local_level_gather`` at ``axis_name=None``; reference C6/C8).
 
 - Pair counts (C6): ``C2[f, g] = Σ_t w_t B[t, f] B[t, g]``, the Gram
   matrix Bᵀ(w ⊙ B).  The reference package leaves it to XLA outside any
@@ -16,6 +17,16 @@
   B[t, f]`` for every extension f at once, then the gather at the
   candidates' flat indexes.
 
+- The pair phase's device tail (:func:`pair_threshold_pack`): threshold,
+  survivor extraction at a static budget and the level-3 census, packed
+  into one int32 array so that one fetch carries level 2; with
+  :func:`l3_threshold_pack` the same array also carries level 3.  The
+  survivor extraction is ``torch.nonzero_static`` (static size), so
+  nothing between the Gram and the fetch waits for the device.  The
+  tail uses few distinct PyTorch kernels (no ``==``, no integer
+  division, no scans or scatters): a fresh process loads each kernel's
+  module at its first launch, about 10-60 ms apiece on the H100.
+
 Weights enter the int8 kernel as base-128 digits (ops/bitmap.py).  The
 engine runs the single low digit ``w % 128`` for every row and adds the
 exact remainder of the few rows with multiplicity >= 128 through the
@@ -24,7 +35,7 @@ heavy-row corrections (float64 matmuls over those rows only).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -85,11 +96,158 @@ def frequent_pair_mask(
     min_count: int,
     num_items: int,
 ) -> torch.Tensor:
-    """Frequent-pair mask: upper triangle, real-item columns, count
-    threshold."""
+    """The one definition of the frequent-pair mask (upper triangle,
+    real-item columns, count threshold), shared by the pair packing, the
+    overflow regather and the level-3 fold's candidate prune: the fold
+    indexes pair survivor slots extracted from this same mask, so a
+    second copy could let its candidates drift from those slots."""
     iu = torch.arange(counts.shape[0], device=counts.device)
     upper = (iu[None, :] > iu[:, None]) & (iu[None, :] < num_items)
     return upper & (counts >= min_count)
+
+
+# Item-axis bound of the level-3 census: its [F, F] product is about
+# 2·F³ operations, and the sparse wide-item corpora above this bound never
+# need the figure.
+TRI_F_CAP = 4096
+
+def _first_set(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """Coordinates of the first ``cap`` true entries of a 2-D bool tensor
+    in row-major order, zero-filled past the last one: int64 ``[cap,
+    2]`` (jax's ``jnp.nonzero(..., size=cap, fill_value=0)``).
+    ``torch.nonzero_static`` has a static output size, so unlike
+    ``torch.nonzero`` and boolean indexing it does not wait for the
+    device."""
+    return torch.nonzero_static(mask, size=cap, fill_value=0)
+
+
+def _flat(xy: torch.Tensor, width: int) -> torch.Tensor:
+    """int64 row-major flat indexes ``x * width + y`` of ``[n, 2]``
+    coordinates."""
+    return xy[:, 0] * width + xy[:, 1]
+
+
+def _pair_triangles(mask: torch.Tensor) -> torch.Tensor:
+    """Level-3 candidate census from the frequent-pair mask: the ordered
+    triples ``x < y < z`` whose three pairs are all frequent, i.e. the
+    k = 3 Apriori candidates after the full subset prune.  With ``U`` the
+    upper-triangle adjacency, ``(U Uᵀ)[x, y]`` counts the common larger
+    neighbours z of x and y, so the census is ``Σ_{(x,y) frequent}
+    (U Uᵀ)[x, y]``.  The product's entries are at most F < 2^24 (exact
+    in float32), the sum runs in int64 and the total saturates at 2^30,
+    as the reference's does.  Returns an int32 scalar tensor."""
+    u = mask.to(torch.float32)
+    total = ((u @ u.T) * u).to(torch.int64).sum()
+    return total.clamp(max=2**30).to(torch.int32)
+
+
+def pair_threshold_pack(
+    counts: torch.Tensor,  # [F, F] int32 pair counts
+    min_count: int,
+    num_items: int,
+    cap: int,
+    census: bool,
+) -> torch.Tensor:
+    """The pair phase's device tail: threshold (:func:`frequent_pair_mask`,
+    the one mask definition), the first ``cap`` survivors in row-major
+    order and the level-3 census, packed as int32 ``[flat_idx[cap] |
+    counts[cap] | n2 | tri]`` (``flat_idx = x * F + y``, so F² < 2^31;
+    ``tri`` = -1 without the census).  The survivors are valid only when
+    ``n2 <= cap``: the caller checks after the fetch and re-extracts with
+    :func:`local_pair_regather`."""
+    mask = frequent_pair_mask(counts, min_count, num_items)
+    flat_idx, cnt, n2 = _survivors(counts, mask, cap)
+    tri = (
+        _pair_triangles(mask)
+        if census
+        else torch.full((), -1, dtype=torch.int32, device=counts.device)
+    )
+    return torch.cat([flat_idx.to(torch.int32), cnt, torch.stack([n2, tri])])
+
+
+def l3_threshold_pack(
+    bitmap: torch.Tensor,  # [T, F] int8 0/1
+    w_f: torch.Tensor,  # [T] float32 raw weights
+    mask: torch.Tensor,  # [F, F] bool frequent-pair mask
+    n2: torch.Tensor,  # () int32 true survivor count
+    min_count: int,
+    num_items: int,
+    p3: int,  # pair slots counted as prefixes
+    cap3: int,  # level-3 survivor budget
+    n_chunks: int,  # transaction chunks; T is a multiple
+) -> torch.Tensor:
+    """Level 3 inside the pair program.  The first ``p3`` pair survivors
+    of ``mask`` (the slots :func:`pair_threshold_pack` extracts, in the
+    same row-major order) are prefix rows; per chunk of transactions a
+    membership product finds the rows holding both items, and a count
+    product sums their weights for every extension z at once.
+    Candidates need z > y with (x, z) and (y, z) frequent: the prefix
+    join and the subset prune.  The survivors come out row-major in
+    (pair slot, z), which over a lex-sorted pair level is lex order in
+    (x, y, z).
+
+    float32 products, exact under the caller's ``n_raw < 2^24`` gate
+    (membership values are at most 2, counts at most n_raw; TF32 off).
+    Returns int32 ``[flat3[cap3] | counts3[cap3] | n3]`` with ``flat3 =
+    pair_slot * F + z``, valid only when ``n2 <= p3`` and ``n3 <= cap3``:
+    the caller checks both after the fetch and counts level 3 with K1
+    otherwise."""
+    t, f = bitmap.shape
+    dev = bitmap.device
+    tc = t // n_chunks
+    xy = _first_set(mask, p3)
+    x, y = xy[:, 0], xy[:, 1]
+    slot_valid = torch.arange(p3, device=dev) < n2
+    # Pair one-hot rows (rows of the identity); slots past n2 are zero
+    # and reach no membership 2.
+    eye = torch.eye(f, dtype=torch.float32, device=dev)
+    s2 = (eye.index_select(0, x) + eye.index_select(0, y)) * slot_valid[
+        :, None]
+    counts3_f = torch.zeros((p3, f), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        b_f = bitmap[c * tc : (c + 1) * tc].to(torch.float32)
+        member = b_f @ s2.T  # [tc, p3], values 0, 1 or 2
+        common = (member > 1.5).to(torch.float32)
+        counts3_f += common.T @ (b_f * w_f[c * tc : (c + 1) * tc, None])
+    counts3 = counts3_f.to(torch.int32)
+    col = torch.arange(f, device=dev)
+    cand = (
+        mask.index_select(0, x)  # (x, z) frequent
+        & mask.index_select(0, y)  # (y, z) frequent
+        & (col[None, :] > y[:, None])
+        & (col[None, :] < num_items)
+        & slot_valid[:, None]
+    )
+    surv = cand & (counts3 >= min_count)
+    n3 = surv.sum(dtype=torch.int32)
+    flat3 = _flat(_first_set(surv, cap3), f)
+    return torch.cat([
+        flat3.to(torch.int32),
+        counts3.reshape(-1).index_select(0, flat3),
+        n3[None],
+    ])
+
+
+def local_pair_regather(
+    counts: torch.Tensor,  # [F, F] int32 resident pair counts
+    min_count: int,
+    num_items: int,
+    cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first ``cap`` frequent pairs of the resident pair count
+    matrix, row-major (also the overflow path of
+    :func:`pair_threshold_pack`: no Gram re-run).  Returns ``(flat_idx
+    int64[cap], counts int32[cap], n2)``."""
+    return _survivors(
+        counts, frequent_pair_mask(counts, min_count, num_items), cap)
+
+
+def _survivors(counts: torch.Tensor, mask: torch.Tensor, cap: int):
+    """``(flat_idx int64[cap], counts int32[cap], n2)`` of the first
+    ``cap`` true entries of ``mask`` over ``counts``."""
+    flat_idx = _flat(_first_set(mask, cap), counts.shape[1])
+    return (flat_idx, counts.reshape(-1).index_select(0, flat_idx),
+            mask.sum(dtype=torch.int32))
 
 
 def prefix_onehot(prefix_cols: torch.Tensor, f_pad: int) -> torch.Tensor:

@@ -1,6 +1,9 @@
 """Structured per-phase metrics (a small counterpart of
 fastapriori_tpu/utils/logging.py ``MetricsLogger``): one JSON object per
-line on stderr when enabled, each with its phase's wall time."""
+line on stderr when enabled, each with its phase's wall time.  Every
+event is also kept in ``records`` (enabled or not, up to
+:data:`RECORDS_CAP`, then counted in ``records_dropped``), where tests
+and in-process callers read it."""
 
 from __future__ import annotations
 
@@ -9,14 +12,24 @@ import json
 import sys
 import time
 
+# Retention cap of MetricsLogger.records (a batch run emits tens).
+RECORDS_CAP = 100_000
+
 
 class MetricsLogger:
     def __init__(self, enabled: bool = False):
         self.enabled = enabled
+        self.records: list = []
+        self.records_dropped = 0
 
     def emit(self, event: str, **fields) -> None:
+        rec = {"event": event, **fields}
+        if len(self.records) < RECORDS_CAP:
+            self.records.append(rec)
+        else:
+            self.records_dropped += 1
         if self.enabled:
-            print(json.dumps({"event": event, **fields}), file=sys.stderr)
+            print(json.dumps(rec), file=sys.stderr)
 
     @contextlib.contextmanager
     def timed(self, event: str, **fields):
