@@ -18,50 +18,71 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``recommends`` with the digests the JAX package's CLI writes for the
    same files (``--platform cpu --engine level --num-devices 1``;
    tests/test_torch_e2e.py recomputes them).  Auto picks the bitmap
-   layout there: K1 and K2 must have launched, K3 not, and level 2 must
-   have come from the ingest-overlapped pair program.
+   layout and, by the JAX package's policy, the level engine: one
+   ``engine_auto`` with choice level, because the level-3 candidate
+   census from the ingest-overlapped pair program exceeds the fused
+   engine's row-budget ceiling; then a ``tail_fuse`` from level 3, which
+   the pair program counted; K1 and K2 launch, K3 not.  The same CLI with
+   ``--engine fused`` (the same digests): one complete ``fused_mine`` at
+   16,384 rows over the resident bitmap; K2 launches once, K1 and K3
+   not.
 4. The vertical path: the kosarak-shape corpus (990,000 transactions over
    41,000 items, length 8, seed 2017; 10,000 user baskets, seed 2018),
    the CLI at ``--min-support 0.002`` with ``FA_MINE_ENGINE=vertical``
    set for that call only, both digests against the JAX CLI's
    (tests/test_torch_vertical.py recomputes them).  K3 and K2 must have
    launched, K1 not.
-   In phases 3 and 4 the launch counts are set to 0 just before the CLI
+   In phases 3 and 4 the launch counts are set to 0 just before each CLI
    call and read just after, and the CLI's ``--metrics`` stderr lines
    are printed again on stdout: one line of phase walls, one of the
-   phases' other fields (shapes, counts, launches).  Both runs must have
+   phases' other fields (shapes, counts, launches).  Every run must have
    ingested natively through the pipelined capture ingest on more than
    one thread (``"native": true, "pipelined": true, "capture": true`` and
    ``threads`` > 1 on the ``preprocess`` line); each kernel's launches
    must equal what the run's own ``level`` and ``first_match`` events
    count; float32 matmuls must run in full precision (no TF32); one line
-   gives level 3's source (``overlapped``, n2, p3, n3, cap3) and one the
-   run's peak device memory.
+   gives the run's peak device memory.
    Then each corpus goes once through the Python ingest and once
    through the native one-call scan in-process: the arrays must be
    equal, and one line gives both walls and the thread count.  T10 is
-   mined in-process once through the capture path, with every operation
-   from the last block's arrival to the pair program's fetch under
-   ``torch.cuda.set_sync_debug_mode("error")``, and once through the
-   one-call scan (``ingest_pipeline_blocks=1``): the levels must be
-   equal.
-5. Each kernel against its plain version at the shapes of each path
-   that runs it (K1 on the main path, K2 on both, K3 on the vertical
-   path; exact equality: every output is an integer count or rank).
-   Every launch of each path is replayed at its own shapes and timed
-   (``per_launch_ms``, ``ms_all_launches``); the replay must make as many
-   launches as phases 3 and 4 counted (the kernels' inputs come from the
-   same capture ingest at the same thread count, so their shapes are the
-   counted run's).  K1's level-3 shape is checked and timed even when
-   level 3 came from the pair program, labelled "not on the path", so
-   that its heaviest shape stays comparable.  At the heaviest launch, the
-   kernel's, the plain version's and, for K1, a library formulation's
-   times from CUDA events (for K2 also its device time from
-   torch.profiler, which leaves out the host's launch overhead), and the
-   least time the card could take for the same work (K3's counted two
-   ways).  On each path's baskets, the recommender's host scan against
-   its device path from one basket up, around its switch point
-   (``DEVICE_MIN_CHECKS``).
+   mined in-process through the capture path and through the one-call
+   scan (``ingest_pipeline_blocks=1``), each with the auto choice and
+   with the fused engine (over the resident bitmap, and over a packed
+   upload): the levels must be equal; on the capture path every
+   operation from the last block's arrival to the pair program's fetch,
+   and inside each level of a fused or tail loop, runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.
+5. K1 on a second counted path: T10 through the API with
+   ``engine="level", tail_fuse_rows=0``, the counts set to 0 just before
+   and read just after; K1 must launch as often as the run's ``level``
+   events say, and as often as on the main path.
+6. Fused compare: T10 mined in-process by the fused engine, by the level
+   engine with its tail fold and without it, each twice (the first run
+   of that configuration in this process, then warm), and once each in a
+   fresh process (cold: the first mine of a process, after CUDA's
+   set-up), the levels equal to phase 5's; the card's name and power
+   limit beside the walls.  The
+   fused loop is called directly at the fused run's row budget (its time,
+   and its peak device memory against the memory model, which it must
+   not exceed), and the tail fold seeded with level 4 at a prefix budget
+   that cannot abort: both must give phase 5's levels.
+7. Each kernel against its plain version at the shapes of each path
+   that runs it (K1 on the main path, K2 on the main and vertical
+   paths, K3 on the vertical path; exact equality: every output is an
+   integer count or rank).  Every launch of each path is replayed at its
+   own shapes and timed (``per_launch_ms``, ``ms_all_launches``); the
+   replay must make as many launches as the counted run (the kernels'
+   inputs come from the same capture ingest at the same thread count, so
+   their shapes are the counted run's).  K1's level-3 shape is checked
+   and timed even when level 3 came from the pair program, labelled "not
+   on the path", so that its heaviest shape stays comparable.  At the
+   heaviest launch, the kernel's, the plain version's and, for K1, a
+   library formulation's times from CUDA events (for K2 also its device
+   time from torch.profiler, which leaves out the host's launch
+   overhead), and the least time the card could take for the same work
+   (K3's counted two ways).  On each path's baskets, the recommender's
+   host scan against its device path from one basket up, around its
+   switch point (``DEVICE_MIN_CHECKS``).
 
 Prints the card's name and power limit, the host's CPU model and core
 count (ingest runs on the host), one ``{"kernels": [...]}`` line,
@@ -471,6 +492,10 @@ def phase_metrics(stderr_text: str) -> tuple:
             rec = json.loads(line)
             key = rec.pop("event") + (f" k={rec.pop('k')}" if "k" in rec
                                       else "")
+            base, n = key, 1
+            while key in fields:  # a repeated event: "tail_fuse #2"
+                n += 1
+                key = f"{base} #{n}"
             if "wall_ms" in rec:
                 walls[key] = rec.pop("wall_ms")
             rec.pop("path", None)
@@ -508,12 +533,13 @@ def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
 
 
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
-             digests: dict, mine_engine=None) -> tuple:
+             digests: dict, mine_engine=None, extra_args=()) -> tuple:
     """Phases 3 and 4: the port's CLI in-process, with FA_MINE_ENGINE set
-    to ``mine_engine`` (unset for None) for this call only; checks both
-    output digests and that the run took the pipelined capture ingest on
-    more than one thread, and returns the kernels' launch counts on this
-    run with the run's metrics fields."""
+    to ``mine_engine`` (unset for None) for this call only and
+    ``extra_args`` after the zero-flag arguments; checks both output
+    digests and that the run took the pipelined capture ingest on more
+    than one thread, and returns the kernels' launch counts on this run
+    with the run's metrics fields."""
     import torch
 
     from fastapriori_tpu_torch import cli
@@ -531,7 +557,7 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     try:
         with contextlib.redirect_stderr(captured):
             rc = cli.main([in_dir + "/", out_dir + "/", "--min-support",
-                           min_support, "--metrics"])
+                           min_support, "--metrics", *extra_args])
     finally:
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in kernels.items()}
@@ -637,28 +663,103 @@ def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
     log(f"{name}: launches {launches} match the run's own events")
 
 
-def mine(in_dir: str, device, min_support: str, mine_engine: str = "auto"):
+def mine(in_dir: str, device, min_support: str, mine_engine: str = "auto",
+         **knobs):
     """A path's phase 1 through the API (after its counted run), through
     the same pipelined capture ingest and thread count as the counted
     run, so that its arrays, and so the kernels' shapes, are the counted
-    run's (the CSR kept): the inputs of the kernels' measurements."""
+    run's (the CSR kept): the inputs of the kernels' measurements.
+    Returns ``(cfg, data, levels, miner)``."""
     from fastapriori_tpu_torch.config import MinerConfig
     from fastapriori_tpu_torch.models.apriori import FastApriori
 
-    cfg = MinerConfig(min_support=float(min_support), mine_engine=mine_engine)
-    levels, data = FastApriori(config=cfg, device=device).run_file_raw(
-        os.path.join(in_dir, "D.dat"))
-    return cfg, data, levels
+    cfg = MinerConfig(min_support=float(min_support), mine_engine=mine_engine,
+                      **knobs)
+    miner = FastApriori(config=cfg, device=device)
+    levels, data = miner.run_file_raw(os.path.join(in_dir, "D.dat"))
+    return cfg, data, levels, miner
+
+
+def record_fields(records) -> dict:
+    """An API run's metrics records in :func:`phase_metrics`' form."""
+    return phase_metrics("\n".join(json.dumps(r) for r in records))[1]
+
+
+def level_api_path(in_dir: str, device, min_support: str) -> tuple:
+    """The path K1 is counted on: T10 through the API on the level engine
+    with the tail fold off (``engine="level", tail_fuse_rows=0``), the
+    launch counts set to 0 just before and read just after; K1 must have
+    launched as often as the run's own ``level`` events say.  Returns
+    ``(cfg, data, levels, K1 launches, fields)``."""
+    kernels = kernel_launches()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cfg, data, levels, miner = mine(in_dir, device, min_support,
+                                    engine="level", tail_fuse_rows=0)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    fields = record_fields(miner.metrics.records)
+    want = expected_launches(fields)
+    if launches != want or launches["level_counts"] <= 0:
+        raise SystemExit(f"level API path: launches {launches} != the run's "
+                         f"level events' {want}")
+    if any(k.startswith(("tail_fuse", "fused_mine")) for k in fields):
+        raise SystemExit("level API path: a fold or the fused engine ran")
+    log(f"level API path (engine level, tail fold off): mine wall {wall:.3f} "
+        f"s, launches {launches} match the run's own level events")
+    return cfg, data, levels, launches["level_counts"], fields
+
+
+def require_auto_main(fields: dict) -> None:
+    """The zero-flag run on T10 made the JAX package's auto choice: the
+    level engine, because the level-3 candidate census (from the
+    ingest-overlapped pair program) exceeds the fused engine's row-budget
+    ceiling; then the level engine's tail fold from level 3, which the
+    pair program counted."""
+    auto = fields.get("engine_auto", {})
+    folds = [v for k, v in fields.items() if k.startswith("tail_fuse")]
+    log(f"main path: engine_auto {json.dumps(auto)}; tail_fuse "
+        f"{json.dumps(folds)}")
+    if (auto.get("choice") != "level"
+            or not auto.get("cand3", 0) > auto.get("m_cap_max", 1 << 62)):
+        raise SystemExit(f"main path: expected the auto choice level on the "
+                         f"census: {auto}")
+    if any(k.startswith("fused_mine") for k in fields):
+        raise SystemExit("main path: the fused engine ran")
+    if not folds or folds[0].get("k0") != 3:
+        raise SystemExit(f"main path: no tail fold from level 3: {folds}")
+    if not fields.get("level k=3", {}).get("overlapped"):
+        raise SystemExit("main path: level 3 did not come from the pair "
+                         "program")
+
+
+def require_fused_path(fields: dict) -> None:
+    """The ``--engine fused`` run on T10: one complete ``fused_mine`` at
+    16,384 rows over the resident bitmap, no level engine."""
+    fused = [v for k, v in fields.items() if k.startswith("fused_mine")]
+    log(f"fused path: fused_mine {json.dumps(fused)}")
+    if (len(fused) != 1 or fused[0].get("incomplete") is not False
+            or fused[0].get("m_cap") != 16384
+            or fused[0].get("packed_input") is not False):
+        raise SystemExit(f"fused path: expected one complete fused_mine at "
+                         f"m_cap 16,384 over the resident bitmap, got "
+                         f"{fused}")
+    if any(k.startswith(("level k=", "fused_fallback", "tail_fuse"))
+           for k in fields):
+        raise SystemExit("fused path: the level engine ran")
 
 
 def capture_compare(in_dir: str, device, min_support: str) -> None:
-    """T10 in-process through the capture path, with every operation
-    from the last block's arrival to the pair program's fetch under
+    """T10 in-process through the capture path and through the one-call
+    scan (``ingest_pipeline_blocks=1``), each with the auto choice (the
+    level engine and its tail fold) and with the fused engine (over the
+    resident bitmap on the capture path, over a packed upload on the
+    one-call scan): the levels must be equal.  On the capture path every
+    operation from the last block's arrival to the pair program's fetch,
+    and inside each level of a fused or tail loop, runs under
     ``torch.cuda.set_sync_debug_mode("error")`` (device.py
-    ``sync_free``: a hidden wait for the device raises), and through the
-    one-call scan (``ingest_pipeline_blocks=1``): the levels must be
-    equal."""
-    import numpy as np
+    ``sync_free``: a hidden wait for the device raises)."""
     import torch
 
     from fastapriori_tpu_torch.config import MinerConfig
@@ -666,42 +767,249 @@ def capture_compare(in_dir: str, device, min_support: str) -> None:
 
     path = os.path.join(in_dir, "D.dat")
     runs = {}
-    for name, blocks in (("capture", 8), ("one-call", 1)):
+    for name, blocks, engine in (("capture", 8, "auto"),
+                                 ("one-call", 1, "auto"),
+                                 ("capture, fused", 8, "fused"),
+                                 ("one-call, fused", 1, "fused")):
         cfg = MinerConfig(min_support=float(min_support),
-                          ingest_pipeline_blocks=blocks)
+                          ingest_pipeline_blocks=blocks, engine=engine)
         miner = FastApriori(config=cfg, device=device)
-        miner.ctx.sync_check = name == "capture"
+        miner.ctx.sync_check = blocks > 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         levels, _ = miner.run_file_raw(path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ev = {r["event"] + (f" k={r['k']}" if "k" in r else ""): r
-              for r in miner.metrics.records}
+        walls, ev = phase_metrics("\n".join(
+            json.dumps(r) for r in miner.metrics.records))
         runs[name] = (levels, ev)
         log(f"capture compare, {name}: mine wall {wall:.3f} s; " + ", ".join(
-            f"{key} {ev[key]['wall_ms']} ms" for key in (
-                "preprocess", "bitmap_build", "level k=2", "level k=3")
-            if key in ev) + "; " + json.dumps({
+            f"{key} {walls[key]} ms" for key in walls) + "; " + json.dumps({
                 key: ev[phase][key] for phase, keys in (
                     ("preprocess", ("pass1_s", "pass2_s", "pack_s")),
                     ("bitmap_build", ("upload_wait_ms", "pair_issue_ms",
                                       "assemble_ms")),
-                    ("level k=2", ("pair_device_ms",)))
+                    ("level k=2", ("pair_device_ms",)),
+                    ("fused_mine", ("m_cap", "levels", "packed_input")))
                 for key in keys if key in ev.get(phase, {})}))
-    (got, ev_c), (want, ev_1) = runs["capture"], runs["one-call"]
-    if len(got) != len(want) or not all(
-            np.array_equal(a, b) and np.array_equal(ca, cb)
-            for (a, ca), (b, cb) in zip(got, want)):
-        raise SystemExit("capture compare: the capture path's levels differ "
-                         "from the one-call scan's")
-    if not (ev_c["preprocess"].get("pipelined")
-            and ev_c["level k=2"].get("overlapped")
-            and not ev_1["preprocess"].get("pipelined")):
+    want = runs["capture"][0]
+    for name, (got, _) in runs.items():
+        if not levels_equal(got, want):
+            raise SystemExit(f"capture compare: the {name} run's levels "
+                             f"differ from the capture path's")
+    ev = {name: e for name, (_, e) in runs.items()}
+    if not (ev["capture"]["preprocess"].get("pipelined")
+            and ev["capture"].get("level k=2", {}).get("overlapped")
+            and "tail_fuse" in ev["capture"]
+            and not ev["one-call"]["preprocess"].get("pipelined")
+            and ev["one-call"].get("engine_auto", {}).get("choice") == "level"
+            and "pair_prepass" in ev["one-call"]
+            and ev["capture, fused"].get("fused_mine", {}).get(
+                "packed_input") is False
+            and ev["one-call, fused"].get("fused_mine", {}).get(
+                "packed_input") is True):
         raise SystemExit("capture compare: the runs did not take the paths "
                          "they name")
-    log(f"capture compare: equal levels ({len(got)}), no device wait in the "
-        f"pair dispatch (sync debug mode error)")
+    log(f"capture compare: equal levels ({len(want)}) on all four runs, no "
+        f"device wait in the pair dispatch or inside a fused or tail level "
+        f"(sync debug mode error)")
+
+
+def levels_equal(a, b) -> bool:
+    """Equal level matrices and counts; a trailing empty level (the level
+    engine keeps the one that ends its loop, the fused and tail loops
+    stop before it) does not count."""
+    import numpy as np
+
+    def strip(levels):
+        return [lv for lv in levels if lv[0].shape[0]]
+
+    a, b = strip(a), strip(b)
+    return len(a) == len(b) and all(
+        np.array_equal(x, y) and np.array_equal(cx, cy)
+        for (x, cx), (y, cy) in zip(a, b))
+
+
+ENGINES_COMPARED = (("fused", {"engine": "fused"}),
+                    ("level + tail", {"engine": "level"}),
+                    ("level only", {"engine": "level", "tail_fuse_rows": 0}))
+
+# One cold mine in a fresh process: CUDA set up first, then the mine
+# timed (the CUDA modules of its operations load at their first launch),
+# then a digest of its non-empty levels.
+COLD_MINE = """
+import json, sys, time, torch
+from chip_smoke import levels_digest
+from fastapriori_tpu_torch.config import MinerConfig
+from fastapriori_tpu_torch.models.apriori import FastApriori
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+cfg = MinerConfig(min_support=float(sys.argv[2]), **json.loads(sys.argv[3]))
+levels, _ = FastApriori(config=cfg).run_file_raw(sys.argv[1])
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+print(json.dumps({"cuda_init_s": t1 - t0, "mine_s": t2 - t1,
+                  "levels_sha256": levels_digest(levels)}))
+"""
+
+
+def levels_digest(levels) -> str:
+    """SHA-256 over the non-empty levels' matrices and counts."""
+    h = hashlib.sha256()
+    for mat, cnt in levels:
+        if mat.shape[0]:
+            h.update(mat.tobytes())
+            h.update(cnt.tobytes())
+    return h.hexdigest()
+
+
+def cold_mines(in_dir: str, min_support: str, ref_levels) -> dict:
+    """T10 mined once by each engine of :data:`ENGINES_COMPARED`, each in a
+    fresh process (the first mine of a process, as a CLI user pays it),
+    the levels' digest equal to the reference's.  Returns the walls."""
+    want = levels_digest(ref_levels)
+    walls = {}
+    for name, knobs in ENGINES_COMPARED:
+        out = subprocess.run(
+            [sys.executable, "-c", COLD_MINE, os.path.join(in_dir, "D.dat"),
+             min_support, json.dumps(knobs)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise SystemExit(f"cold mine {name}: exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        if got["levels_sha256"] != want:
+            raise SystemExit(f"cold mine {name}: levels differ from the "
+                             f"level engine's")
+        walls[name] = got
+        log(f"cold mine, {name} (fresh process): CUDA set-up "
+            f"{got['cuda_init_s']:.3f} s, mine {got['mine_s']:.3f} s, "
+            f"levels equal")
+    return walls
+
+
+def fused_compare(in_dir: str, device, min_support: str, card: str, cfg,
+                  data, ref_levels) -> dict:
+    """Phase 6: T10 mined three ways in-process through the API, each
+    twice (the first run in this process of that configuration, then
+    warm): the fused engine (``engine="fused"``), the level engine with
+    its tail fold (``engine="level"``) and without it
+    (``tail_fuse_rows=0``); the levels must equal the counted level API
+    run's (``ref_levels``).  Then the fused loop and the tail fold are
+    called directly on the level engine's bitmap: the fused loop at the
+    fused run's row budget from level 2 (its time from CUDA events, its peak
+    device memory against the memory model of models/apriori.py
+    ``fused_bytes``), and the tail fold seeded with level 4 at a prefix
+    budget that cannot abort; both must give the reference's levels."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.models.apriori import fused_bytes, txn_multiple
+    from fastapriori_tpu_torch.ops.bitmap import build_bitmap_csr, next_pow2
+    from fastapriori_tpu_torch.ops.fused import (
+        decode_level_matrices,
+        make_fused_miner,
+        make_tail_miner,
+        tail_slot_caps,
+        unpack_fused_result,
+        unpack_tail_result,
+    )
+
+    walls, m_cap = {}, None
+    for name, knobs in ENGINES_COMPARED:
+        for run in ("first", "warm"):
+            torch.cuda.synchronize()
+            # device_peak_bytes on the fused and tail events: this run's.
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, _, levels, miner = mine(in_dir, device, min_support, **knobs)
+            torch.cuda.synchronize()
+            walls[f"{name}, {run}"] = time.perf_counter() - t0
+            if not levels_equal(levels, ref_levels):
+                raise SystemExit(f"fused compare: {name}'s levels differ "
+                                 f"from the level engine's")
+        ev = record_fields(miner.metrics.records)
+        m_cap = m_cap or ev.get("fused_mine", {}).get("m_cap")
+        kinds = sorted({k.split(" ")[0] for k in ev})
+        log(f"fused compare, {name}: events {kinds}; " + json.dumps({
+            k: {f: v[f] for f in ("m_cap", "p_cap", "k0", "levels",
+                                  "incomplete", "device_peak_bytes",
+                                  "model_bytes") if f in v}
+            for k, v in ev.items() if k.startswith(("fused_mine",
+                                                    "tail_fuse"))}))
+    log(f"fused compare on {card}: mine walls (s) " + json.dumps(
+        {k: round(v, 6) for k, v in walls.items()}))
+
+    # The fused loop and the tail fold, called directly.
+    n_chunks = max(1, -(-data.n_raw // cfg.level_txn_chunk))
+    b_np = build_bitmap_csr(data.basket_indices, data.basket_offsets,
+                            data.num_items, txn_multiple(cfg, n_chunks),
+                            cfg.item_tile)
+    t_pad, f_pad = b_np.shape
+    w_np = np.zeros(t_pad, dtype=np.int32)
+    w_np[: data.total_count] = data.weights
+    if w_np.max() >= 128:
+        raise SystemExit("fused compare expects single-digit weights")
+    bitmap = torch.from_numpy(b_np).to(device)
+    w = torch.from_numpy(w_np).to(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    l_max = cfg.fused_l_max
+    fn = make_fused_miner(m_cap, l_max, 1, n_chunks, False,
+                          packed_input=False)
+    out = fn(bitmap, w, data.min_count).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() - base
+    fixed, at = fused_bytes(cfg, t_pad, f_pad, n_chunks,
+                            unpacked_resident=True)
+    model = fixed + at(m_cap) - (t_pad * f_pad + 4 * t_pad)
+    rows, cols, counts, n_lvl, incomplete = unpack_fused_result(out, l_max)[:5]
+    if incomplete or not levels_equal(
+            decode_level_matrices(rows, cols, counts, n_lvl), ref_levels):
+        raise SystemExit("fused compare: the fused loop's levels differ from "
+                         "the level engine's")
+    # CUDA events around whole calls: the host's issue and its one read
+    # per level are inside.
+    fused_ms = time_ms(lambda: fn(bitmap, w, data.min_count), iters=2,
+                       warmup=1)
+    log(f"fused loop (direct, T={t_pad} F={f_pad} m_cap={m_cap}, {n_chunks} "
+        f"chunks, {int(np.count_nonzero(n_lvl))} levels): {fused_ms:.4f} ms "
+        f"a call (CUDA events); peak device memory above the resident "
+        f"bitmap {peak} bytes, memory model {model} bytes "
+        f"({peak / model:.3f} of it)")
+    if peak > model:
+        raise SystemExit("fused compare: the fused loop's peak memory "
+                         "exceeds the memory model")
+
+    seed = ref_levels[2][0]  # level 4
+    k0, n0 = seed.shape[1], seed.shape[0]
+    t_cap = max(next_pow2(n0), cfg.min_prefix_bucket)
+    seed_pad = np.zeros((t_cap, k0), np.int32)
+    seed_pad[:n0] = seed
+    wd = torch.from_numpy(w_np.astype(np.int8)[None, :]).to(device)
+    seed_dev = torch.from_numpy(seed_pad).to(device)
+    tail = make_tail_miner([1], k0, t_cap, t_cap, 8, n_chunks, False)
+    out = tail(bitmap, wd, seed_dev, n0, data.min_count).cpu().numpy()
+    rows, cols, counts, n_lvl, incomplete, _ = unpack_tail_result(
+        out, t_cap, 8)
+    got = decode_level_matrices(rows, cols, counts, n_lvl,
+                                max_rows=tail_slot_caps(t_cap, 8), prev=seed)
+    if incomplete or not levels_equal(ref_levels[:3] + got, ref_levels):
+        raise SystemExit("fused compare: the tail fold's levels differ from "
+                         "the level engine's")
+    tail_ms = time_ms(lambda: tail(bitmap, wd, seed_dev, n0, data.min_count),
+                      iters=2, warmup=1)
+    log(f"tail fold (direct, seed level {k0} of {n0} rows, m_cap = p_cap = "
+        f"{t_cap}, {len(got)} levels): {tail_ms:.4f} ms a call (CUDA events)")
+    log("fused compare: the fused engine's, the tail fold's and the level "
+        "engine's levels are equal")
+    cold = cold_mines(in_dir, min_support, ref_levels)
+    return {"walls_s": walls, "cold_s": {k: v["mine_s"]
+                                         for k, v in cold.items()},
+            "fused_loop_ms": fused_ms, "fused_peak_bytes": peak,
+            "fused_model_bytes": model, "tail_fold_ms": tail_ms}
 
 
 def level_launches(cfg, levels, f_pad: int):
@@ -728,11 +1036,12 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
     """Phase 5, K1: every level-count launch of the main path replayed at
     its own shapes (held against the plain version, timed), then the
     heaviest (the first with the most prefix rows) in full: the plain
-    version, the library formulation and the bound.  When the counted
-    run (``fields``) took level 3 from the pair program, level 3's
-    launches are not on the path: they are checked and timed all the
-    same, so that the heaviest shape stays comparable with earlier runs,
-    but left out of the replay's count and sum."""
+    version, the library formulation and the bound.  A level the counted
+    run (``fields``) did not count with K1 (level 3 from the pair
+    program, a level a tail fold mined) is not on the path: its launches
+    are checked and timed all the same, so that the heaviest shape stays
+    comparable with earlier runs, but left out of the replay's count and
+    sum."""
     import numpy as np
     import torch
 
@@ -749,7 +1058,10 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
     b_np = build_bitmap_csr(data.basket_indices, data.basket_offsets,
                             data.num_items, txn_multiple(cfg, n_chunks),
                             cfg.item_tile)
-    folded = bool(fields.get("level k=3", {}).get("overlapped"))
+    # The levels the counted run counted with K1; level 3 from the pair
+    # program (or a level a tail fold mined) is not on the path.
+    on_path = {int(key[len("level k="):]) for key, v in fields.items()
+               if key.startswith("level k=") and v.get("launches")}
     f_pad = b_np.shape[1]
     if data.weights.max() >= 128:
         raise SystemExit("K1 measurement expects single-digit weights")
@@ -765,12 +1077,12 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
                       level_counts(bitmap, wb, s_mat, k1),
                       level_counts_plain(bitmap, wb, s_mat, k1))
         ms_k = time_ms(lambda: level_counts(bitmap, wb, s_mat, k1), iters=10)
-        (off_path if k == 3 and folded else per_launch).append(ms_k)
+        (per_launch if k in on_path else off_path).append(ms_k)
         if best is None or s_mat.shape[0] > best[0].shape[0]:
-            best = (s_mat, k1, not (k == 3 and folded))
+            best = (s_mat, k1, k in on_path)
     log(f"K1 per launch (ms): {json.dumps(per_launch)}, all launches "
-        f"{sum(per_launch):.4f} ms; level 3's launches, not on the path "
-        f"(level 3 came from the pair program): {json.dumps(off_path)}")
+        f"{sum(per_launch):.4f} ms; launches not on the path (their level "
+        f"came from the pair program or a fold): {json.dumps(off_path)}")
     s_mat, k1, on_path = best
     t, f = bitmap.shape
     m = s_mat.shape[0]
@@ -1052,14 +1364,18 @@ def main() -> int:
     in_dir, out_dir = os.path.join(WORK, "in"), os.path.join(WORK, "out")
     write_corpus(in_dir, n_txns=100_000, n_items=1000, avg_txn_len=10,
                  seed=2017, n_users=10_000, user_seed=2018)
+    digests = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
     main_launches, main_fields = cli_path(
-        "main path", in_dir, out_dir, MIN_SUPPORT,
-        {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256})
+        "main path", in_dir, out_dir, MIN_SUPPORT, digests)
     require_launches("main path", main_launches, main_fields,
                      ran=("level_counts", "first_match"))
-    if not main_fields.get("level k=2", {}).get("overlapped"):
-        raise SystemExit("main path: level 2 did not come from the "
-                         "ingest-overlapped pair program")
+    require_auto_main(main_fields)
+    fused_launches, fused_fields = cli_path(
+        "fused path", in_dir, os.path.join(WORK, "out_fused"), MIN_SUPPORT,
+        digests, extra_args=("--engine", "fused"))
+    require_launches("fused path", fused_launches, fused_fields,
+                     ran=("first_match",))
+    require_fused_path(fused_fields)
 
     k_in, k_out = os.path.join(WORK, "kin"), os.path.join(WORK, "kout")
     write_corpus(k_in, **{key: KOSARAK[key] for key in (
@@ -1075,14 +1391,20 @@ def main() -> int:
 
     capture_compare(in_dir, device, MIN_SUPPORT)
 
-    cfg, data, levels = mine(in_dir, device, MIN_SUPPORT)
+    cfg, data, levels, api_k1, api_fields = level_api_path(
+        in_dir, device, MIN_SUPPORT)
+    compared = fused_compare(in_dir, device, MIN_SUPPORT, card, cfg, data,
+                             levels)
     k1 = k1_measure(cfg, data, levels, device, main_fields)
     require_replayed("K1 main path", k1, main_launches["level_counts"])
+    if api_k1 != main_launches["level_counts"]:
+        raise SystemExit(f"K1: the level API path launched {api_k1} times, "
+                         f"the main path {main_launches['level_counts']}")
     k2 = k2_measure("t10i4d100k", in_dir, data, levels, device)
     require_replayed("K2 main path", k2, main_launches["first_match"])
     del cfg, data, levels
-    kcfg, kdata, klevels = mine(k_in, device, KOSARAK["min_support"],
-                                "vertical")
+    kcfg, kdata, klevels, _ = mine(k_in, device, KOSARAK["min_support"],
+                                   "vertical")
     k2v = k2_measure("kosarak_vertical", k_in, kdata, klevels, device)
     require_replayed("K2 vertical path", k2v, vert_launches["first_match"])
     k3 = k3_measure(kcfg, kdata, klevels, device, clock)
@@ -1090,6 +1412,9 @@ def main() -> int:
 
     def by_path(name):
         return {"t10i4d100k": main_launches[name],
+                "t10i4d100k_fused_cli": fused_launches[name],
+                "t10i4d100k_level_api": api_k1 if name == "level_counts"
+                else 0,
                 "kosarak_vertical": vert_launches[name]}
 
     # Top-level numbers: the first path in "measured_by_path".
@@ -1114,6 +1439,7 @@ def main() -> int:
          "launches_by_path": by_path("vertical_counts"), **k3,
          "measured_by_path": {"kosarak_vertical": k3}},
     ]
+    log(f"fused compare summary: {json.dumps(compared)}")
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

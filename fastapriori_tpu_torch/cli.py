@@ -2,7 +2,7 @@
 reference C1, Main.scala:15-41).
 
     python -m fastapriori_tpu_torch <input-prefix> <output-prefix> [tmp] \\
-        [--min-support S] [--engine auto|level] [--metrics] \\
+        [--min-support S] [--engine auto|fused|level] [--metrics] \\
         [--platform default|cpu]
 
 - ``input`` prefix: reads ``<input>D.dat`` and ``<input>U.dat`` (path
@@ -11,6 +11,14 @@ reference C1, Main.scala:15-41).
   ``<output>recommends`` and ``<output>MANIFEST.json``;
 - a third positional argument is accepted and ignored, like the
   reference;
+- ``--engine`` picks how the bitmap layout counts the levels, as in the
+  JAX package: ``auto`` (the default) runs the fused whole-loop engine
+  when the level-2 survivor budget and the level-3 candidate census fit
+  its memory-derived row-budget ceiling, else the level engine;
+  ``fused`` forces the fused attempt (complete levels go on in the level
+  engine when its ceiling or level bound stops it); ``level`` counts
+  level by level with K1, folding the shallow tail into one device loop
+  on CUDA;
 - ``--platform default`` runs on the CUDA device (an error without one);
   ``--platform cpu`` runs every kernel's plain PyTorch version on the CPU;
 - the mining layout has no flag, as in the JAX package's CLI: the
@@ -50,8 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "the reference's hardcoded value)")
     p.add_argument("--engine", choices=["auto", "fused", "level"],
                    default="auto",
-                   help="mining engine: auto resolves to level in this "
-                   "port; fused is not ported yet")
+                   help="mining engine: auto runs the fused whole-loop "
+                   "engine when the level-2 survivor budget and the level-3 "
+                   "candidate census fit its row-budget ceiling, else the "
+                   "level engine; fused forces the fused attempt; level "
+                   "counts level by level")
     p.add_argument("--metrics", action="store_true",
                    help="emit structured JSON metrics to stderr")
     p.add_argument("--platform", choices=["default", "cpu"],

@@ -12,7 +12,7 @@ from typing import Optional
 # Reference default: Main.scala:23.
 DEFAULT_MIN_SUPPORT = 0.092
 
-ENGINES = ("auto", "level")
+ENGINES = ("auto", "fused", "level")
 
 # Mining layouts (models/apriori.py ``FastApriori._mine_engine``).
 MINE_ENGINES = ("auto", "bitmap", "vertical")
@@ -57,10 +57,42 @@ class MinerConfig:
     # rows per first-match micro-batch (pow2-bucketed, floor 32).
     rule_chunk: int = 1 << 13
     rec_batch_rows: int = 1 << 12
-    # "auto" resolves to "level" in this port (the fused whole-loop
-    # engine is not ported yet); "level" runs one K1 launch per prefix
-    # chunk of each level.
+    # Mining engine: "auto" runs the fused whole-loop engine
+    # (ops/fused.py) when the level-2 survivor budget (2x headroom) and
+    # the level-3 candidate census both fit the memory-derived row-budget
+    # ceiling, else the level engine; "fused" forces the fused attempt
+    # (complete levels salvaged into the level engine when the row
+    # budget or the level bound is hit); "level" runs one K1 launch per
+    # prefix chunk of each level, with the shallow-tail fold below.
     engine: str = "auto"
+    # Fused engine: floor of the starting row budget (sized from the
+    # level-2 survivor count); on overflow the budget jumps to the
+    # overflowing level's true need, up to the ceiling min(fused_m_cap_max,
+    # what fits the memory budget: models/apriori.py
+    # ``fused_m_cap_memory_limit``), then the level engine takes over.
+    fused_m_cap: int = 512
+    fused_m_cap_max: int = 32768
+    # Memory budget for that ceiling.  None = fused_hbm_fraction of the
+    # device's memory (16 GiB assumed on the CPU); tests set a tiny
+    # budget to drive the memory skip.
+    fused_hbm_budget_bytes: Optional[int] = None
+    fused_hbm_fraction: float = 0.5
+    # Fused engine: levels held in the output (the l_max bound).
+    fused_l_max: int = 24
+    # Shallow-tail fold of the level engine: once a level k >= 4 seed has
+    # at most this many rows, the remaining levels run as one seeded
+    # device loop (ops/fused.py ``tail_mine``).  None = 65,536 on CUDA
+    # and off on the CPU; 0 turns it off; an explicit value forces it on
+    # any device.
+    tail_fuse_rows: Optional[int] = None
+    # Tail fold: compacted prefix rows per iteration and the levels one
+    # fold may mine; overflowing either resumes the level engine from the
+    # last complete level.
+    tail_fuse_p_cap: int = 2048
+    tail_fuse_l_max: int = 8
+    # Fused engine (packed upload): transactions per chunk of its
+    # membership and count products.
+    fused_txn_chunk: int = 1 << 17
     # Mining layout: "bitmap" counts with the transaction x item bitmap
     # (K1); "vertical" with per-item packed tid lanes (the Eclat-style
     # engine, K3); "auto" picks vertical when at least

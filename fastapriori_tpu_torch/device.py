@@ -2,7 +2,9 @@
 subset of fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — upload,
 the vertical engine's arena and plane uploads, fetch, the ingest-
 overlapped pair program ``ingest_pair_miner``, its overflow
-``pair_regather`` and the remembered pair budgets; no mesh and no
+``pair_regather``, the remembered pair budgets and the fused engine's
+memos (``fused_m_cap_hint``, ``fused_failed``, ``auto_level``) with the
+device's memory size for its memory model; no mesh and no
 collectives — and of fastapriori_tpu/reliability/retry.py
 ``fetch_async``, without its retry policy: retries belong to the
 reliability core, which is not ported yet).
@@ -144,6 +146,9 @@ class DeviceContext:
         self.device = resolve_device(device)
         self.sync_check = False
         self._pair_caps: Dict[tuple, int] = {}
+        self._fused_hints: Dict[tuple, int] = {}
+        self._fused_fails: set = set()
+        self._auto_level: set = set()
 
     @property
     def platform(self) -> str:
@@ -188,6 +193,40 @@ class DeviceContext:
         event = torch.cuda.Event(enable_timing=True)
         event.record()
         return event
+
+    @property
+    def memory_bytes(self) -> int:
+        """The device's memory for the fused engine's memory model: the
+        CUDA card's total, or the reference's 16 GiB default on the
+        CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_properties(self.device).total_memory
+        return 16 * 2**30
+
+    def fused_m_cap_hint(self, profile: tuple) -> Optional[int]:
+        """The last row budget at which the fused engine completed this
+        profile: repeat runs skip the sizing pre-pass and start there."""
+        return self._fused_hints.get(profile)
+
+    def record_fused_m_cap(self, profile: tuple, m_cap: int) -> None:
+        self._fused_hints[profile] = m_cap
+
+    def fused_failed(self, profile: tuple) -> bool:
+        """A fused run of this profile exhausted its row-budget ceiling:
+        repeat runs go straight to the level engine."""
+        return profile in self._fused_fails
+
+    def record_fused_fail(self, profile: tuple) -> None:
+        self._fused_fails.add(profile)
+
+    def auto_level(self, profile: tuple) -> bool:
+        """The auto choice already picked the level engine for this
+        profile (kept apart from the failure memo, so that a forced fused
+        run is not blocked by a mere choice)."""
+        return profile in self._auto_level
+
+    def record_auto_level(self, profile: tuple) -> None:
+        self._auto_level.add(profile)
 
     def pair_cap_hint(self, key: tuple) -> Optional[int]:
         """The last budget that held this profile's survivors: repeat

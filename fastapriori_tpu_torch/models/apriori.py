@@ -1,12 +1,15 @@
 """Mining engine (counterpart: fastapriori_tpu/models/apriori.py
-``FastApriori.run_file_raw`` on the level engine — the pipelined capture
-ingest ``_run_file_pipelined_capture`` with ``_can_pipeline_ingest``,
+``FastApriori.run_file_raw`` — the pipelined capture ingest
+``_run_file_pipelined_capture`` with ``_can_pipeline_ingest``,
 ``_pipeline_engine_probe``, ``_assemble_blocks`` and the ingest-overlapped
-pair + level-3 program, then ``_mine_levels``, ``_split_weights``,
-``_mine_engine``, ``_mine_vertical``, ``_level_loop_impl`` and
-``_count_level`` without the elastic, quorum, checkpoint, fused, tail,
-sparse, lane-tiled and deferred-count branches; reference C6-C9,
-FastApriori.scala:31-160).
+pair + level-3 program, the fused whole-loop engine (``_mine_fused``,
+``_fused_resident``, ``_size_fused_budget``, ``_auto_fused_ok``,
+``_fused_attempt_loop``) and the level engine with its shallow-tail fold
+(``_mine_levels``, ``_level_loop_impl``, ``_tail_entry_ok``,
+``_mine_tail``, ``_count_level``), ``_split_weights``, ``_mine_engine``
+and ``_mine_vertical``, at one device, without the elastic, quorum,
+checkpoint, sparse, lane-tiled and deferred-count branches; reference
+C6-C9, FastApriori.scala:31-160).
 
 ``run_file_raw`` ingests D.dat in one native call that cuts it into
 ``ingest_pipeline_blocks`` line-aligned blocks (pass 1 over
@@ -45,9 +48,26 @@ The result is the reference's ``[(int32[N, k] lex-sorted member matrix,
 int64[N] counts), ...]`` for k = 2, 3, ...; 1-itemsets live in
 ``data.item_counts``.
 
-``engine="auto"`` resolves to ``"level"`` and says so in the metrics
-line: the fused whole-loop engine of the reference package has no Pallas
-kernel and waits for a later slice of the port.
+On the bitmap layout ``engine`` picks how the levels are counted, as
+the reference package does:
+
+- ``auto`` (the default) offers the whole lattice to the fused engine
+  (ops/fused.py) first: it runs when the row budget sized from the
+  level-2 survivor count (2x headroom, a power of two) and the level-3
+  candidate census both fit the ceiling ``min(fused_m_cap_max, what the
+  memory model admits)``, and says so in an ``engine_auto`` event; else
+  the level engine runs.  On the pipelined ingest the pair program's
+  count and census make that choice; on the one-call path a pre-pass
+  over the packed bitmap does.
+- ``fused`` always makes the fused attempt; when its row budget
+  overflows it retries at the overflowing level's true need up to the
+  ceiling, and when the ceiling or ``fused_l_max`` stops it, the
+  complete levels seed the level engine (a ``fused_fallback`` event).
+- ``level`` counts each level k >= 3 with K1 (or K3).  Once a level
+  k >= 4 seed has at most ``tail_fuse_rows`` rows (None: 65,536 on CUDA,
+  off on the CPU), the remaining levels run as one tail fold
+  (ops/fused.py ``tail_mine``, a ``tail_fuse`` event); a fold that
+  overflows its budgets resumes per level from its last complete level.
 """
 
 from __future__ import annotations
@@ -78,9 +98,20 @@ from fastapriori_tpu_torch.ops.bitmap import (
 )
 from fastapriori_tpu_torch.ops.count import (
     TRI_F_CAP,
+    _pair_triangles,
+    frequent_pair_mask,
     heavy_pair_correction,
     local_level_gather,
     local_pair_counts,
+)
+from fastapriori_tpu_torch.ops.fused import (
+    decode_level_matrices,
+    make_fused_miner,
+    make_pair_counter,
+    make_tail_miner,
+    tail_slot_caps,
+    unpack_fused_result,
+    unpack_tail_result,
 )
 from fastapriori_tpu_torch.ops.vertical import (
     PAIR_TXN_CHUNK,
@@ -108,17 +139,85 @@ HEAVY_SPLIT_BYTES = 16 << 20
 
 
 def resolve_engine(engine: str) -> str:
-    if engine == "fused":
-        raise InputError(
-            "engine 'fused' is not ported yet: the JAX package's fused "
-            "whole-loop engine (its ops/fused.py) comes in a later slice of "
-            "the PyTorch port; use 'level' or 'auto'"
-        )
     if engine not in ENGINES:
         raise InputError(
             f"unrecognized engine {engine!r}: use one of {'/'.join(ENGINES)}"
         )
-    return "level"
+    return engine
+
+
+def weight_digit_count(max_weight: int) -> int:
+    """Base-128 digits of the largest weight."""
+    n = 1
+    while 128**n <= max_weight:
+        n += 1
+    return n
+
+
+def fused_bytes(cfg: MinerConfig, t_pad: int, f_pad: int, n_chunks: int,
+                unpacked_resident: bool = False,
+                tail_chunked: bool = False):
+    """The port's device-byte model of ops/fused.py: ``(fixed, at)`` with
+    ``fixed`` the bytes that do not grow with the row budget and ``at(m)``
+    the ones that do, assuming the big intermediates coexist.
+
+    - fixed: the bitmap (unpacked int8, or packed with one chunk
+      unpacked), the raw weights, one digit's weighted chunk and its
+      transpose, and level 2's ``[F, F]`` counts, part and mask;
+    - candidates: ``D = S Sᵀ`` int32 and its bool ``E`` (5·m², or a
+      512 MiB-capped row block when the tail fold chunks them);
+    - ``[m, F]`` tensors: S, its transpose, the next S, rowmax's int64
+      operand, the votes, the masks, the count accumulator and one
+      digit's part (28·m·F);
+    - per chunk: the int32 membership ``[m, t_c]`` and its bool test
+      (5·t_c·m); the packed output (3·l_max + 1)·4·m."""
+    t_c = t_pad // max(n_chunks, 1)
+    if unpacked_resident:
+        fixed = t_pad * f_pad + 4 * t_pad
+    else:
+        fixed = t_pad * f_pad // 8 + 4 * t_pad + 2 * t_c * f_pad
+    fixed += 3 * t_c * f_pad + 9 * f_pad * f_pad
+
+    def at(m: int) -> int:
+        cand = 5 * m * m
+        if tail_chunked:
+            cand = min(cand, 5 * ((512 << 20) // 8))
+        return (cand + 28 * m * f_pad + 5 * t_c * m
+                + (3 * cfg.fused_l_max + 1) * m * 4)
+
+    return fixed, at
+
+
+def fused_m_cap_memory_limit(
+    cfg: MinerConfig,
+    ctx: DeviceContext,
+    t_pad: int,
+    f_pad: int,
+    n_chunks: int,
+    unpacked_resident: bool = False,
+    cap: Optional[int] = None,
+    tail_chunked: bool = False,
+) -> int:
+    """The largest power-of-two row budget whose fused loop fits the
+    memory budget under :func:`fused_bytes` (the reference's
+    ``_fused_m_cap_memory_limit`` over the port's own intermediates):
+    ``fused_hbm_budget_bytes``, or ``fused_hbm_fraction`` of the device's
+    memory.  0 when even the floor budget ``next_pow2(fused_l_max + 2)``
+    does not fit.  ``cap`` bounds the search (default
+    ``fused_m_cap_max``; the tail fold passes its own need)."""
+    budget = cfg.fused_hbm_budget_bytes
+    if budget is None:
+        budget = int(cfg.fused_hbm_fraction * ctx.memory_bytes)
+    fixed, at = fused_bytes(cfg, t_pad, f_pad, n_chunks, unpacked_resident,
+                            tail_chunked)
+    if cap is None:
+        cap = cfg.fused_m_cap_max
+    m = next_pow2(cfg.fused_l_max + 2)
+    if fixed + at(m) > budget:
+        return 0
+    while 2 * m <= cap and fixed + at(2 * m) <= budget:
+        m *= 2
+    return m
 
 
 def has_csr(data: CompressedData) -> bool:
@@ -357,9 +456,7 @@ class FastApriori:
             requested=requested,
             density=round(density, 6),
             level_engine=self.engine,
-            level_engine_requested=self.config.engine,
             device=str(self.ctx.device),
-            note="auto resolves to level: the fused engine is not ported yet",
             **extra,
         )
 
@@ -643,8 +740,10 @@ class FastApriori:
             weights=w_np,
         )
         levels = self._mine_levels(
-            data, preupload=(bitmap, w_digits, scales, t_pad, f_pad, heavy),
-            pair_pre=pair_pre,
+            data,
+            preupload=(bitmap, w_digits, scales, n_chunks, t_pad, f_pad,
+                       heavy),
+            try_fused=True, pair_pre=pair_pre,
         )
         return levels, data
 
@@ -656,6 +755,24 @@ class FastApriori:
         self._emit_mine_engine(layout, requested, density)
         if layout == "vertical":
             return self._mine_vertical(data)
+        if not has_csr(data):
+            # The packed upload and the bitmap build read the CSR: mining
+            # an empty one would return an empty lattice.
+            raise InputError(
+                "CompressedData carries no basket CSR (produced by the "
+                "pipelined capture ingest with retain_csr=False); "
+                "re-ingest with retain_csr=True to mine it through this "
+                "path"
+            )
+        if self.engine in ("fused", "auto"):
+            levels, partial = self._mine_fused(data,
+                                               auto=self.engine == "auto")
+            if levels is not None:
+                return levels
+            # Row budget, level bound or the auto choice: the level
+            # engine, resumed from the salvaged complete levels.
+            self._fused_fallback(partial)
+            return self._mine_levels(data, resume=partial or None)
         return self._mine_levels(data)
 
     def _requested_mine_engine(self) -> str:
@@ -747,29 +864,241 @@ class FastApriori:
                 )
         return pair_pre["host"]
 
+    def _fused_fallback(self, partial: Optional[Levels]) -> None:
+        """One ``fused_fallback`` event per fused -> level handover, with
+        the salvaged complete levels it resumes from."""
+        self.metrics.emit("fused_fallback",
+                          resume_levels=len(partial) if partial else 0)
+
+    def _device_peak(self, m) -> None:
+        if self.ctx.device.type == "cuda":
+            m.update(device_peak_bytes=torch.cuda.max_memory_allocated(
+                self.ctx.device))
+
+    def _mine_fused(self, data: CompressedData, auto: bool = False):
+        """The fused engine over a packed upload of the data's CSR (the
+        one-call ingest path): ``(levels, None)`` on success, ``(None,
+        complete levels or None)`` when the row-budget ceiling or the
+        level bound stopped it, or when ``auto`` chose the level engine
+        (the pre-pass's survivor count and census, before any fused
+        work)."""
+        cfg = self.config
+        ctx = self.ctx
+        f = data.num_items
+        t0 = data.total_count
+        n_chunks = max(1, -(-t0 // cfg.fused_txn_chunk))
+        t_pad = pad_axis(t0, max(cfg.txn_tile, 32) * n_chunks)
+        n_digits = weight_digit_count(int(data.weights.max()) if t0 else 1)
+        # float32 products on the CPU while every partial sum < 2^24.
+        fast_f32 = ctx.platform == "cpu" and 127 * t_pad < 2**24
+        # min_count is part of the profile: the choice depends on it.
+        profile = (t_pad, f, cfg.fused_l_max, n_digits, n_chunks, fast_f32,
+                   data.min_count)
+        if ctx.fused_failed(profile):
+            self.metrics.emit("fused_skip", reason="known_overflow")
+            return None, None
+        if auto and ctx.auto_level(profile):
+            self.metrics.emit("engine_auto", choice="level", memo=True)
+            return None, None
+        f_pad = pad_axis(f + 1, cfg.item_tile)
+        m_cap_max = min(cfg.fused_m_cap_max, fused_m_cap_memory_limit(
+            cfg, ctx, t_pad, f_pad, n_chunks))
+        if m_cap_max < cfg.fused_m_cap_max:
+            self.metrics.emit("fused_m_cap_clamp", memory_limit=m_cap_max,
+                              configured=cfg.fused_m_cap_max)
+        if m_cap_max < next_pow2(cfg.fused_l_max + 2):
+            self.metrics.emit("fused_skip", reason="memory")
+            return None, None
+        with self.metrics.timed("bitmap_pack") as m:
+            packed_np, f_pad = build_packed_bitmap_csr(
+                data.basket_indices, data.basket_offsets, f, t_pad,
+                cfg.item_tile)
+            w_np = np.zeros(t_pad, dtype=np.int32)
+            w_np[:t0] = data.weights
+            packed, w = ctx.upload(packed_np), ctx.upload(w_np)
+            m.update(shape=[t_pad, f_pad], digits=n_digits,
+                     upload_bytes=packed_np.nbytes + w_np.nbytes)
+        m_cap = ctx.fused_m_cap_hint(profile)
+        if m_cap is not None and m_cap > m_cap_max:
+            m_cap = None
+        if m_cap is None:
+            with self.metrics.timed("pair_prepass") as met:
+                n2, tri = (int(x) for x in ctx.fetch(torch.stack(
+                    make_pair_counter(n_digits, n_chunks, fast_f32)(
+                        packed, w, data.min_count))))
+                met.update(n2=n2, cand3=tri)
+            m_cap = self._size_fused_budget(profile, n2, tri, m_cap_max, auto)
+            if m_cap is None:  # auto chose the level engine
+                return None, None
+        m_cap = max(m_cap, next_pow2(cfg.fused_l_max + 2))
+        return self._fused_attempt_loop(
+            profile, packed, w, data.min_count, m_cap, m_cap_max,
+            n_digits, n_chunks, fast_f32, packed_input=True,
+            model=fused_bytes(cfg, t_pad, f_pad, n_chunks))
+
+    def _size_fused_budget(self, profile, n2: int, tri: int, m_cap_max: int,
+                           auto: bool) -> Optional[int]:
+        """The row budget from the level-2 survivor count, one definition
+        for both input forms; None when the auto choice picks the level
+        engine."""
+        cfg = self.config
+        want = max(next_pow2(2 * max(n2, 1)), cfg.fused_m_cap,
+                   cfg.min_prefix_bucket)
+        if auto and not self._auto_fused_ok(profile, n2, tri, want,
+                                            m_cap_max):
+            return None
+        return min(want, m_cap_max)
+
+    def _auto_fused_ok(self, profile, n2: int, tri: int, want: int,
+                       m_cap_max: int) -> bool:
+        """The auto go/no-go: fused when the survivor budget and the
+        level-3 candidate census both fit the ceiling (the census sees a
+        mid-lattice blow-up that n2 alone cannot; -1, not computed, does
+        not object).  A level choice is remembered for the profile."""
+        ok = want <= m_cap_max and (tri < 0 or tri <= m_cap_max)
+        self.metrics.emit("engine_auto", choice="fused" if ok else "level",
+                          n2=n2, cand3=tri, m_cap_max=m_cap_max)
+        if not ok:
+            self.ctx.record_auto_level(profile)
+        return ok
+
+    def _fused_attempt_loop(self, profile, bitmap, w, min_count: int,
+                            m_cap: int, m_cap_max: int, n_digits: int,
+                            n_chunks: int, fast_f32: bool,
+                            packed_input: bool, model):
+        """The fused engine's attempts, shared by both input forms: an
+        overflowing row budget jumps to the overflowing level's true
+        need (at least twice the budget) until the ceiling; the l_max
+        bound stops at once.  Returns ``(levels, None)`` or ``(None,
+        salvaged complete levels or None)``."""
+        cfg = self.config
+        ctx = self.ctx
+        l_max = cfg.fused_l_max
+        t_pad, f_pad = bitmap.shape[0], (
+            bitmap.shape[1] * 8 if packed_input else bitmap.shape[1])
+        fixed, at = model
+        rows = None
+        m_cap_run = 0
+        while m_cap <= m_cap_max:
+            with self.metrics.timed("fused_mine", m_cap=m_cap,
+                                    reduce="dense") as met:
+                fn = make_fused_miner(m_cap, l_max, n_digits, n_chunks,
+                                      fast_f32, packed_input=packed_input)
+                out = ctx.fetch(fn(bitmap, w, min_count,
+                                   region=ctx.sync_free))
+                (rows, cols, counts, n_lvl, incomplete, overflow, _,
+                 _) = unpack_fused_result(out, l_max)
+                m_cap_run = m_cap
+                # Level 2's Gram product, then per loop iteration the two
+                # candidate products and the membership + count products.
+                n_iters = max(int(np.count_nonzero(n_lvl)), 1)
+                met.update(
+                    incomplete=incomplete, overflow=overflow,
+                    levels=int(np.count_nonzero(n_lvl)),
+                    packed_input=packed_input, n_chunks=n_chunks,
+                    macs=n_digits * t_pad * f_pad * f_pad + (n_iters - 1) * (
+                        2 * m_cap * m_cap * f_pad
+                        + (1 + n_digits) * t_pad * m_cap * f_pad),
+                    model_bytes=fixed + at(m_cap),
+                )
+                self._device_peak(met)
+            if not incomplete:
+                ctx.record_fused_m_cap(profile, m_cap)
+                return decode_level_matrices(rows, cols, counts, n_lvl), None
+            if not overflow:
+                break  # the l_max bound: more rows cannot help
+            # The meta row holds the true survivor counts: jump to a
+            # budget that holds the overflowing level.
+            needed = int(max(np.max(n_lvl), m_cap + 1))
+            m_cap = max(2 * m_cap, next_pow2(needed))
+        ctx.record_fused_fail(profile)
+        if rows is None:
+            return None, None
+        return None, decode_level_matrices(rows, cols, counts, n_lvl,
+                                           max_rows=m_cap_run)
+
+    def _fused_resident(self, data: CompressedData, bitmap: torch.Tensor,
+                        n_chunks: int, t_pad: int, n2: Optional[int] = None,
+                        tri: int = -1):
+        """The fused engine over the level engine's resident unpacked
+        bitmap (the pipelined ingest).  Returns ``(levels, salvaged,
+        need_n2)``: ``need_n2`` asks the caller for the level-2 survivor
+        count and census (the pair program's, or the pair level's) to
+        size the budget and make the auto choice, and to call again."""
+        cfg = self.config
+        ctx = self.ctx
+        f_pad = bitmap.shape[1]
+        n_digits = weight_digit_count(
+            int(data.weights.max()) if data.total_count else 1)
+        fast_f32 = ctx.platform == "cpu" and 127 * t_pad < 2**24
+        profile = ("resident", t_pad, data.num_items, cfg.fused_l_max,
+                   n_digits, n_chunks, fast_f32, data.min_count)
+        auto = self.engine == "auto"
+        if ctx.fused_failed(profile):
+            self.metrics.emit("fused_skip", reason="known_overflow")
+            return None, None, False
+        if auto and ctx.auto_level(profile):
+            self.metrics.emit("engine_auto", choice="level", memo=True)
+            return None, None, False
+        m_cap_max = min(cfg.fused_m_cap_max, fused_m_cap_memory_limit(
+            cfg, ctx, t_pad, f_pad, n_chunks, unpacked_resident=True))
+        if m_cap_max < next_pow2(cfg.fused_l_max + 2):
+            self.metrics.emit("fused_skip", reason="memory")
+            return None, None, False
+        m_cap = ctx.fused_m_cap_hint(profile)
+        if m_cap is not None and m_cap > m_cap_max:
+            m_cap = None
+        if m_cap is None:
+            if n2 is None:
+                return None, None, True
+            m_cap = self._size_fused_budget(profile, n2, tri, m_cap_max, auto)
+            if m_cap is None:  # auto chose the level engine
+                return None, None, False
+        m_cap = max(m_cap, next_pow2(cfg.fused_l_max + 2))
+        # The fused loop counts with the raw weights (4·T bytes), not the
+        # level engine's digits.
+        w_np = np.zeros(t_pad, dtype=np.int32)
+        w_np[: data.total_count] = data.weights
+        lv, partial = self._fused_attempt_loop(
+            profile, bitmap, ctx.upload(w_np), data.min_count, m_cap,
+            m_cap_max, n_digits, n_chunks, fast_f32, packed_input=False,
+            model=fused_bytes(cfg, t_pad, f_pad, n_chunks,
+                              unpacked_resident=True))
+        return lv, partial, False
+
     def _mine_levels(
         self,
         data: CompressedData,
+        resume: Optional[Levels] = None,
         preupload: Optional[tuple] = None,
+        try_fused: bool = False,
         pair_pre: Optional[dict] = None,
     ) -> Levels:
-        """The bitmap layout's levels.  ``preupload``: ``(bitmap,
-        w_digits, scales, t_pad, f_pad, heavy)`` already on the device
-        from the pipelined ingest (the bitmap build below is skipped).
-        ``pair_pre``: the ingest-overlapped pair program in flight; level
-        2, and level 3 when it fits the program's budgets, are then reads
-        of its one fetch instead of launches."""
+        """The bitmap layout's levels.  ``resume``: complete levels
+        salvaged from a fused attempt; the loop goes on from the deepest.
+        ``preupload``: ``(bitmap, w_digits, scales, n_chunks, t_pad,
+        f_pad, heavy)`` already on the device from the pipelined ingest
+        (the bitmap build below is skipped).  ``try_fused`` (the pipelined
+        ingest): offer the whole lattice to the fused engine over the
+        same resident bitmap first, sized by the pair program's survivor
+        count and census (or by the pair level's).  ``pair_pre``: the
+        ingest-overlapped pair program in flight; level 2, and level 3
+        when it fits the program's budgets, are then reads of its one
+        fetch instead of launches."""
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
         min_count = data.min_count
         if preupload is not None:
-            bitmap, w_digits, scales, t_pad, f_pad, heavy = preupload
+            bitmap, w_digits, scales, n_chunks, t_pad, f_pad, heavy = preupload
         else:
             with self.metrics.timed("bitmap_build") as m:
+                # Whole transaction chunks, as the pipelined ingest pads
+                # (the tail fold counts chunk by chunk).
+                n_chunks = max(1, -(-data.total_count // cfg.level_txn_chunk))
                 bitmap_np = build_bitmap_csr(
                     data.basket_indices, data.basket_offsets, f,
-                    cfg.txn_tile, cfg.item_tile,
+                    txn_multiple(cfg, n_chunks), cfg.item_tile,
                 )
                 t_pad, f_pad = bitmap_np.shape
                 w_digits_np, scales, heavy_b, heavy_w = split_weights(
@@ -781,6 +1110,30 @@ class FastApriori:
                 heavy = self._upload_heavy(heavy_b, heavy_w)
                 m.update(shape=[t_pad, f_pad], digits=len(scales),
                          heavy_rows=self._heavy_stats(heavy_b, heavy_w)[0])
+
+        need_n2 = False
+        if not resume and try_fused and self.engine in ("fused", "auto"):
+            # A remembered budget or choice decides without level 2.
+            lv, partial, need_n2 = self._fused_resident(data, bitmap,
+                                                        n_chunks, t_pad)
+            if lv is None and need_n2 and pair_pre is not None:
+                # The pair program's count and census size the budget.
+                _, _, n2, tri = self._pair_fetch(pair_pre)
+                lv, partial, _ = self._fused_resident(
+                    data, bitmap, n_chunks, t_pad, n2=n2, tri=tri)
+                need_n2 = False
+            if lv is not None:
+                return lv
+            if partial:
+                self._fused_fallback(partial)
+                resume = partial
+
+        if resume:
+            levels: Levels = list(resume)
+            cur = levels[-1][0]
+            self.metrics.emit("level_resume", from_k=int(cur.shape[1]) + 1)
+            return self._level_loop(levels, bitmap, w_digits, scales,
+                                    min_count, heavy, n_chunks=n_chunks)
 
         with self.metrics.timed("level", k=2) as m:
             if pair_pre is not None:
@@ -813,23 +1166,38 @@ class FastApriori:
                 idx, cnt, n2, dispatches = self._pair_level(
                     counts, min_count, f, ("pair_cap", t_pad, f, min_count))
                 tri = None
+                if need_n2:
+                    # The fused engine's auto choice reads the census.
+                    tri = (int(ctx.fetch(_pair_triangles(frequent_pair_mask(
+                        counts, min_count, f)))) if f_pad <= TRI_F_CAP
+                        else -1)
                 del counts
             idx, cnt = idx[:n2], cnt[:n2]
             # Row-major upper triangle: already lex-sorted.
             cur = np.stack([idx // f_pad, idx % f_pad], axis=1).astype(
                 np.int32)
-            levels: Levels = [(cur, cnt.astype(np.int64))]
+            levels = [(cur, cnt.astype(np.int64))]
             m.update(candidates=f * (f - 1) // 2, frequent=n2,
                      overlapped=pair_pre is not None,
                      dispatches=dispatches)
             if tri is not None:
                 m.update(cand3=tri)
-            if ctx.device.type == "cuda":
-                m.update(device_peak_bytes=torch.cuda.max_memory_allocated(
-                    ctx.device))
+            self._device_peak(m)
+        if need_n2:
+            # The pair level doubles as the fused engine's sizing pre-pass.
+            lv, partial, _ = self._fused_resident(
+                data, bitmap, n_chunks, t_pad, n2=n2, tri=tri)
+            if lv is not None:
+                return lv
+            if partial:
+                # The salvage holds level 2 too, equal to the one above.
+                self._fused_fallback(partial)
+                levels[:] = partial
+                cur = levels[-1][0]
 
         l3h = pair_pre.get("l3_host") if pair_pre is not None else None
-        if l3h is not None and cur.shape[0] >= 3:
+        if (l3h is not None and len(levels) == 1 and cur.shape[1] == 2
+                and cur.shape[0] >= 3):
             idx3, cnt3, n3, p3, cap3 = l3h
             n2_now = cur.shape[0]
             if n2_now <= p3 and n3 <= cap3:
@@ -854,7 +1222,7 @@ class FastApriori:
                 self.metrics.emit("pair_l3_overflow", n2=n2_now, p3=p3,
                                   n3=n3, cap3=cap3)
         return self._level_loop(levels, bitmap, w_digits, scales, min_count,
-                                heavy)
+                                heavy, n_chunks=n_chunks)
 
     def _mine_vertical(self, data: CompressedData) -> Levels:
         """Vertical (Eclat-style) mining: the tid-lane arena and weight
@@ -924,13 +1292,52 @@ class FastApriori:
         min_count: int,
         heavy: Optional[tuple] = None,
         vertical: bool = False,
+        n_chunks: int = 1,
     ) -> Levels:
         """The levels after the last one in ``levels`` (the pair level,
-        or level 3 when the pair program counted it), with the
-        reference's termination rule (FastApriori.scala:111)."""
+        level 3 when the pair program counted it, or the last salvaged
+        one), with the reference's termination rule
+        (FastApriori.scala:111).  On the bitmap layout a seed level k - 1
+        with k > 3 and at most the fold threshold's rows hands the rest
+        to :meth:`_mine_tail`, at most twice, each seed smaller than the
+        last; an incomplete fold resumes here from its last complete
+        level."""
+        cfg = self.config
+        auto_tail = cfg.tail_fuse_rows is None
+        tail_rows = cfg.tail_fuse_rows
+        if tail_rows is None:
+            # The fold saves per-level launches and host round trips,
+            # which the CPU does not pay.
+            tail_rows = 0 if self.ctx.platform == "cpu" else 65536
+        tail_ok = tail_rows > 0 and not vertical
         cur = levels[-1][0]
         k = cur.shape[1] + 1
+        prev_rows = None  # the previous level's rows (shrink evidence)
+        fold_attempts = 2
+        last_fold_seed = None
         while cur.shape[0] >= k:
+            # Never fold off the pair level: a lattice that fits one loop
+            # from level 2 is the fused engine's.
+            if (tail_ok and fold_attempts > 0 and k > 3
+                    and cur.shape[0] <= tail_rows
+                    and self._tail_entry_ok(auto_tail, cur.shape[0],
+                                            prev_rows)
+                    and (last_fold_seed is None
+                         or cur.shape[0] < last_fold_seed)):
+                tail, complete, ran = self._mine_tail(
+                    table, weights, scales, cur, n_chunks, heavy, min_count)
+                if ran:
+                    fold_attempts -= 1
+                    last_fold_seed = cur.shape[0]
+                    if tail:
+                        levels.extend(tail)
+                        cur = tail[-1][0]
+                        k = cur.shape[1] + 1
+                    if complete:
+                        return levels
+                    continue  # per level from the last complete level
+                # The memory model refused this seed: count it per level;
+                # a smaller seed may fit.
             with self.metrics.timed("level", k=k) as m:
                 nxt, nxt_counts, stats = self._count_level(
                     table, weights, scales, cur, min_count, heavy,
@@ -940,9 +1347,82 @@ class FastApriori:
                 if k == 3:
                     m.update(overlapped=False, dispatches=stats["launches"])
             levels.append((nxt, nxt_counts))
+            prev_rows = cur.shape[0]
             cur = nxt
             k += 1
         return levels
+
+    @staticmethod
+    def _tail_entry_ok(auto_tail: bool, n0: int,
+                       prev_rows: Optional[int]) -> bool:
+        """The fold's entry test under the automatic threshold (an
+        explicit ``tail_fuse_rows`` always enters): a seed above 16,384
+        rows needs evidence that the fold will not overflow its
+        ``next_pow2(n0)`` budget at once: rows shrinking, or grown at
+        most 20 % over the previous level (near the lattice's peak)."""
+        if not auto_tail or n0 <= 16384:
+            return True
+        if prev_rows is None:
+            return False
+        return n0 < prev_rows or n0 * 5 <= prev_rows * 6
+
+    def _mine_tail(self, bitmap, w_digits, scales, cur: np.ndarray,
+                   n_chunks: int, heavy: Optional[tuple], min_count: int):
+        """The shallow-tail fold: every remaining level from the seed
+        level ``cur`` in one device loop (ops/fused.py ``tail_mine``).
+        Returns ``(complete tail levels, finished, ran)``; ``ran`` False
+        means the memory model refused the seed before any device
+        work."""
+        cfg = self.config
+        ctx = self.ctx
+        n0, k0 = cur.shape
+        t_pad, f_pad = bitmap.shape
+        l_max = cfg.tail_fuse_l_max
+        # No 2x headroom: in a shrinking tail the seed is the largest
+        # level, and the [m, m] candidate products are the memory wall.
+        m_cap = max(next_pow2(n0), cfg.min_prefix_bucket,
+                    next_pow2(l_max + 2))
+        if m_cap > fused_m_cap_memory_limit(
+                cfg, ctx, t_pad, f_pad, n_chunks, unpacked_resident=True,
+                cap=m_cap, tail_chunked=True):
+            return [], False, False
+        # The prefix budget grows with large seeds; at or below 16,384
+        # rows the knob keeps its configured value.
+        p_cap = cfg.tail_fuse_p_cap
+        if m_cap > 16384:
+            p_cap = max(p_cap, m_cap // 8)
+        p_cap = min(p_cap, m_cap)
+        # The [t_c, p_cap] membership is narrower than the level
+        # engine's: fewer, larger chunks while it stays <= 768 MiB.
+        tail_chunks = n_chunks
+        while (tail_chunks % 2 == 0
+               and (t_pad // (tail_chunks // 2)) * p_cap * 4 <= (768 << 20)):
+            tail_chunks //= 2
+        seed = np.zeros((m_cap, k0), np.int32)
+        seed[:n0] = cur
+        with self.metrics.timed("tail_fuse", k0=k0, m_cap=m_cap, p_cap=p_cap,
+                                n_chunks=tail_chunks, l_max=l_max) as met:
+            fn = make_tail_miner(scales, k0, m_cap, p_cap, l_max,
+                                 tail_chunks, heavy is not None)
+            out = ctx.fetch(fn(bitmap, w_digits, ctx.upload(seed), n0,
+                               min_count, *(heavy or ()),
+                               region=ctx.sync_free))
+            rows, cols, counts, n_lvl, incomplete, _ = unpack_tail_result(
+                out, m_cap, l_max)
+            n_iters = max(int(np.count_nonzero(n_lvl)), 1)
+            met.update(
+                levels=int(np.count_nonzero(n_lvl)),
+                incomplete=incomplete, reduce="dense",
+                macs=n_iters * (2 * m_cap * m_cap * f_pad
+                                + (1 + len(scales)) * t_pad * p_cap * f_pad),
+                upload_bytes=seed.nbytes,
+            )
+            self._device_peak(met)
+            lvls = decode_level_matrices(
+                rows, cols, counts, n_lvl,
+                max_rows=tail_slot_caps(m_cap, l_max), prev=cur)
+            met.update(complete_levels=len(lvls))
+        return lvls, not incomplete, True
 
     def _count_level(
         self,

@@ -22,6 +22,7 @@ from fastapriori_tpu.models.recommender import (
 )
 from fastapriori_tpu_torch import convert
 from fastapriori_tpu_torch.cli import main as torch_main
+from fastapriori_tpu_torch.config import MinerConfig
 from fastapriori_tpu_torch.io.reader import read_dat, tokenize_line
 from fastapriori_tpu_torch.models.apriori import FastApriori
 from fastapriori_tpu_torch.models.recommender import (
@@ -137,7 +138,9 @@ def test_phase2_on_the_other_packages_phase1(tmp_path):
                                   device="cpu")
     assert rec.run(users, use_device=True) == want
 
-    t_levels, t_data = FastApriori(0.02, device="cpu").run_file_raw(d_path)
+    t_levels, t_data = FastApriori(
+        0.02, config=MinerConfig(engine="level"), device="cpu"
+    ).run_file_raw(d_path)
     assert len(t_levels) == len(j_levels)
     for (tm, tc), (jm, jc) in zip(t_levels, j_levels):
         assert (tm == jm).all() and (tc == jc).all()

@@ -6,7 +6,7 @@
 - without a CUDA device, every entry point that was not asked for the CPU
   raises InputError (the CLI exits 2), and chip_smoke.py exits non-zero
   without a result line;
-- the engines this slice does not have are refused by name;
+- an engine name the port does not know is refused by name;
 - no code of the port names a path under the JAX package (it builds and
   loads only its own native sources).
 
@@ -38,6 +38,7 @@ def test_import_leaves_jax_out():
         "import sys, fastapriori_tpu_torch, fastapriori_tpu_torch.cli, "
         "fastapriori_tpu_torch.convert, fastapriori_tpu_torch.ops.vertical, "
         "fastapriori_tpu_torch.ops.vertical_kernel, "
+        "fastapriori_tpu_torch.ops.fused, "
         "fastapriori_tpu_torch.utils.env, fastapriori_tpu_torch.native, "
         "fastapriori_tpu_torch.native.loader\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -146,15 +147,17 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch, tmp_path, capsys):
     assert FastApriori(0.1, device="cpu").ctx.platform == "cpu"
 
 
-def test_fused_engine_is_refused(tmp_path, capsys):
-    with pytest.raises(InputError, match="later slice"):
-        FastApriori(0.1, config=MinerConfig(engine="fused"), device="cpu")
+def test_unknown_engine_is_refused(tmp_path, capsys):
+    with pytest.raises(InputError, match="'fuse'"):
+        FastApriori(0.1, config=MinerConfig(engine="fuse"), device="cpu")
     (tmp_path / "D.dat").write_text("1 2\n")
     (tmp_path / "U.dat").write_text("1\n")
-    rc = torch_main([str(tmp_path) + "/", str(tmp_path) + "/o-",
-                     "--engine", "fused", "--platform", "cpu"])
-    assert rc == 2
-    assert "not ported yet" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        torch_main([str(tmp_path) + "/", str(tmp_path) + "/o-",
+                    "--engine", "fuse", "--platform", "cpu"])
+    assert exc.value.code == 2
+    assert "'fuse'" in capsys.readouterr().err
+    assert not (tmp_path / "o-freqItemset").exists()
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -76,6 +76,9 @@ def _jax_run(path, min_support, **cfg):
 
 
 def _port_run(path, min_support, context=None, **cfg):
+    # The level engine, as on the JAX side (auto takes the fused engine
+    # on such small corpora: tests/test_torch_fused.py).
+    cfg.setdefault("engine", "level")
     miner = FastApriori(
         config=MinerConfig(min_support=min_support, **cfg),
         device="cpu", context=context,
