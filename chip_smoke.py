@@ -25,13 +25,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the pair program counted; K1 and K2 launch, K3 not.  The same CLI with
    ``--engine fused`` (the same digests): one complete ``fused_mine`` at
    16,384 rows over the resident bitmap; K2 launches once, K1 and K3
-   not.
+   not.  The zero-flag CLI once more with ``FA_RULE_ENGINE=device`` set
+   for that call only (the same digests): the device rule engine (a
+   ``rule_gen_engine`` device and a ``rule_gen_device`` event, no
+   fallback) and K2 over the table built on the device (``first_match``
+   ``resident_table: true``); the auto runs must keep the host engine
+   (below its 2^21 raw-rule floor) and the host-built table.
 4. The vertical path: the kosarak-shape corpus (990,000 transactions over
    41,000 items, length 8, seed 2017; 10,000 user baskets, seed 2018),
    the CLI at ``--min-support 0.002`` with ``FA_MINE_ENGINE=vertical``
    set for that call only, both digests against the JAX CLI's
    (tests/test_torch_vertical.py recomputes them).  K3 and K2 must have
-   launched, K1 not.
+   launched, K1 not.  Then the same with ``FA_RULE_ENGINE=device`` too,
+   checked as in phase 3.
    In phases 3 and 4 the launch counts are set to 0 just before each CLI
    call and read just after, and the CLI's ``--metrics`` stderr lines
    are printed again on stdout: one line of phase walls, one of the
@@ -83,6 +89,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (K3's counted two ways).  On each path's baskets, the recommender's
    host scan against its device path from one basket up, around its
    switch point (``DEVICE_MIN_CHECKS``).
+8. The rule phase on each corpus, in-process (``rule_compare``): the
+   device rule engine's arrays against the host engine's, element for
+   element and confidences bitwise, its joins under
+   ``set_sync_debug_mode("error")`` up to the mask fetches; the
+   device-built scan table's real rows against the host-built table's;
+   the recommends of K2 on each table; auto at the default floor (host)
+   and at a floor of the raw count (device); K2 on the device-built
+   table against its plain version, timed; and a "rule crossover" line:
+   host ``gen_rules`` against the device engine and the table build,
+   cold (in a fresh process) and warm.  The same on T10 at
+   ``BIG_MIN_SUPPORT`` (0.0007, 3,003,819 raw rules), above the 2^21
+   floor, where auto itself must take the device engine.
 
 Prints the card's name and power limit, the host's CPU model and core
 count (ingest runs on the host), one ``{"kernels": [...]}`` line,
@@ -128,6 +146,10 @@ INT8_OPS_PER_S = 1.979e15
 BITWISE32_PER_CLK_SM = 64
 POPC_PER_CLK_SM = 16
 H100_SMS = 132
+
+# Phase 8: T10 at this min support has 3,003,819 raw rules, above the
+# JAX package's 2^21 floor of the auto rule engine (0.001 has 1,280,464).
+BIG_MIN_SUPPORT = "0.0007"
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke")
@@ -532,14 +554,18 @@ def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
     log(f"datagen {in_dir}: {time.perf_counter() - t0:.3f} s")
 
 
+# The environment variables the CLI reads (cli_path sets them per call).
+CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE")
+
+
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
-             digests: dict, mine_engine=None, extra_args=()) -> tuple:
-    """Phases 3 and 4: the port's CLI in-process, with FA_MINE_ENGINE set
-    to ``mine_engine`` (unset for None) for this call only and
-    ``extra_args`` after the zero-flag arguments; checks both output
-    digests and that the run took the pipelined capture ingest on more
-    than one thread, and returns the kernels' launch counts on this run
-    with the run's metrics fields."""
+             digests: dict, env=None, extra_args=()) -> tuple:
+    """Phases 3 and 4: the port's CLI in-process, with the variables of
+    :data:`CLI_ENV` set as ``env`` says (the rest unset) for this call
+    only and ``extra_args`` after the zero-flag arguments; checks both
+    output digests and that the run took the pipelined capture ingest on
+    more than one thread, and returns the kernels' launch counts on this
+    run with the run's metrics fields."""
     import torch
 
     from fastapriori_tpu_torch import cli
@@ -547,9 +573,8 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     os.makedirs(out_dir, exist_ok=True)
     kernels = kernel_launches()
     captured = io.StringIO()
-    saved = os.environ.pop("FA_MINE_ENGINE", None)
-    if mine_engine is not None:
-        os.environ["FA_MINE_ENGINE"] = mine_engine
+    saved = {key: os.environ.pop(key, None) for key in CLI_ENV}
+    os.environ.update(env or {})
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -561,10 +586,10 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     finally:
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in kernels.items()}
-        if saved is None:
-            os.environ.pop("FA_MINE_ENGINE", None)
-        else:
-            os.environ["FA_MINE_ENGINE"] = saved
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
         sys.stderr.write(captured.getvalue())
     if rc != 0:
         raise SystemExit(f"{name}: CLI exited {rc}")
@@ -1330,6 +1355,265 @@ def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:
             "ms_all_launches": sum(per_launch), "per_launch_ms": per_launch}
 
 
+def require_rule_engine(name: str, fields: dict, device: bool) -> None:
+    """A CLI run's rule phase took the engine it should: with
+    ``FA_RULE_ENGINE=device`` the device engine (a ``rule_gen_engine``
+    event naming it, a ``rule_gen_device`` event whose survivors are the
+    run's rules, no fallback) and K2 on the table built on the device
+    (``first_match`` ``resident_table`` true, with its build time); else,
+    on these corpora below the 2^21 floor, auto's host engine and the
+    host-built table."""
+    rule_events = {k: fields[k] for k in (
+        "rule_gen_engine", "rule_gen_device", "rule_gen_fallback")
+        if k in fields}
+    fm = fields.get("first_match", {})
+    log(f"{name}: rule phase {json.dumps(rule_events)}; first_match "
+        f"{json.dumps(fm)}")
+    if not fm.get("device"):
+        raise SystemExit(f"{name}: the recommend scan did not run on the "
+                         f"device")
+    if not device:
+        if rule_events or fm.get("resident_table") is not False:
+            raise SystemExit(f"{name}: auto left the host rule engine")
+        return
+    if ("rule_gen_fallback" in rule_events
+            or rule_events.get("rule_gen_engine", {}).get("engine")
+            != "device"
+            or rule_events.get("rule_gen_device", {}).get("survivors")
+            != fields.get("gen_rules", {}).get("rules")):
+        raise SystemExit(f"{name}: the forced device rule engine did not "
+                         f"run: {rule_events}")
+    if fm.get("resident_table") is not True or "table_build_ms" not in fm:
+        raise SystemExit(f"{name}: K2 did not scan the table built on the "
+                         f"device")
+
+
+# The rule phase's first calls in a fresh process, after CUDA's set-up
+# and the corpus's mine (what a CLI user pays): the host engine with its
+# priority sort, then the device engine with the same sort and the scan
+# table built from its state (waited for).
+COLD_RULES = """
+import json, sys, time, torch
+from fastapriori_tpu_torch.config import MinerConfig
+from fastapriori_tpu_torch.models.apriori import FastApriori
+from fastapriori_tpu_torch.models.recommender import AssociationRules
+from fastapriori_tpu_torch.rules.gen import (gen_rule_arrays_levels,
+                                             sort_rule_arrays)
+cfg = MinerConfig(min_support=float(sys.argv[2]), **json.loads(sys.argv[3]))
+levels, data = FastApriori(config=cfg).run_file_raw(sys.argv[1])
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+host = sort_rule_arrays(gen_rule_arrays_levels(levels, data.item_counts),
+                        data.freq_items)
+t1 = time.perf_counter()
+rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
+                       data.item_counts, config=MinerConfig(
+                           rule_engine="device"))
+rec.rule_arrays()
+t2 = time.perf_counter()
+build_ms = rec.scan_table()[3]
+print(json.dumps({"host_ms": (t1 - t0) * 1e3, "device_ms": (t2 - t1) * 1e3,
+                  "table_ms": build_ms, "rules": rec.n_rules,
+                  "host_rules": len(host[1])}))
+"""
+
+
+def cold_rules(name: str, in_dir: str, min_support: str, knobs: dict,
+               n_rules: int) -> dict:
+    """:data:`COLD_RULES` on a corpus in a fresh process; both engines
+    must give the ``n_rules`` rules of the in-process run."""
+    out = subprocess.run(
+        [sys.executable, "-c", COLD_RULES, os.path.join(in_dir, "D.dat"),
+         min_support, json.dumps(knobs)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"cold rules {name}: exit {out.returncode}: "
+                         f"{out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if got["rules"] != n_rules or got["host_rules"] != n_rules:
+        raise SystemExit(f"cold rules {name}: {got} rules, in-process "
+                         f"{n_rules}")
+    return got
+
+
+def same_rule_arrays(name: str, host, dev) -> None:
+    """Rule arrays equal element for element, confidences bitwise."""
+    import numpy as np
+
+    if len(host) != len(dev):
+        raise SystemExit(f"{name}: {len(dev)} rule levels, host {len(host)}")
+    for (ha, hc, hf), (da, dc, df) in zip(host, dev):
+        if not (ha.shape == da.shape and np.array_equal(ha, da)
+                and np.array_equal(hc, dc) and hf.dtype == df.dtype
+                and hf.tobytes() == df.tobytes()):
+            raise SystemExit(f"{name}: the device rule engine's arrays "
+                             f"differ from the host engine's")
+
+
+def rule_compare(name: str, in_dir: str, min_support: str, knobs: dict,
+                 data, levels, device, reps: int = 3) -> dict:
+    """The rule phase on a corpus, in-process: the device engine's rule
+    arrays against the host engine's (the joins under
+    ``set_sync_debug_mode("error")`` up to the mask fetches: device.py
+    ``sync_free``), the device-built scan table's real rows against the
+    host-built ``rule_table``'s, the recommends of a K2 scan of that
+    table against the host engine's (K2 on the host-built table, which
+    the CLI runs hold to the JAX package's digests), and the auto choice at the default floor and at a
+    floor of the raw count.  Then K2 on the first micro-batch of the
+    device-built table against its plain version, timed, and the "rule
+    crossover" line: host ``gen_rules`` against the device engine plus
+    the table build, cold (:func:`cold_rules`) and warm (median of
+    ``reps``).  Returns K2's numbers on the device-built table."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.device import DeviceContext
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.models.recommender import AssociationRules
+    from fastapriori_tpu_torch.ops.bitmap import pad_axis
+    from fastapriori_tpu_torch.ops.contain import rule_table
+    from fastapriori_tpu_torch.ops.match_kernel import (
+        first_match,
+        first_match_plain,
+    )
+    from fastapriori_tpu_torch.preprocess import dedup_user_baskets
+    from fastapriori_tpu_torch.rules import gen
+    from fastapriori_tpu_torch.utils.logging import MetricsLogger
+
+    mats = gen._level_tables(levels, data.item_counts)
+    raw = gen._raw_rule_count(mats)
+    floor = MinerConfig().rule_device_min_rules
+    ctx = DeviceContext(device)
+    ctx.sync_check = True
+    host = gen.gen_rule_arrays_levels(levels, data.item_counts)
+    metrics = MetricsLogger()
+    dev = gen.gen_rule_arrays_levels(
+        levels, data.item_counts, context=ctx,
+        config=MinerConfig(rule_engine="device"), metrics=metrics)
+    same_rule_arrays(name, host, dev)
+    events = {r["event"]: r for r in metrics.records}
+    if "rule_gen_fallback" in events or "rule_gen_device" not in events:
+        raise SystemExit(f"{name}: the forced device engine did not run: "
+                         f"{events}")
+    survivors = sum(len(c) for _, c, _ in host)
+    want_auto = "device" if raw >= floor else "host"
+    picks = (gen._pick_rule_engine(mats, ctx, MinerConfig()),
+             gen._pick_rule_engine(
+                 mats, ctx, MinerConfig(rule_device_min_rules=raw)))
+    if picks != (want_auto, "device"):
+        raise SystemExit(f"{name}: auto picked {picks} at the floors "
+                         f"({floor}, {raw}) for {raw} raw rules")
+    log(f"{name}: {raw} raw rules, {survivors} survive; device engine "
+        f"equal to the host engine (confidences bitwise; joins under sync "
+        f"debug mode error): {json.dumps(events['rule_gen_device'])}; auto "
+        f"picks {picks[0]} at the default floor {floor} and {picks[1]} at "
+        f"a floor of {raw}")
+
+    users = read_dat(os.path.join(in_dir, "U.dat"))
+    baskets, _, _ = dedup_user_baskets(users, data.item_to_rank)
+    rec_host = AssociationRules(data.freq_items, data.item_to_rank, levels,
+                                data.item_counts,
+                                config=MinerConfig(rule_engine="host"),
+                                device=device)
+    want = rec_host.run(users, use_device=True)
+    # At or above the floor auto itself takes the device engine.
+    engine = "auto" if raw >= floor else "device"
+    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
+                           data.item_counts,
+                           config=MinerConfig(rule_engine=engine),
+                           device=device)
+    rec.ctx.sync_check = True
+    if rec.run(users, use_device=True) != want:
+        raise SystemExit(f"{name}: recommends from the device-built table "
+                         f"differ")
+    rev = {r["event"]: r for r in rec.metrics.records}
+    if (rev.get("rule_gen_engine", {}).get("requested") != engine
+            or rev.get("first_match", {}).get("resident_table") is not True):
+        raise SystemExit(f"{name}: the {engine} engine did not scan a "
+                         f"device-built table: {rev}")
+    for a, b in zip(rec_host.rule_arrays(), rec.rule_arrays()):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise SystemExit(f"{name}: sorted rule arrays differ")
+    ant, size, cons, _ = rec.scan_table()
+    ant0, lens, cons0, _ = rec_host.rule_arrays()
+    f = len(data.freq_items)
+    f_pad = pad_axis(f + 1, rec.config.item_tile)
+    h_ant, h_size, h_cons = rule_table(ant0, lens, cons0, f, f_pad,
+                                       rec.config.rule_chunk)
+    r_host = len(cons0)
+    width = max(ant.shape[1], h_ant.shape[1])
+    got_ant = np.full((r_host, width), f_pad - 1, np.int32)
+    want_ant = got_ant.copy()
+    got_ant[:, : ant.shape[1]] = ant[:r_host].cpu().numpy()
+    want_ant[:, : h_ant.shape[1]] = h_ant[:r_host]
+    size_np = size.cpu().numpy()
+    if not (np.array_equal(got_ant, want_ant)
+            and np.array_equal(size_np[:r_host], h_size[:r_host])
+            and np.array_equal(cons[:r_host].cpu().numpy(), h_cons[:r_host])
+            and (size_np[r_host:] > f_pad).all()):
+        raise SystemExit(f"{name}: the device-built table's rows differ "
+                         f"from the host-built table's")
+    log(f"{name}: device-built table [{ant.shape[0]}, {ant.shape[1]}] "
+        f"equal to the host-built [{h_ant.shape[0]}, {h_ant.shape[1]}] on "
+        f"its {r_host} real rows; recommends equal ({len(baskets)} distinct "
+        f"baskets; first_match {json.dumps(rev['first_match'])})")
+
+    _, _, bm, blen = next(rec.micro_batches(baskets))
+    args = (torch.from_numpy(bm).to(device),
+            torch.from_numpy(blen).to(device), ant, size, cons)
+    err = require_equal(f"first_match {name} device-built table",
+                        first_match(*args), first_match_plain(*args))
+    ms = time_ms(lambda: first_match(*args), iters=20)
+    dev_ms = device_ms(lambda: first_match(*args), iters=20)
+    log(f"K2 ({name}, device-built table R={ant.shape[0]} K="
+        f"{ant.shape[1]}): kernel {ms:.4f} ms (device time {dev_ms:.4f} ms)")
+
+    host_runs, dev_runs, table_runs = [], [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        gen.sort_rule_arrays(
+            gen.gen_rule_arrays_levels(levels, data.item_counts),
+            data.freq_items)
+        host_runs.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = AssociationRules(data.freq_items, data.item_to_rank, levels,
+                             data.item_counts,
+                             config=MinerConfig(rule_engine="device"),
+                             device=device)
+        r.rule_arrays()
+        dev_runs.append((time.perf_counter() - t0) * 1e3)
+        table_runs.append(r.scan_table()[3])
+        del r
+    warm_host, warm_dev, warm_table = (
+        statistics.median(x) for x in (host_runs, dev_runs, table_runs))
+    # The card's share of the device engine: its kernels' summed time.
+    busy = device_ms(lambda: gen.gen_rule_arrays_levels(
+        levels, data.item_counts, context=DeviceContext(device),
+        config=MinerConfig(rule_engine="device")), iters=reps)
+    cold = cold_rules(name, in_dir, min_support, knobs, r_host)
+    log(f"rule crossover {name}: {raw} raw rules, {survivors} survivors; "
+        f"host gen_rules cold {cold['host_ms']:.3f} ms, warm "
+        f"{warm_host:.3f} ms; device engine + priority sort cold "
+        f"{cold['device_ms']:.3f} ms, warm {warm_dev:.3f} ms (its kernels "
+        f"{busy:.3f} ms of device time); table build cold "
+        f"{cold['table_ms']:.3f} ms, warm {warm_table:.3f} ms (warm: median "
+        f"of {reps}, in this process)")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "table_rows": int(ant.shape[0]), "k": int(ant.shape[1]),
+            "raw_rules": raw, "survivors": survivors,
+            "rule_crossover": {"host_cold_ms": cold["host_ms"],
+                               "host_warm_ms": warm_host,
+                               "device_cold_ms": cold["device_ms"],
+                               "device_warm_ms": warm_dev,
+                               "device_kernels_ms": busy,
+                               "table_cold_ms": cold["table_ms"],
+                               "table_warm_ms": warm_table}}
+
+
 def require_replayed(name: str, measured: dict, counted: int) -> None:
     """Phase 5's replay of a path must launch a kernel as often as the
     counted CLI run did, or its per-launch times are not the path's."""
@@ -1370,12 +1654,20 @@ def main() -> int:
     require_launches("main path", main_launches, main_fields,
                      ran=("level_counts", "first_match"))
     require_auto_main(main_fields)
+    require_rule_engine("main path", main_fields, device=False)
+    rules_launches, rules_fields = cli_path(
+        "device rules path", in_dir, os.path.join(WORK, "out_rules"),
+        MIN_SUPPORT, digests, env={"FA_RULE_ENGINE": "device"})
+    require_launches("device rules path", rules_launches, rules_fields,
+                     ran=("level_counts", "first_match"))
+    require_rule_engine("device rules path", rules_fields, device=True)
     fused_launches, fused_fields = cli_path(
         "fused path", in_dir, os.path.join(WORK, "out_fused"), MIN_SUPPORT,
         digests, extra_args=("--engine", "fused"))
     require_launches("fused path", fused_launches, fused_fields,
                      ran=("first_match",))
     require_fused_path(fused_fields)
+    require_rule_engine("fused path", fused_fields, device=False)
 
     k_in, k_out = os.path.join(WORK, "kin"), os.path.join(WORK, "kout")
     write_corpus(k_in, **{key: KOSARAK[key] for key in (
@@ -1383,9 +1675,21 @@ def main() -> int:
     vert_launches, vert_fields = cli_path(
         "vertical path", k_in, k_out, KOSARAK["min_support"],
         {"freqItemset": KOSARAK["freq_sha256"],
-         "recommends": KOSARAK["rec_sha256"]}, mine_engine="vertical")
+         "recommends": KOSARAK["rec_sha256"]},
+        env={"FA_MINE_ENGINE": "vertical"})
     require_launches("vertical path", vert_launches, vert_fields,
                      ran=("vertical_counts", "first_match"))
+    require_rule_engine("vertical path", vert_fields, device=False)
+    vrules_launches, vrules_fields = cli_path(
+        "vertical device rules path", k_in, os.path.join(WORK, "kout_rules"),
+        KOSARAK["min_support"],
+        {"freqItemset": KOSARAK["freq_sha256"],
+         "recommends": KOSARAK["rec_sha256"]},
+        env={"FA_MINE_ENGINE": "vertical", "FA_RULE_ENGINE": "device"})
+    require_launches("vertical device rules path", vrules_launches,
+                     vrules_fields, ran=("vertical_counts", "first_match"))
+    require_rule_engine("vertical device rules path", vrules_fields,
+                        device=True)
     ingest_compare("t10i4d100k", in_dir, MIN_SUPPORT)
     ingest_compare("kosarak", k_in, KOSARAK["min_support"])
 
@@ -1402,20 +1706,39 @@ def main() -> int:
                          f"the main path {main_launches['level_counts']}")
     k2 = k2_measure("t10i4d100k", in_dir, data, levels, device)
     require_replayed("K2 main path", k2, main_launches["first_match"])
+    built = {"t10i4d100k": rule_compare("t10i4d100k", in_dir, MIN_SUPPORT,
+                                        {}, data, levels, device)}
     del cfg, data, levels
     kcfg, kdata, klevels, _ = mine(k_in, device, KOSARAK["min_support"],
                                    "vertical")
     k2v = k2_measure("kosarak_vertical", k_in, kdata, klevels, device)
     require_replayed("K2 vertical path", k2v, vert_launches["first_match"])
+    built["kosarak_vertical"] = rule_compare(
+        "kosarak_vertical", k_in, KOSARAK["min_support"],
+        {"mine_engine": "vertical"}, kdata, klevels, device)
     k3 = k3_measure(kcfg, kdata, klevels, device, clock)
     require_replayed("K3 vertical path", k3, vert_launches["vertical_counts"])
+    del kcfg, kdata, klevels
+
+    # Phase 8: a lattice above the auto floor, where auto itself takes
+    # the device rule engine.
+    _, bdata, blevels, _ = mine(in_dir, device, BIG_MIN_SUPPORT)
+    big = f"t10i4d100k_{BIG_MIN_SUPPORT}"
+    built[big] = rule_compare(big, in_dir, BIG_MIN_SUPPORT, {}, bdata,
+                              blevels, device, reps=1)
+    if built[big]["raw_rules"] < 1 << 21:
+        raise SystemExit(f"{big}: {built[big]['raw_rules']} raw rules, "
+                         f"below 2^21")
+    del bdata, blevels
 
     def by_path(name):
         return {"t10i4d100k": main_launches[name],
+                "t10i4d100k_device_rules_cli": rules_launches[name],
                 "t10i4d100k_fused_cli": fused_launches[name],
                 "t10i4d100k_level_api": api_k1 if name == "level_counts"
                 else 0,
-                "kosarak_vertical": vert_launches[name]}
+                "kosarak_vertical": vert_launches[name],
+                "kosarak_vertical_device_rules_cli": vrules_launches[name]}
 
     # Top-level numbers: the first path in "measured_by_path".
     kernels = [
@@ -1430,7 +1753,12 @@ def main() -> int:
          "replaces": "fastapriori_tpu/ops/pallas_vertical.py:210",
          "launches": main_launches["first_match"], "path": "t10i4d100k",
          "launches_by_path": by_path("first_match"), **k2,
-         "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v}},
+         "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v},
+         "device_built_table": {
+             path: {key: m[key] for key in (
+                 "ms", "device_ms", "max_abs_err", "table_rows", "k",
+                 "raw_rules", "survivors")}
+             for path, m in built.items()}},
         {"name": "vertical_counts", "route": "cuda",
          "source": "fastapriori_tpu_torch/csrc/vertical_counts.cu",
          "replaces": "fastapriori_tpu/ops/pallas_vertical.py:88",
@@ -1440,6 +1768,8 @@ def main() -> int:
          "measured_by_path": {"kosarak_vertical": k3}},
     ]
     log(f"fused compare summary: {json.dumps(compared)}")
+    log("rule crossover summary: " + json.dumps(
+        {path: m["rule_crossover"] for path, m in built.items()}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,7 +23,9 @@ reference C1, Main.scala:15-41).
   ``--platform cpu`` runs every kernel's plain PyTorch version on the CPU;
 - the mining layout has no flag, as in the JAX package's CLI: the
   environment variable ``FA_MINE_ENGINE`` (``auto``, ``bitmap`` or
-  ``vertical``; strictly parsed) picks it, ``auto`` by default.
+  ``vertical``; strictly parsed) picks it, ``auto`` by default; nor has
+  the rule engine: ``FA_RULE_ENGINE`` (``auto``, ``host`` or ``device``;
+  strictly parsed; rules/gen.py) overrides ``auto``.
 
 User-correctable failures print one line and exit 2.
 """
@@ -46,7 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
         "one CUDA GPU (reference-compatible CLI)",
         epilog="The environment variable FA_MINE_ENGINE=auto|bitmap|vertical "
         "picks the mining layout (default auto: vertical on sparse corpora "
-        "with many frequent items, else bitmap).",
+        "with many frequent items, else bitmap); FA_RULE_ENGINE="
+        "auto|host|device picks the rule engine (default auto: the device "
+        "join from 2^21 raw rules on a CUDA device, else the host).",
     )
     p.add_argument("input", help="input prefix containing D.dat and U.dat")
     p.add_argument("output", help="output prefix for freqItemset/recommends")

@@ -121,5 +121,19 @@ class MinerConfig:
     # callback), so the CLI sets False; the library keeps the
     # documented CompressedData contract by default.
     retain_csr: bool = True
+    # Rule generation engine (rules/gen.py ``_pick_rule_engine``):
+    # "auto" runs the device join + dominance prune (one join per level,
+    # ops/contain.py ``rule_level_kernel``) when a device context is
+    # given, the raw rule count reaches `rule_device_min_rules`, every
+    # itemset count is < 2^24 (the exact-compare gate) and the device is
+    # not the CPU; "host" forces the numpy engine; "device" forces the
+    # device engine on any device (still the host engine, with a
+    # `rule_gen_fallback` metrics event, without a context or past the
+    # count gate).  FA_RULE_ENGINE overrides, strictly parsed.
+    rule_engine: str = "auto"
+    # Raw rules (Σ k·N_k over the levels) from which auto takes the
+    # device engine: the JAX package's floor, kept until H100 runs set
+    # the port's own (PERF.md, "rule crossover").
+    rule_device_min_rules: int = 1 << 21
     # Emit per-phase structured metrics as JSON lines on stderr.
     log_metrics: bool = False

@@ -2,9 +2,11 @@
 subset of fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — upload,
 the vertical engine's arena and plane uploads, fetch, the ingest-
 overlapped pair program ``ingest_pair_miner``, its overflow
-``pair_regather``, the remembered pair budgets and the fused engine's
+``pair_regather``, the remembered pair budgets, the fused engine's
 memos (``fused_m_cap_hint``, ``fused_failed``, ``auto_level``) with the
-device's memory size for its memory model; no mesh and no
+device's memory size for its memory model, and the survivor-count
+gather ``gather_level_counts_start`` / ``finish_level_counts`` with
+``PendingCounts`` and ``_pad_positions``; no mesh and no
 collectives — and of fastapriori_tpu/reliability/retry.py
 ``fetch_async``, without its retry policy: retries belong to the
 reliability core, which is not ported yet).
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from fastapriori_tpu_torch.errors import InputError
-from fastapriori_tpu_torch.ops.bitmap import unpack_bitmap
+from fastapriori_tpu_torch.ops.bitmap import next_pow2, unpack_bitmap
 from fastapriori_tpu_torch.ops.count import (
     frequent_pair_mask,
     l3_threshold_pack,
@@ -84,6 +86,44 @@ class AsyncFetch:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+def _pad_positions(pos: np.ndarray) -> np.ndarray:
+    """Gather positions padded to the next power of two with 0 (a valid
+    index whose gathered value :class:`PendingCounts` strips), so the
+    gather's shapes come from a few buckets."""
+    out = np.zeros(next_pow2(max(int(pos.size), 1)), dtype=np.int64)
+    out[: pos.size] = pos
+    return out
+
+
+class PendingCounts:
+    """A started survivor-count gather whose compact output is on its way
+    to the host (:class:`AsyncFetch`); :meth:`result` waits, decodes the
+    optional u24 3-byte planes and strips each segment's position
+    padding, so the caller gets exactly its counts, concatenated in
+    segment order."""
+
+    def __init__(self, fetch: AsyncFetch, seg_real: Sequence[int],
+                 seg_pad: Sequence[int], u24: bool):
+        self._fetch = fetch
+        self._seg_real = list(seg_real)
+        self._seg_pad = list(seg_pad)
+        self._u24 = u24
+
+    def result(self) -> np.ndarray:
+        out = self._fetch.result()
+        if self._u24:
+            dec = (out[0].astype(np.int64)
+                   | (out[1].astype(np.int64) << 8)
+                   | (out[2].astype(np.int64) << 16))
+        else:
+            dec = out.astype(np.int64)
+        parts, off = [], 0
+        for real, pad in zip(self._seg_real, self._seg_pad):
+            parts.append(dec[off : off + real])
+            off += pad
+        return np.concatenate(parts) if parts else np.empty(0, np.int64)
 
 
 class BlockUploader:
@@ -294,6 +334,36 @@ class DeviceContext:
     @staticmethod
     def fetch_async(x: torch.Tensor) -> AsyncFetch:
         return AsyncFetch(x)
+
+    def gather_level_counts_start(
+        self,
+        pending: Sequence[Tuple[torch.Tensor, np.ndarray]],
+        u24: bool = False,
+    ) -> PendingCounts:
+        """Gather each ``(counts_dev, flat positions)`` pair's counts on
+        the device, concatenated, and start one non-blocking fetch of the
+        result; the host does not wait.  The positions go up as one
+        pinned upload, each segment padded by :func:`_pad_positions`.
+        ``u24``: every count is < 2^24 (the caller's gate), so three
+        uint8 planes cross instead of int32.  ``pending`` holds at least
+        one pair."""
+        real = [np.asarray(p) for _, p in pending]
+        padded = [_pad_positions(p) for p in real]
+        pos = self.upload_async(np.concatenate(padded))
+        segs = torch.split(pos, [p.size for p in padded])
+        g = torch.cat([c.reshape(-1).index_select(0, p)
+                       for (c, _), p in zip(pending, segs)])
+        if u24:
+            g = torch.stack([((g >> s) & 0xFF).to(torch.uint8)
+                             for s in (0, 8, 16)])
+        return PendingCounts(AsyncFetch(g), [p.size for p in real],
+                             [p.size for p in padded], u24)
+
+    @staticmethod
+    def finish_level_counts(handle: PendingCounts) -> np.ndarray:
+        """The host int64 counts of a :meth:`gather_level_counts_start`
+        handle (waits for its fetch)."""
+        return handle.result()
 
     def upload_tid_arena(
         self, arena_np: np.ndarray, buckets=None

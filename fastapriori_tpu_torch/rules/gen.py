@@ -13,20 +13,120 @@
    level i-1 with strictly lower confidence (:168, :173).
 
 Confidence is an IEEE double division of two ints, identical on the JVM,
-so the comparisons agree bit for bit with the reference.  The device
-rule join of the reference package is not ported yet.
+so the comparisons agree bit for bit with the reference.
+
+Two engines compute the same arrays (counterpart also: the JAX package's
+``_rule_arrays_device`` at one shard, ``_pick_rule_engine``,
+``rule_engine_from_env``, ``DeviceRuleState``): the numpy engine, and the
+device engine, which runs the joins and the prune level by level on the
+device (ops/contain.py ``rule_level_kernel``) and fetches only the
+survivor masks and the survivors' denominators; the host then divides
+the same integers.  The device engine can leave its per-level state on
+the device for the recommender's scan table (``DeviceRuleState``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.ops.bitmap import next_pow2
+from fastapriori_tpu_torch.ops.contain import rule_key_bits, rule_level_kernel
+from fastapriori_tpu_torch.utils.env import env_choice
 from fastapriori_tpu_torch.utils.order import consequent_key
 
 RuleArrays = Tuple[np.ndarray, np.ndarray, np.ndarray]  # ant [N,w], cons, conf
+
+_RULE_ENGINES = ("auto", "host", "device")
+
+# The device engine compares confidences as exact 48-bit cross products,
+# which order them as the host's doubles do only while every count is
+# < 2^24 (ops/contain.py ``frac_less24``).
+_DEVICE_COUNT_CAP = 1 << 24
+
+
+def rule_engine_from_env() -> Optional[str]:
+    """``FA_RULE_ENGINE`` (auto/host/device), strictly parsed: a value it
+    does not know raises InputError.  None when unset: the config
+    decides."""
+    return env_choice("FA_RULE_ENGINE", _RULE_ENGINES)
+
+
+class DeviceRuleState:
+    """The device engine's per-level state, left on the device for the
+    recommender's scan table (ops/contain.py ``rule_scan_build``): per
+    level the padded ``(mat, cnts, d_flat, surv_flat)`` tensors, with the
+    level sizes, each level's emission offset and the survivor total."""
+
+    def __init__(self):
+        self.ready = False
+        self.ks: List[int] = []
+        self.arrays: list = []
+        self.offsets: List[int] = []
+        self.total = 0
+
+    def populate(self, ks, arrays, offsets, total) -> None:
+        self.ks = list(ks)
+        self.arrays = list(arrays)
+        self.offsets = list(offsets)
+        self.total = int(total)
+        self.ready = True
+
+    def release(self) -> None:
+        """Drop the device tensors (the scan table, once built, is their
+        only consumer)."""
+        self.arrays = []
+        self.ready = False
+
+
+def _raw_rule_count(mats: Dict[int, Tuple[np.ndarray, np.ndarray]]) -> int:
+    """Raw (unpruned) rules: every k-itemset emits k."""
+    return sum(k * mat.shape[0] for k, (mat, _) in mats.items() if k >= 2)
+
+
+def _max_count(mats: Dict[int, Tuple[np.ndarray, np.ndarray]]) -> int:
+    return max((int(c.max()) for _, c in mats.values() if c.size), default=0)
+
+
+def _pick_rule_engine(mats, context, config, metrics=None) -> str:
+    """"host" or "device", from ``FA_RULE_ENGINE`` over
+    ``config.rule_engine``: the device engine needs a context and counts
+    below 2^24, and under "auto" also a raw rule count of at least
+    ``config.rule_device_min_rules`` and a device that is not the CPU.
+    A forced device engine that falls back, and every device choice, is
+    a metrics event (``rule_gen_fallback``, ``rule_gen_engine``)."""
+    engine = rule_engine_from_env()
+    if engine is None:
+        engine = config.rule_engine if config is not None else "auto"
+        if engine not in _RULE_ENGINES:
+            raise InputError(
+                f"unrecognized MinerConfig.rule_engine value {engine!r}: "
+                f"use one of {'/'.join(_RULE_ENGINES)}"
+            )
+    if engine == "host":
+        return "host"
+    raw = _raw_rule_count(mats)
+
+    def fallback(reason: str) -> str:
+        if engine == "device" and metrics is not None:
+            metrics.emit("rule_gen_fallback", reason=reason, raw_rules=raw)
+        return "host"
+
+    if context is None:
+        return fallback("no_device_context")
+    if _max_count(mats) >= _DEVICE_COUNT_CAP:
+        return fallback("counts_exceed_2^24")
+    if engine == "auto":
+        floor = config.rule_device_min_rules if config is not None else 1 << 21
+        if raw < floor or context.platform == "cpu":
+            return "host"
+    if metrics is not None:
+        metrics.emit("rule_gen_engine", engine="device", requested=engine,
+                     raw_rules=raw)
+    return "device"
 
 
 def _rows_view(m: np.ndarray) -> np.ndarray:
@@ -103,6 +203,14 @@ def _level_tables(
     return mats
 
 
+def _closure_error(k: int) -> InputError:
+    return InputError(
+        f"itemset table is not downward-closed: {k}-itemsets are "
+        f"present but no {k - 1}-itemsets exist to serve as rule "
+        "antecedents — the mining output is incomplete"
+    )
+
+
 def _rule_arrays_host(
     mats: Dict[int, Tuple[np.ndarray, np.ndarray]]
 ) -> List[RuleArrays]:
@@ -123,11 +231,7 @@ def _rule_arrays_host(
         if k < 2:
             continue
         if k - 1 not in mats:
-            raise InputError(
-                f"itemset table is not downward-closed: {k}-itemsets are "
-                f"present but no {k - 1}-itemsets exist to serve as rule "
-                "antecedents — the mining output is incomplete"
-            )
+            raise _closure_error(k)
         mat, cnts = mats[k]
         pmat, pcnts = mats[k - 1]
         n_sets[k] = mat.shape[0]
@@ -208,10 +312,155 @@ def _rule_arrays_host(
     return out
 
 
-def gen_rule_arrays_levels(levels, item_counts) -> List[RuleArrays]:
+def rule_arrays_from_tables(
+    mats: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    context=None,
+    config=None,
+    metrics=None,
+    scan_state: Optional[DeviceRuleState] = None,
+) -> List[RuleArrays]:
+    """Survivor rule arrays per antecedent size, ``(ant int32 [N, w],
+    cons int32 [N], conf f64 [N])``, from the size-grouped tables, by the
+    engine :func:`_pick_rule_engine` picks (both give the same arrays);
+    a ``context`` (device.py ``DeviceContext``) makes the device engine
+    eligible, and ``scan_state`` keeps its per-level state on the device
+    for the recommender's scan table."""
+    if _pick_rule_engine(mats, context, config, metrics) == "device":
+        return _rule_arrays_device(mats, context, metrics, scan_state)
+    return _rule_arrays_host(mats)
+
+
+def _rule_arrays_device(
+    mats: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    ctx,
+    metrics=None,
+    state: Optional[DeviceRuleState] = None,
+) -> List[RuleArrays]:
+    """The device engine: each level's table goes up once and one join
+    (ops/contain.py ``rule_level_kernel``) per level finds the rules and
+    prunes them against the previous level's state, which stays on the
+    device.  Every join is launched before any result is read; each
+    level's packed survivor mask comes back by a non-blocking fetch, and
+    the survivors' denominators by one gather and one fetch
+    (``gather_level_counts_start``, 3 bytes each: counts are < 2^24).
+    The confidences are then the host engine's own float64 divisions of
+    the same integers.  With ``ctx.sync_check`` the joins run under
+    ``ctx.sync_free()``: nothing in them may wait for the device."""
+    t0 = time.perf_counter()
+    f = 1 + max(
+        (int(mat.max()) for mat, _ in mats.values() if mat.size), default=0
+    )
+    bits = rule_key_bits(f)
+    ks = sorted(k for k in mats if k >= 2)
+    if not ks:
+        return []
+    for k in ks:
+        if k - 1 not in mats:
+            raise _closure_error(k)
+    p1 = np.asarray(mats[1][1], dtype=np.int32)
+    if f > p1.size:
+        # A rank past the 1-itemset table: the host engine finds no
+        # antecedent row for it (the k = 2 join reads the rank as its
+        # row, so it is checked here).
+        raise InputError(
+            f"itemset table is not downward-closed: rank {f - 1} has no "
+            "1-itemset — the mining output is incomplete"
+        )
+    per_level: List[dict] = []
+    with ctx.sync_free():
+        pcnts = ctx.upload_async(p1)
+        psorted = porder = prev_surv = prev_d = None
+        prev_n = 0
+        for k in ks:
+            mat, cnts = mats[k]
+            n = mat.shape[0]
+            n_pad = next_pow2(max(n, 8))
+            mat_p = np.zeros((n_pad, k), np.int32)
+            mat_p[:n] = mat
+            cnts_p = np.ones(n_pad, np.int32)
+            cnts_p[:n] = cnts
+            mat_dev = ctx.upload_async(mat_p)
+            cnts_dev = ctx.upload_async(cnts_p)
+            packed, skeys, order, d_flat, surv_flat = rule_level_kernel(
+                mat_dev, cnts_dev, n, psorted, porder, pcnts, prev_n,
+                prev_surv, prev_d, k=k, bits=bits, first=k == 2,
+            )
+            per_level.append({
+                "k": k, "n": n, "n_pad": n_pad, "mat": mat, "cnts": cnts,
+                "arrays": (mat_dev, cnts_dev, d_flat, surv_flat),
+                "fetch": ctx.fetch_async(packed),
+            })
+            psorted, porder, pcnts = skeys, order, cnts_dev
+            prev_surv, prev_d, prev_n = surv_flat, d_flat, n
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+
+    # The masks (fetched while later joins ran), then each survivor's
+    # flat position for the one denominator gather.
+    pend, offsets, total = [], [], 0
+    for lv in per_level:
+        out_b = lv["fetch"].result()
+        miss = int.from_bytes(out_b[-4:].tobytes(), "little")
+        if miss:
+            raise InputError(
+                f"itemset table is not downward-closed: {miss} "
+                f"antecedent(s) of the {lv['k']}-itemsets are missing "
+                "from the table — the mining output is incomplete"
+            )
+        surv = (np.unpackbits(out_b[:-4])
+                .reshape(lv["k"], lv["n_pad"])[:, : lv["n"]].astype(bool))
+        lv["rows"] = [np.flatnonzero(surv[j]) for j in range(lv["k"])]
+        offsets.append(total)
+        total += int(surv.sum())
+        pos = np.concatenate(
+            [j * lv["n_pad"] + r for j, r in enumerate(lv["rows"])])
+        pend.append((lv["arrays"][2], pos))
+    have = [(d, p) for d, p in pend if p.size]
+    den = (ctx.finish_level_counts(
+        ctx.gather_level_counts_start(have, u24=True))
+        if have else np.empty(0, np.int64))
+
+    out: List[RuleArrays] = []
+    off = 0
+    for lv in per_level:
+        k, mat, cnts = lv["k"], lv["mat"], lv["cnts"]
+        cols = np.arange(k)
+        ants, conss, confs = [], [], []
+        for j, rows_j in enumerate(lv["rows"]):
+            d_j = den[off : off + rows_j.size].astype(np.float64)
+            off += rows_j.size
+            ants.append(mat[np.ix_(rows_j, np.delete(cols, j))])
+            conss.append(mat[rows_j, j])
+            # The host engine's float64 division of the same ints.
+            confs.append(cnts[rows_j] / d_j)
+        out.append((np.concatenate(ants), np.concatenate(conss),
+                    np.concatenate(confs)))
+    if state is not None:
+        state.populate([lv["k"] for lv in per_level],
+                       [lv["arrays"] for lv in per_level], offsets, total)
+    if metrics is not None:
+        metrics.emit(
+            "rule_gen_device",
+            levels=len(per_level),
+            dispatches=len(per_level) + (1 if have else 0),
+            raw_rules=_raw_rule_count(mats),
+            survivors=total,
+            dispatch_ms=round(dispatch_ms, 3),
+            wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
+        )
+    return out
+
+
+def gen_rule_arrays_levels(
+    levels, item_counts, context=None, config=None, metrics=None,
+    scan_state: Optional[DeviceRuleState] = None,
+) -> List[RuleArrays]:
     """Survivor rule arrays from the miner's level matrices and the
-    per-rank raw occurrence counts (the size-1 rule denominators)."""
-    return _rule_arrays_host(_level_tables(levels, item_counts))
+    per-rank raw occurrence counts (the size-1 rule denominators);
+    ``context`` and the rest as for :func:`rule_arrays_from_tables`."""
+    return rule_arrays_from_tables(
+        _level_tables(levels, item_counts), context=context, config=config,
+        metrics=metrics, scan_state=scan_state,
+    )
 
 
 def _consequent_priority(freq_items: Sequence[str]) -> np.ndarray:

@@ -1,10 +1,11 @@
 """Strict environment parsing (counterpart: fastapriori_tpu/utils/env.py
 ``env_choice`` and ``env_int``).
 
-The port reads two environment variables, ``FA_MINE_ENGINE``
-(models/apriori.py) and ``FA_INGEST_THREADS`` (preprocess.py
-``ingest_thread_count``); a value it does not know is an error, never a
-quiet default.
+The port reads three environment variables, ``FA_MINE_ENGINE``
+(models/apriori.py), ``FA_INGEST_THREADS`` (preprocess.py
+``ingest_thread_count``) and ``FA_RULE_ENGINE`` (rules/gen.py
+``rule_engine_from_env``); a value it does not know is an error, never
+a quiet default.
 """
 
 from __future__ import annotations

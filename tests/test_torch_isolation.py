@@ -11,8 +11,9 @@
   loads only its own native sources).
 
 The vertical engine's modules (ops/vertical.py, ops/vertical_kernel.py,
-utils/env.py) are imported by name, and a forced vertical mine without
-a CUDA device is refused like any other run.
+utils/env.py) and the device rule engine's (rules/gen.py, ops/contain.py,
+device.py) are imported by name, and a forced vertical mine or a forced
+device rule engine without a CUDA device is refused like any other run.
 """
 
 import ast
@@ -40,7 +41,9 @@ def test_import_leaves_jax_out():
         "fastapriori_tpu_torch.ops.vertical_kernel, "
         "fastapriori_tpu_torch.ops.fused, "
         "fastapriori_tpu_torch.utils.env, fastapriori_tpu_torch.native, "
-        "fastapriori_tpu_torch.native.loader\n"
+        "fastapriori_tpu_torch.native.loader, fastapriori_tpu_torch.device, "
+        "fastapriori_tpu_torch.rules.gen, fastapriori_tpu_torch.ops.contain, "
+        "fastapriori_tpu_torch.models.recommender\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'fastapriori_tpu'))\n"
         "print(','.join(bad))\n"
@@ -69,7 +72,10 @@ def test_no_module_of_the_port_names_jax():
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {os.path.join("fastapriori_tpu_torch", "ops", "vertical.py"),
             os.path.join("fastapriori_tpu_torch", "ops", "vertical_kernel.py"),
-            os.path.join("fastapriori_tpu_torch", "utils", "env.py")} <= names
+            os.path.join("fastapriori_tpu_torch", "utils", "env.py"),
+            os.path.join("fastapriori_tpu_torch", "rules", "gen.py"),
+            os.path.join("fastapriori_tpu_torch", "ops", "contain.py"),
+            os.path.join("fastapriori_tpu_torch", "device.py")} <= names
     for path in files:
         assert FORBIDDEN.isdisjoint(_imported_roots(path)), path
 
@@ -145,6 +151,21 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.delenv("FA_MINE_ENGINE")
     # Asked for explicitly, the CPU is fine.
     assert FastApriori(0.1, device="cpu").ctx.platform == "cpu"
+
+
+def test_forced_device_rule_engine_without_cuda_is_refused(
+        monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("FA_RULE_ENGINE", "device")
+    (tmp_path / "D.dat").write_text("1 2\n2 3\n1 2 3\n")
+    (tmp_path / "U.dat").write_text("1\n")
+    rc = torch_main([str(tmp_path) + "/", str(tmp_path) + "/out-"])
+    assert rc == 2
+    assert "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "out-recommends").exists()
+    with pytest.raises(InputError, match="CUDA"):
+        AssociationRules(["1", "2"], {"1": 0, "2": 1}, [], [3, 2],
+                         config=MinerConfig(rule_engine="device"))
 
 
 def test_unknown_engine_is_refused(tmp_path, capsys):
