@@ -48,9 +48,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must equal what the run's own ``level`` and ``first_match`` events
    count; float32 matmuls must run in full precision (no TF32); one line
    gives the run's peak device memory.
-   Then each corpus goes once through the Python ingest and once
-   through the native one-call scan in-process: the arrays must be
-   equal, and one line gives both walls and the thread count.  T10 is
+   Then each corpus goes once through the Python ingest (in the prep
+   child) and once through the native one-call scan in-process: the
+   arrays must be equal, and one line gives both walls and the thread
+   count.  T10 is
    mined in-process through the capture path and through the one-call
    scan (``ingest_pipeline_blocks=1``), each with the auto choice and
    with the fused engine (over the resident bitmap, and over a packed
@@ -102,6 +103,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``BIG_MIN_SUPPORT`` (0.0007, 3,003,819 raw rules), above the 2^21
    floor, where auto itself must take the device engine.
 
+9. The reliability core, after phase 4 (``reliability_phases``): the
+   zero-flag runs of phases 3 and 4 must have resolved their deferred
+   survivor counts in one dispatch (``counts_resolve``).  Then (a) T10
+   with ``--checkpoint-every-level``, clean, in-process; the same command
+   in a child process with ``FA_FAILPOINTS=level.K:abort``, K a middle
+   one of the levels the clean run's ``checkpoint`` events wrote: it
+   must exit non-zero naming the site, its ``checkpoint.npz`` must pass
+   ``validate_checkpoint`` and hold exactly the clean run's levels 2..K;
+   then the checkpoint seeds an API mine with the tail fold off: the JAX
+   digests, ``level_resume`` from K + 1, and K1 launched at least once
+   and only for the levels after K (as the run's level events count
+   them); then ``--resume-from`` in-process: the JAX digests,
+   ``level_resume`` from K + 1 and no level at or below K counted (its
+   fold may mine every remaining level).  (b) The same on kosarak with
+   ``FA_MINE_ENGINE=vertical`` (K3 at least once after the resume, no
+   API run).  (c) The same with ``--engine fused
+   --checkpoint-cadence 2`` (checkpoint segments).  (d) ``--save-counts``
+   (both digests), then ``--resume-from`` its phase-1 artifacts: the
+   recommends digest, K2 once, no ingest and no K1.  (e) T10 through the
+   API with a 1-byte ``pending_fetch_budget_bytes``: ``counts_drain``
+   events and both digests.  (f) The zero-flag CLI with
+   ``fetch.level_bits:oom*1`` armed: the digests, and exactly one
+   ``retry`` ledger event at that site.  Every CLI run of the script
+   that was not injected must leave the degradation ledger empty.
+
+Every child process starts first, when ``nvidia-smi`` is on the path:
+the prep child, which writes both corpora and runs the Python ingest of
+each (phase 4's compare) while this process builds the kernels, the
+cold runs of phases 6 and 8, and one kill worker that serves phase 9's
+three killed runs.  The last two wait for their arguments on stdin, so
+the seconds a process takes to start overlap the parent's work.  All
+are stopped when the script ends.  Each log line starts with the
+seconds since the script started.
+
 Prints the card's name and power limit, the host's CPU model and core
 count (ingest runs on the host), one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -115,8 +150,11 @@ import hashlib
 import io
 import json
 import os
+import queue
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 # freqItemset / recommends written by `python -m fastapriori_tpu <in>/
@@ -155,8 +193,87 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "_smoke")
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, led by the seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:8.3f} s] {msg}", flush=True)
+
+
+class Child:
+    """A child process started ahead of its use: its script imports what
+    it needs and then blocks reading its arguments, one JSON line, from
+    stdin, so the seconds a process takes to start (Python, torch, the
+    port) overlap the parent's work.  Its stderr goes to a file under
+    :data:`WORK`.  :meth:`stop_all` ends every child still running."""
+
+    live: list = []
+
+    def __init__(self, name: str, script: str):
+        os.makedirs(WORK, exist_ok=True)
+        self.name = name
+        self.err_path = os.path.join(
+            WORK, "child_" + "".join(c if c.isalnum() else "_"
+                                     for c in name) + ".err")
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", script], cwd=ROOT, text=True,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err)
+        self.lines = None
+        Child.live.append(self)
+
+    def stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()
+
+    def run(self, args, timeout: float = 300) -> tuple:
+        """Hand the child its arguments and wait for it to end:
+        ``(exit code, stdout, stderr)``."""
+        out, _ = self.proc.communicate(json.dumps(args) + "\n",
+                                       timeout=timeout)
+        return self.proc.returncode, out, self.stderr()
+
+    def request(self, req: dict, timeout: float = 600) -> dict:
+        """One request to a child that serves many (:data:`KILL_WORKER`):
+        its :meth:`reply`."""
+        self.proc.stdin.write(json.dumps(req) + "\n")
+        self.proc.stdin.flush()
+        return self.reply(timeout)
+
+    def reply(self, timeout: float = 600) -> dict:
+        """The next JSON reply: the child's next stdout line that starts
+        ``REPLY``."""
+        if self.lines is None:
+            self.lines = queue.Queue()
+
+            def read() -> None:
+                for line in self.proc.stdout:
+                    self.lines.put(line)
+                self.lines.put("")
+
+            threading.Thread(target=read, daemon=True).start()
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(deadline - time.perf_counter(), 0.001))
+            except queue.Empty:
+                raise SystemExit(f"{self.name}: no reply in {timeout} s")
+            if not line:
+                raise SystemExit(f"{self.name}: the child exited "
+                                 f"{self.proc.wait()}: "
+                                 f"{self.stderr()[-2000:]}")
+            if line.startswith("REPLY "):
+                return json.loads(line[len("REPLY "):])
+
+    @classmethod
+    def stop_all(cls) -> None:
+        for child in cls.live:
+            if child.proc.poll() is None:
+                child.proc.kill()
+            child.proc.wait()
+        cls.live.clear()
 
 
 def sha256(path: str) -> str:
@@ -229,15 +346,21 @@ def device_ms(fn, iters: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type.name == "CUDA")
-    if total_us <= 0:
-        raise SystemExit("torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+    # The profiler's device trace has come back empty once in a run whose
+    # other profiles were full: a second and a third profile are taken
+    # before that counts as a failure.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_type.name == "CUDA")
+        if total_us > 0:
+            return total_us / iters / 1e3
+        log(f"torch.profiler recorded no device time (profile "
+            f"{attempt + 1} of 3)")
+    raise SystemExit("torch.profiler recorded no device time")
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -535,6 +658,59 @@ def kernel_launches() -> dict:
             "vertical_counts": vertical_counts}
 
 
+T10 = {"n_txns": 100_000, "n_items": 1000, "avg_txn_len": 10, "seed": 2017,
+       "n_users": 10_000, "user_seed": 2018}
+
+
+def corpora() -> list:
+    """Phases 3 and 4's corpora: ``(name, directory, datagen arguments,
+    min support)``."""
+    return [("t10i4d100k", os.path.join(WORK, "in"), T10, MIN_SUPPORT),
+            ("kosarak", os.path.join(WORK, "kin"),
+             {key: KOSARAK[key] for key in (
+                 "n_txns", "n_items", "avg_txn_len", "seed", "n_users",
+                 "user_seed")}, KOSARAK["min_support"])]
+
+
+def ingest_digests(data) -> dict:
+    """A digest of each field of an ingest's CompressedData (arrays with
+    their dtype), for :func:`ingest_compare`."""
+    out = {}
+    for field in ("n_raw", "min_count", "freq_items", "item_to_rank"):
+        out[field] = hashlib.sha256(json.dumps(
+            getattr(data, field), sort_keys=True).encode()).hexdigest()
+    for field in ("item_counts", "basket_indices", "basket_offsets",
+                  "weights"):
+        a = getattr(data, field)
+        out[field] = f"{a.dtype}:{hashlib.sha256(a.tobytes()).hexdigest()}"
+    return out
+
+
+# The corpora, then the Python ingest of each (phase 4's compare), in a
+# child started first (:class:`Child`): it needs no card, so it runs
+# while this process builds the kernels.  One reply when both corpora
+# are written, one with the Python ingests' walls and digests.
+PREP = """
+import json, os, time
+import chip_smoke as cs
+from fastapriori_tpu_torch.preprocess import preprocess_file
+walls = {}
+for name, in_dir, spec, _ in cs.corpora():
+    t0 = time.perf_counter()
+    cs.write_corpus(in_dir, **spec)
+    walls[name] = time.perf_counter() - t0
+print("REPLY " + json.dumps(walls), flush=True)
+out = {}
+for name, in_dir, _, min_support in cs.corpora():
+    t0 = time.perf_counter()
+    data = preprocess_file(os.path.join(in_dir, "D.dat"), float(min_support),
+                           native=False)
+    out[name] = {"python_s": time.perf_counter() - t0,
+                 "digests": cs.ingest_digests(data)}
+print("REPLY " + json.dumps(out), flush=True)
+"""
+
+
 def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
                  seed: int, n_users: int, user_seed: int) -> None:
     from fastapriori_tpu_torch.utils.datagen import (
@@ -559,22 +735,30 @@ CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE")
 
 
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
-             digests: dict, env=None, extra_args=()) -> tuple:
-    """Phases 3 and 4: the port's CLI in-process, with the variables of
-    :data:`CLI_ENV` set as ``env`` says (the rest unset) for this call
-    only and ``extra_args`` after the zero-flag arguments; checks both
-    output digests and that the run took the pipelined capture ingest on
-    more than one thread, and returns the kernels' launch counts on this
-    run with the run's metrics fields."""
+             digests: dict, env=None, extra_args=(), ingest: bool = True,
+             injected=None) -> tuple:
+    """Phases 3, 4 and 9: the port's CLI in-process, with the variables
+    of :data:`CLI_ENV` set as ``env`` says (the rest unset) for this call
+    only and ``extra_args`` after the zero-flag arguments; checks the
+    output digests and, with ``ingest``, that the run took the pipelined
+    capture ingest on more than one thread, and returns the kernels'
+    launch counts on this run with the run's metrics fields.  The
+    degradation ledger is emptied before the run and must be empty after
+    it, unless ``injected = (site, spec)`` arms that failpoint for the
+    run: then it must hold exactly one ``retry`` at that site."""
     import torch
 
     from fastapriori_tpu_torch import cli
+    from fastapriori_tpu_torch.reliability import failpoints, ledger
 
     os.makedirs(out_dir, exist_ok=True)
     kernels = kernel_launches()
     captured = io.StringIO()
     saved = {key: os.environ.pop(key, None) for key in CLI_ENV}
     os.environ.update(env or {})
+    ledger.reset()
+    if injected is not None:
+        failpoints.arm(*injected)
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -586,6 +770,7 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     finally:
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in kernels.items()}
+        failpoints.disarm_all()
         for key, value in saved.items():
             os.environ.pop(key, None)
             if value is not None:
@@ -593,11 +778,26 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
         sys.stderr.write(captured.getvalue())
     if rc != 0:
         raise SystemExit(f"{name}: CLI exited {rc}")
+    summary = ledger.summary()
+    if injected is None and summary:
+        raise SystemExit(f"{name}: a clean run degraded: {summary} "
+                         f"{ledger.snapshot()}")
+    if injected is not None:
+        sites = [e.get("site") for e in ledger.snapshot()]
+        if summary != {"retry": 1} or sites != [injected[0]]:
+            raise SystemExit(f"{name}: expected one retry at {injected[0]}, "
+                             f"the ledger holds {ledger.snapshot()}")
+        log(f"{name}: ledger {summary} at {sites}")
     log(f"{name}: CLI wall {wall:.3f} s, launches {launches}, peak device "
         f"memory {torch.cuda.max_memory_allocated()} bytes")
     walls, fields = phase_metrics(captured.getvalue())
     log(f"{name} phases (wall ms): " + json.dumps(walls))
     log(f"{name} phase metrics: " + json.dumps(fields))
+    fields["cli_wall_s"] = wall
+    fields["walls"] = walls
+    if not ingest:
+        check_digests(name, out_dir, digests)
+        return launches, fields
     pre = fields.get("preprocess", {})
     if pre.get("native") is not True:
         raise SystemExit(f"{name}: the CLI did not ingest natively "
@@ -618,47 +818,43 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
             or torch.backends.cuda.matmul.allow_tf32):
         raise SystemExit(f"{name}: float32 matmuls may run as TF32; the "
                          f"pair program's counts would not be exact")
+    check_digests(name, out_dir, digests)
+    return launches, fields
+
+
+def check_digests(name: str, out_dir: str, digests: dict) -> None:
     for out_name, want in digests.items():
         got = sha256(os.path.join(out_dir, out_name))
         if got != want:
             raise SystemExit(f"{name}: {out_name} sha256 {got} != the JAX "
                              f"package's {want}")
         log(f"{name}: {out_name} sha256 matches the JAX package ({got})")
-    return launches, fields
 
 
-def ingest_compare(name: str, in_dir: str, min_support: str) -> None:
-    """The corpus once through the Python ingest and once through the
-    native one, in-process: every array of the two CompressedData must be
-    equal (dtypes included)."""
-    import numpy as np
-
+def ingest_compare(name: str, in_dir: str, min_support: str,
+                   python: dict) -> None:
+    """The corpus through the native ingest, in-process, against its
+    Python ingest in the prep child (``python``: its wall and
+    :func:`ingest_digests`): every field of the two CompressedData must
+    be equal (dtypes included)."""
     from fastapriori_tpu_torch.preprocess import (
         ingest_thread_count,
         preprocess_file,
     )
 
-    path = os.path.join(in_dir, "D.dat")
     t0 = time.perf_counter()
-    py = preprocess_file(path, float(min_support), native=False)
-    py_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    nat = preprocess_file(path, float(min_support), native=True)
+    nat = preprocess_file(os.path.join(in_dir, "D.dat"), float(min_support),
+                          native=True)
     nat_s = time.perf_counter() - t0
-    for field in ("n_raw", "min_count", "freq_items", "item_to_rank"):
-        if getattr(py, field) != getattr(nat, field):
+    got = ingest_digests(nat)
+    for field, want in python["digests"].items():
+        if got[field] != want:
             raise SystemExit(f"{name}: native ingest {field} differs from "
                              f"the Python ingest's")
-    for field in ("item_counts", "basket_indices", "basket_offsets",
-                  "weights"):
-        a, b = getattr(py, field), getattr(nat, field)
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise SystemExit(f"{name}: native ingest {field} differs from "
-                             f"the Python ingest's")
-    log(f"ingest {name}: python {py_s:.3f} s, native {nat_s:.3f} s, equal "
-        f"arrays ({nat.total_count} baskets, {nat.num_items} items); the "
-        f"native scan runs on 1 thread, the arena build on "
-        f"{ingest_thread_count(None)}")
+    log(f"ingest {name}: python {python['python_s']:.3f} s (prep child), "
+        f"native {nat_s:.3f} s, equal arrays ({nat.total_count} baskets, "
+        f"{nat.num_items} items); the native scan runs on 1 thread, the "
+        f"arena build on {ingest_thread_count(None)}")
 
 
 def expected_launches(fields: dict) -> dict:
@@ -668,7 +864,7 @@ def expected_launches(fields: dict) -> dict:
     first-match scan."""
     level = sum(v.get("launches", 0) for k, v in fields.items()
                 if k.startswith("level k="))
-    vertical = fields.get("level k=2", {}).get("engine") == "vertical"
+    vertical = "arena_build" in fields
     fm = fields.get("first_match", {})
     return {"level_counts": 0 if vertical else level,
             "vertical_counts": level if vertical else 0,
@@ -867,6 +1063,7 @@ import json, sys, time, torch
 from chip_smoke import levels_digest
 from fastapriori_tpu_torch.config import MinerConfig
 from fastapriori_tpu_torch.models.apriori import FastApriori
+sys.argv[1:] = json.loads(sys.stdin.readline())
 t0 = time.perf_counter()
 torch.zeros(1, device="cuda")
 torch.cuda.synchronize()
@@ -897,14 +1094,12 @@ def cold_mines(in_dir: str, min_support: str, ref_levels) -> dict:
     want = levels_digest(ref_levels)
     walls = {}
     for name, knobs in ENGINES_COMPARED:
-        out = subprocess.run(
-            [sys.executable, "-c", COLD_MINE, os.path.join(in_dir, "D.dat"),
-             min_support, json.dumps(knobs)],
-            cwd=ROOT, capture_output=True, text=True, timeout=300)
-        if out.returncode != 0:
-            raise SystemExit(f"cold mine {name}: exit {out.returncode}: "
-                             f"{out.stderr[-2000:]}")
-        got = json.loads(out.stdout.strip().splitlines()[-1])
+        rc, stdout, stderr = CHILDREN.pop(f"cold mine {name}").run(
+            [os.path.join(in_dir, "D.dat"), min_support, json.dumps(knobs)])
+        if rc != 0:
+            raise SystemExit(f"cold mine {name}: exit {rc}: "
+                             f"{stderr[-2000:]}")
+        got = json.loads(stdout.strip().splitlines()[-1])
         if got["levels_sha256"] != want:
             raise SystemExit(f"cold mine {name}: levels differ from the "
                              f"level engine's")
@@ -1399,6 +1594,7 @@ from fastapriori_tpu_torch.models.apriori import FastApriori
 from fastapriori_tpu_torch.models.recommender import AssociationRules
 from fastapriori_tpu_torch.rules.gen import (gen_rule_arrays_levels,
                                              sort_rule_arrays)
+sys.argv[1:] = json.loads(sys.stdin.readline())
 cfg = MinerConfig(min_support=float(sys.argv[2]), **json.loads(sys.argv[3]))
 levels, data = FastApriori(config=cfg).run_file_raw(sys.argv[1])
 torch.cuda.synchronize()
@@ -1422,14 +1618,11 @@ def cold_rules(name: str, in_dir: str, min_support: str, knobs: dict,
                n_rules: int) -> dict:
     """:data:`COLD_RULES` on a corpus in a fresh process; both engines
     must give the ``n_rules`` rules of the in-process run."""
-    out = subprocess.run(
-        [sys.executable, "-c", COLD_RULES, os.path.join(in_dir, "D.dat"),
-         min_support, json.dumps(knobs)],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        raise SystemExit(f"cold rules {name}: exit {out.returncode}: "
-                         f"{out.stderr[-2000:]}")
-    got = json.loads(out.stdout.strip().splitlines()[-1])
+    rc, stdout, stderr = CHILDREN.pop(f"cold rules {name}").run(
+        [os.path.join(in_dir, "D.dat"), min_support, json.dumps(knobs)])
+    if rc != 0:
+        raise SystemExit(f"cold rules {name}: exit {rc}: {stderr[-2000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
     if got["rules"] != n_rules or got["host_rules"] != n_rules:
         raise SystemExit(f"cold rules {name}: {got} rules, in-process "
                          f"{n_rules}")
@@ -1614,6 +1807,313 @@ def rule_compare(name: str, in_dir: str, min_support: str, knobs: dict,
                                "table_warm_ms": warm_table}}
 
 
+def checkpoint_ks(fields: dict) -> list:
+    """The levels a run's ``checkpoint`` events wrote, in order."""
+    return [int(key.split("k=")[1].split()[0]) for key in fields
+            if key.startswith("checkpoint k=")]
+
+
+# Phase 9's killed runs, all in one child process started ahead of them
+# (:class:`Child`): per request the port's CLI with the request's
+# environment (null unsets a variable), ``FA_FAILPOINTS`` included, then
+# one ``REPLY`` line.
+KILL_WORKER = """
+import contextlib, io, json, os, sys, time
+import torch
+from fastapriori_tpu_torch import cli
+from fastapriori_tpu_torch.reliability import failpoints
+torch.zeros(1, device="cuda")
+for line in sys.stdin:
+    req = json.loads(line)
+    saved = dict(os.environ)
+    for key, value in req["env"].items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+    failpoints.reload_from_env()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(err):
+        rc = cli.main(req["argv"])
+    wall = time.perf_counter() - t0
+    failpoints.disarm_all()
+    os.environ.clear()
+    os.environ.update(saved)
+    print("REPLY " + json.dumps({"rc": rc, "wall_s": wall,
+                                 "stderr": err.getvalue()[-4000:]}),
+          flush=True)
+"""
+
+
+def kill_child(name: str, in_dir: str, out_dir: str, min_support: str,
+               site: str, env=None, extra_args=()) -> float:
+    """The CLI in the kill worker's child process with
+    ``FA_FAILPOINTS=<site>:abort`` (and ``env``; the other variables of
+    :data:`CLI_ENV` unset): it must exit non-zero, name the site and
+    write no ``freqItemset``.  Returns its wall in seconds."""
+    os.makedirs(out_dir, exist_ok=True)
+    req_env = {key: None for key in CLI_ENV}
+    req_env.update(env or {})
+    req_env["FA_FAILPOINTS"] = f"{site}:abort"
+    res = CHILDREN["kill worker"].request({
+        "env": req_env,
+        "argv": [in_dir + "/", out_dir + "/", "--min-support", min_support,
+                 "--checkpoint-every-level", *extra_args]})
+    if res["rc"] == 0 or site not in res["stderr"]:
+        raise SystemExit(f"{name}: the run killed at {site} exited "
+                         f"{res['rc']}: {res['stderr'][-2000:]}")
+    if os.path.exists(os.path.join(out_dir, "freqItemset")):
+        raise SystemExit(f"{name}: the killed run wrote freqItemset")
+    log(f"{name}: killed at {site} in the kill worker's child process, "
+        f"exit {res['rc']}, {res['wall_s']:.3f} s: "
+        f"{res['stderr'].strip()[-200:]}")
+    return res["wall_s"]
+
+
+def require_checkpoint(name: str, out_dir: str, clean_dir: str,
+                       k_kill: int) -> None:
+    """The killed run's checkpoint passes ``validate_checkpoint`` and
+    holds exactly the clean run's levels 2..k_kill."""
+    import numpy as np
+
+    from fastapriori_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        validate_checkpoint,
+    )
+
+    validate_checkpoint(out_dir + "/")
+    got, _ = load_checkpoint(out_dir + "/")
+    want, _ = load_checkpoint(clean_dir + "/")
+    ks = [m.shape[1] for m, _ in got]
+    if ks != list(range(2, k_kill + 1)):
+        raise SystemExit(f"{name}: the checkpoint holds levels {ks}, not "
+                         f"2..{k_kill}")
+    for (gm, gc), (wm, wc) in zip(got, want):
+        if not (np.array_equal(gm, wm) and np.array_equal(gc, wc)):
+            raise SystemExit(f"{name}: checkpoint level {gm.shape[1]} "
+                             f"differs from the clean run's")
+    log(f"{name}: checkpoint valid, levels 2..{k_kill} equal the clean "
+        f"run's ({sum(m.shape[0] for m, _ in got)} itemsets)")
+
+
+def require_resumed(name: str, fields: dict, launches: dict,
+                    k_kill: int, ran=("first_match",)) -> None:
+    """The resumed run restarted after the deepest checkpointed level,
+    counted only the levels after it, and launched each kernel of
+    ``ran``."""
+    resume = fields.get("level_resume", {})
+    counted = sorted(int(k.split("k=")[1].split()[0]) for k in fields
+                     if k.startswith("level k="))
+    if resume.get("from_k") != k_kill + 1 or any(k <= k_kill
+                                                 for k in counted):
+        raise SystemExit(f"{name}: level_resume {resume}, levels counted "
+                         f"{counted}, after a kill at level {k_kill}")
+    require_launches(name, launches, fields, ran)
+    log(f"{name}: level_resume from k = {k_kill + 1}, levels counted "
+        f"{counted}, launches {launches}, tail_fuse "
+        + json.dumps([v for k, v in fields.items()
+                      if k.startswith("tail_fuse")]))
+
+
+def kill_and_resume(name: str, in_dir: str, min_support: str,
+                    digests: dict, env=None, extra_args=(),
+                    resume_checkpointed: bool = False,
+                    resumed_ran=("first_match",),
+                    api_resume: bool = False) -> dict:
+    """Phase 9 (a)-(c): a clean ``--checkpoint-every-level`` run (the
+    levels its checkpoints wrote), the same run killed in a child process
+    at a middle one of them, the checkpoint checked, and ``--resume-from``
+    in-process (with ``--checkpoint-every-level`` again when
+    ``resume_checkpointed``): the JAX digests, ``level_resume`` after the
+    killed level, launches only for the levels after it, each kernel of
+    ``resumed_ran`` at least once.  With ``api_resume`` the checkpoint
+    also seeds an API mine with the tail fold off (:func:`api_run`,
+    ``tail_fuse_rows=0``), which must count every remaining level with
+    K1: the CLI's resume may fold them all.  Returns the walls."""
+    clean_dir = os.path.join(WORK, name.replace(" ", "_") + "_clean")
+    kill_dir = os.path.join(WORK, name.replace(" ", "_") + "_kill")
+    for d in (clean_dir, kill_dir, kill_dir + "_api"):
+        shutil.rmtree(d, ignore_errors=True)
+    args = ("--checkpoint-every-level", *extra_args)
+    clean_launches, clean = cli_path(f"{name} checkpointed", in_dir,
+                                     clean_dir, min_support, digests,
+                                     env=env, extra_args=args)
+    require_launches(f"{name} checkpointed", clean_launches, clean,
+                     ran=("first_match",))
+    ks = checkpoint_ks(clean)
+    # A level the loop counted (past the pair program's 2 and 3) with
+    # levels left after it.
+    resumable = ([k for k in ks if 3 < k < ks[-1]]
+                 or [k for k in ks if k < ks[-1]])
+    k_kill = resumable[len(resumable) // 2]
+    log(f"{name}: the clean run checkpointed levels {ks}; kill at "
+        f"level.{k_kill}")
+    kill_wall = kill_child(name, in_dir, kill_dir, min_support,
+                           f"level.{k_kill}", env=env, extra_args=extra_args)
+    require_checkpoint(name, kill_dir, clean_dir, k_kill)
+    out = {}
+    if api_resume:
+        api_name = f"{name} resumed, tail fold off"
+        launches, fields, _ = api_run(
+            api_name, in_dir, kill_dir + "_api", min_support,
+            ("level_counts",), resume_from=kill_dir, tail_fuse_rows=0)
+        require_resumed(api_name, fields, launches, k_kill,
+                        ran=("level_counts",))
+        out["api_resumed_launches"] = launches
+    launches, fields = cli_path(
+        f"{name} resumed", in_dir, kill_dir, min_support, digests, env=env,
+        extra_args=(*(args if resume_checkpointed else extra_args),
+                    "--resume-from", kill_dir + "/"))
+    require_resumed(f"{name} resumed", fields, launches, k_kill,
+                    ran=resumed_ran)
+    if resume_checkpointed and not any(
+            v.get("checkpoint_segment") for k, v in fields.items()
+            if k.startswith("tail_fuse")):
+        raise SystemExit(f"{name} resumed: no checkpoint segment ran")
+    return {
+        "checkpoint_ms": {k: v for k, v in clean["walls"].items()
+                          if k.startswith("checkpoint")},
+        "checkpointed_cli_s": clean["cli_wall_s"],
+        "killed_child_s": kill_wall, "killed_at": k_kill,
+        "resumed_cli_s": fields["cli_wall_s"],
+        "resumed_launches": launches, **out,
+    }
+
+
+def api_run(name: str, in_dir: str, out_dir: str, min_support: str,
+            ran, resume_from=None, **knobs) -> tuple:
+    """Phase 9 (a) and (e): T10 through the API on the level engine with
+    ``knobs``, seeded from the checkpoint under ``resume_from`` when
+    given, written by the CLI's writers: the JAX digests, an empty
+    ledger, and the mine's kernel launches (the counts set to 0 just
+    before it and read just after) as its own level events count them,
+    each kernel of ``ran`` at least once.  Returns ``(launches, fields,
+    walls)``."""
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.io.checkpoint import load_checkpoint
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.io.writer import (
+        save_freq_itemsets_levels,
+        save_recommends,
+    )
+    from fastapriori_tpu_torch.models.apriori import FastApriori
+    from fastapriori_tpu_torch.models.recommender import AssociationRules
+    from fastapriori_tpu_torch.reliability import ledger
+
+    ledger.reset()
+    cfg = MinerConfig(min_support=float(min_support), retain_csr=False,
+                      engine="level", **knobs)
+    miner = FastApriori(config=cfg)
+    if resume_from is not None:
+        miner.set_resume_levels(*load_checkpoint(resume_from + "/"),
+                                label=resume_from)
+    kernels = kernel_launches()
+    for fn in kernels.values():
+        fn.launches = 0
+    levels, data = miner.run_file_raw(os.path.join(in_dir, "D.dat"))
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    os.makedirs(out_dir, exist_ok=True)
+    save_freq_itemsets_levels(out_dir + "/", levels, data.freq_items)
+    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
+                           data.item_counts, config=cfg)
+    save_recommends(out_dir + "/", rec.run(read_dat(
+        os.path.join(in_dir, "U.dat"))))
+    check_digests(name, out_dir,
+                  {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256})
+    if ledger.summary():
+        raise SystemExit(f"{name}: degraded {ledger.snapshot()}")
+    fields = record_fields(miner.metrics.records)
+    walls = phase_metrics("\n".join(json.dumps(r) for r in
+                                    miner.metrics.records))[0]
+    require_launches(name, launches, fields, ran)
+    return launches, fields, walls
+
+
+def budget_run(in_dir: str, out_dir: str, min_support: str,
+               budget: int) -> dict:
+    """Phase 9 (e): :func:`api_run` with ``pending_fetch_budget_bytes =
+    budget`` (the level engine, which auto picks on T10, phase 3):
+    ``counts_drain`` events and the JAX digests.  Returns the drains'
+    and the resolve's walls."""
+    _, fields, walls = api_run("budget run", in_dir, out_dir, min_support,
+                               ("level_counts",),
+                               pending_fetch_budget_bytes=budget)
+    drains = {k: v for k, v in walls.items() if k.startswith("counts_")}
+    if not any(k.startswith("counts_drain") for k in fields):
+        raise SystemExit(f"budget run: no counts_drain at {budget} bytes")
+    log(f"budget run ({budget} bytes): drains and resolve (wall ms) "
+        f"{json.dumps(drains)}; " + json.dumps(
+            {k: v for k, v in fields.items() if k.startswith("counts_")}))
+    return drains
+
+
+def reliability_phases(in_dir: str, k_in: str, main_fields: dict,
+                       vert_fields: dict) -> dict:
+    """Phase 9: kill-and-resume on each layout and on the fused engine's
+    checkpoint segments, the phase-1 resume, the deferred counts' resolve
+    and drains, and one absorbed transient.  Returns the walls."""
+    digests = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
+    kdigests = {"freqItemset": KOSARAK["freq_sha256"],
+                "recommends": KOSARAK["rec_sha256"]}
+    # (e) The zero-flag runs resolved their deferred counts in one
+    # dispatch after the loop.
+    for name, fields in (("main path", main_fields),
+                         ("vertical path", vert_fields)):
+        res = fields.get("counts_resolve", {})
+        if res.get("dispatches") != 1:
+            raise SystemExit(f"{name}: counts_resolve {res}, expected one "
+                             f"dispatch")
+        log(f"{name}: counts_resolve {json.dumps(res)}, wall "
+            f"{fields['walls'].get('counts_resolve')} ms")
+    out = {
+        "main_counts_resolve_ms": main_fields["walls"].get("counts_resolve"),
+        "vertical_counts_resolve_ms":
+            vert_fields["walls"].get("counts_resolve"),
+        "main_cli_s": main_fields["cli_wall_s"],
+        "vertical_cli_s": vert_fields["cli_wall_s"],
+    }
+    # (a) T10, zero flags, K1; (b) kosarak, vertical, K3; (c) the fused
+    # engine's checkpoint segments.
+    out["t10"] = kill_and_resume("t10 kill", in_dir, MIN_SUPPORT, digests,
+                                 api_resume=True)
+    out["kosarak_vertical"] = kill_and_resume(
+        "kosarak vertical kill", k_in, KOSARAK["min_support"], kdigests,
+        env={"FA_MINE_ENGINE": "vertical"},
+        resumed_ran=("vertical_counts", "first_match"))
+    out["t10_fused_segments"] = kill_and_resume(
+        "t10 fused segments kill", in_dir, MIN_SUPPORT, digests,
+        extra_args=("--engine", "fused", "--checkpoint-cadence", "2"),
+        resume_checkpointed=True)
+    # (d) --save-counts, then the recommend phase alone from phase 1.
+    p1 = os.path.join(WORK, "phase1")
+    cli_path("save counts", in_dir, p1, MIN_SUPPORT, digests,
+             extra_args=("--save-counts",))
+    rec_dir = os.path.join(WORK, "phase1_rec")
+    launches, fields = cli_path(
+        "phase-1 resume", in_dir, rec_dir, MIN_SUPPORT,
+        {"recommends": REC_SHA256}, ingest=False,
+        extra_args=("--resume-from", p1 + "/"))
+    if (launches["first_match"] != 1 or launches["level_counts"]
+            or launches["vertical_counts"]
+            or any(k.startswith(("preprocess", "level k=")) for k in fields)):
+        raise SystemExit(f"phase-1 resume: launches {launches}, events "
+                         f"{sorted(fields)}: expected K2 once and no mining")
+    out["phase1_resume_cli_s"] = fields["cli_wall_s"]
+    # (e) A small pending budget: drains, the same digests.
+    out["budget_drains_ms"] = budget_run(in_dir, os.path.join(WORK, "budget"),
+                                         MIN_SUPPORT, 1)
+    # (f) One injected transient, absorbed.
+    launches, fields = cli_path(
+        "injected transient", in_dir, os.path.join(WORK, "out_retry"),
+        MIN_SUPPORT, digests, injected=("fetch.level_bits", "oom*1"))
+    require_launches("injected transient", launches, fields,
+                     ran=("level_counts", "first_match"))
+    out["injected_cli_s"] = fields["cli_wall_s"]
+    log("reliability summary: " + json.dumps(out))
+    return out
+
+
 def require_replayed(name: str, measured: dict, counted: int) -> None:
     """Phase 5's replay of a path must launch a kernel as often as the
     counted CLI run did, or its per-launch times are not the path's."""
@@ -1623,16 +2123,54 @@ def require_replayed(name: str, measured: dict, counted: int) -> None:
                          f"counted run {counted}")
 
 
+# The children started at once (:func:`start_children`), by name.
+CHILDREN: dict = {}
+
+
+def start_children() -> None:
+    """Start every child process of the run before anything else: the
+    prep child (:data:`PREP`), the fresh processes of the cold
+    measurements (phases 6 and 8), which touch CUDA only once handed
+    their arguments, and phase 9's kill worker."""
+    CHILDREN["prep"] = Child("prep", PREP)
+    for name, _ in ENGINES_COMPARED:
+        CHILDREN[f"cold mine {name}"] = Child(f"cold mine {name}",
+                                              COLD_MINE)
+    for name in ("t10i4d100k", "kosarak_vertical",
+                 f"t10i4d100k_{BIG_MIN_SUPPORT}"):
+        CHILDREN[f"cold rules {name}"] = Child(f"cold rules {name}",
+                                               COLD_RULES)
+    CHILDREN["kill worker"] = Child("kill worker", KILL_WORKER)
+
+
 def main() -> int:
+    try:
+        # Where nvidia-smi says a card may be there, the children start
+        # first: their start-up then overlaps this process's own import
+        # of torch and leaves the build alone.
+        if shutil.which("nvidia-smi"):
+            start_children()
+        import torch
+
+        t_start = time.perf_counter()
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                  "is false)", file=sys.stderr)
+            return 1
+        return run(t_start)
+    finally:
+        Child.stop_all()
+
+
+def run(t_start: float) -> int:
+    """Phases 1-9 (the module docstring); returns 0 when all passed."""
     import torch
 
-    t_start = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false)", file=sys.stderr)
-        return 1
     from fastapriori_tpu_torch.ops import build
 
+    if not CHILDREN:
+        start_children()
+    prep = CHILDREN["prep"]
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
@@ -1645,9 +2183,10 @@ def main() -> int:
     quick_checks(device)
     log("quick checks: the three kernels equal their plain versions")
 
-    in_dir, out_dir = os.path.join(WORK, "in"), os.path.join(WORK, "out")
-    write_corpus(in_dir, n_txns=100_000, n_items=1000, avg_txn_len=10,
-                 seed=2017, n_users=10_000, user_seed=2018)
+    (_, in_dir, _, _), (_, k_in, _, _) = corpora()
+    out_dir = os.path.join(WORK, "out")
+    log(f"datagen in the prep child (s): {json.dumps(prep.reply())}")
+    python_ingest = prep.reply()
     digests = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
     main_launches, main_fields = cli_path(
         "main path", in_dir, out_dir, MIN_SUPPORT, digests)
@@ -1669,9 +2208,7 @@ def main() -> int:
     require_fused_path(fused_fields)
     require_rule_engine("fused path", fused_fields, device=False)
 
-    k_in, k_out = os.path.join(WORK, "kin"), os.path.join(WORK, "kout")
-    write_corpus(k_in, **{key: KOSARAK[key] for key in (
-        "n_txns", "n_items", "avg_txn_len", "seed", "n_users", "user_seed")})
+    k_out = os.path.join(WORK, "kout")
     vert_launches, vert_fields = cli_path(
         "vertical path", k_in, k_out, KOSARAK["min_support"],
         {"freqItemset": KOSARAK["freq_sha256"],
@@ -1690,8 +2227,9 @@ def main() -> int:
                      vrules_fields, ran=("vertical_counts", "first_match"))
     require_rule_engine("vertical device rules path", vrules_fields,
                         device=True)
-    ingest_compare("t10i4d100k", in_dir, MIN_SUPPORT)
-    ingest_compare("kosarak", k_in, KOSARAK["min_support"])
+    reliability = reliability_phases(in_dir, k_in, main_fields, vert_fields)
+    for name, path, _, min_support in corpora():
+        ingest_compare(name, path, min_support, python_ingest[name])
 
     capture_compare(in_dir, device, MIN_SUPPORT)
 
@@ -1770,7 +2308,10 @@ def main() -> int:
     log(f"fused compare summary: {json.dumps(compared)}")
     log("rule crossover summary: " + json.dumps(
         {path: m["rule_crossover"] for path, m in built.items()}))
-    log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s")
+    log("reliability walls: " + json.dumps(reliability))
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
+        f"torch's import, {time.perf_counter() - T_START:.3f} s from the "
+        f"script's start")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ reference C1, Main.scala:15-41).
 
     python -m fastapriori_tpu_torch <input-prefix> <output-prefix> [tmp] \\
         [--min-support S] [--engine auto|fused|level] [--metrics] \\
-        [--platform default|cpu]
+        [--platform default|cpu] [--save-counts] [--resume-from PREFIX] \\
+        [--checkpoint-every-level] [--checkpoint-cadence N]
 
 - ``input`` prefix: reads ``<input>D.dat`` and ``<input>U.dat`` (path
   concatenation, Utils.scala:21-23 — a trailing slash matters);
@@ -25,9 +26,20 @@ reference C1, Main.scala:15-41).
   environment variable ``FA_MINE_ENGINE`` (``auto``, ``bitmap`` or
   ``vertical``; strictly parsed) picks it, ``auto`` by default; nor has
   the rule engine: ``FA_RULE_ENGINE`` (``auto``, ``host`` or ``device``;
-  strictly parsed; rules/gen.py) overrides ``auto``.
+  strictly parsed; rules/gen.py) overrides ``auto``;
+- ``--save-counts`` also writes the phase-1 artifacts ``<output>freqItems``
+  (itemsets with ``[count]`` suffixes), ``FreqItems`` and
+  ``ItemsToRank``; ``--resume-from PREFIX`` with those artifacts skips
+  mining and runs the recommend phase only (a torn set falls back to a
+  checkpoint under the same prefix), or with only the
+  ``checkpoint.npz`` of a ``--checkpoint-every-level`` run re-ingests
+  D.dat and restarts the level loop after the deepest saved level;
+  ``--checkpoint-cadence`` is the levels per device segment of
+  ``--engine fused`` under ``--checkpoint-every-level``.  Prefixes with
+  a scheme (``gs://`` ...) need fsspec.
 
-User-correctable failures print one line and exit 2.
+User-correctable failures print one line and exit 2; an injected crash
+(``FA_FAILPOINTS=<site>:abort``) prints the site and exits 1.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from typing import List, Optional
 
 from fastapriori_tpu_torch.config import DEFAULT_MIN_SUPPORT, MinerConfig
 from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.reliability.failpoints import InjectedAbort
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,6 +86,30 @@ def build_parser() -> argparse.ArgumentParser:
                    default="default",
                    help="default = the CUDA device; cpu = plain PyTorch "
                    "versions of every kernel on the CPU")
+    p.add_argument("--save-counts", action="store_true",
+                   help="also write <output>freqItems with [count] suffixes "
+                   "(the reference's unused saveFreqItemsetWithCount, "
+                   "Utils.scala:51-63) — the resume artifact")
+    p.add_argument("--resume-from", default=None,
+                   help="prefix holding previous run artifacts: with a "
+                   "complete freqItems table, skips mining and runs "
+                   "recommendation only (reference Utils.getAll, "
+                   "Utils.scala:65-81); with only a mid-mine checkpoint.npz "
+                   "(from --checkpoint-every-level), restarts mining from "
+                   "the deepest completed level.  Artifacts are validated "
+                   "against the run's MANIFEST.json when present")
+    p.add_argument("--checkpoint-every-level", action="store_true",
+                   help="crash-safe mining: atomically rewrite "
+                   "<output>checkpoint.npz after every completed Apriori "
+                   "level so an interrupted mine resumes mid-lattice via "
+                   "--resume-from (costs eager per-level count fetches; "
+                   "with --engine fused the lattice mines in resumable "
+                   "device segments instead of skipping the engine)")
+    p.add_argument("--checkpoint-cadence", type=int, default=1,
+                   help="with --engine fused and --checkpoint-every-level: "
+                   "levels mined per device segment between checkpoint "
+                   "commits (default 1 = a durable checkpoint after every "
+                   "level, matching the level engine)")
     return p
 
 
@@ -85,14 +122,51 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     except FileNotFoundError as e:
         missing = e.filename if e.filename else str(e)
-        print(f"error: file {missing!r} not found — the input prefix must "
-              "point at D.dat and U.dat (prefix + 'D.dat', trailing slash "
-              "matters, as with the reference)", file=sys.stderr)
+        if str(missing).endswith(("D.dat", "U.dat")):
+            print(f"error: file {missing!r} not found — the input prefix "
+                  "must point at D.dat and U.dat (prefix + 'D.dat', "
+                  "trailing slash matters, as with the reference)",
+                  file=sys.stderr)
+        else:
+            print(f"error: file {missing!r} not found", file=sys.stderr)
         return 2
+    except InjectedAbort as e:
+        # A stand-in for a crash: nothing after the failpoint ran.
+        print(f"error: aborted: {e}", file=sys.stderr)
+        return 1
+
+
+def _load_resume(prefix: str):
+    """The ``--resume-from`` dispatch: ``("phase1", (freq_itemsets,
+    item_to_rank, freq_items))`` when the phase-1 artifacts load,
+    ``("checkpoint", (levels, meta))`` when only a checkpoint does (also
+    for a torn phase-1 set beside a checkpoint); InputError when neither
+    is there."""
+    from fastapriori_tpu_torch.io.checkpoint import (
+        checkpoint_available,
+        load_checkpoint,
+    )
+    from fastapriori_tpu_torch.io.resume import load_phase1, phase1_available
+
+    if phase1_available(prefix):
+        try:
+            return "phase1", load_phase1(prefix)
+        except InputError:
+            if not checkpoint_available(prefix):
+                raise
+            return "checkpoint", load_checkpoint(prefix)
+    if checkpoint_available(prefix):
+        return "checkpoint", load_checkpoint(prefix)
+    raise InputError(
+        f"--resume-from {prefix!r}: found neither the phase-1 artifacts a "
+        "--save-counts run writes (freqItems, FreqItems, ItemsToRank) nor "
+        "the mid-mine checkpoint.npz a --checkpoint-every-level run writes"
+    )
 
 
 def _run(args) -> int:
     from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.io.resume import phase1_levels, save_phase1_aux
     from fastapriori_tpu_torch.io.writer import (
         save_freq_itemsets_levels,
         save_recommends,
@@ -108,23 +182,43 @@ def _run(args) -> int:
         # Nothing after mining reads the basket CSR: the pipelined ingest
         # keeps none (the JAX CLI's setting).
         retain_csr=False,
+        checkpoint_prefix=(args.output if args.checkpoint_every_level
+                           else None),
+        checkpoint_every_levels=max(args.checkpoint_cadence, 1),
     )
     device = "cpu" if args.platform == "cpu" else "cuda"
     miner = FastApriori(config=config, device=device)
     u_lines = read_dat(args.input + "U.dat")
 
     t1 = time.perf_counter()
-    levels, data = miner.run_file_raw(args.input + "D.dat")
-    manifest: dict = {}
-    save_freq_itemsets_levels(args.output, levels, data.freq_items,
-                              manifest=manifest)
-    write_manifest(args.output, manifest)
+    kind, resumed = (_load_resume(args.resume_from) if args.resume_from
+                     else (None, None))
+    if kind == "phase1":
+        # The recommend phase alone, from the phase-1 artifacts.
+        freq_itemsets, item_to_rank, freq_items = resumed
+        levels, item_counts = phase1_levels(freq_itemsets, len(freq_items))
+    else:
+        if kind == "checkpoint":
+            ck_levels, ck_meta = resumed
+            miner.set_resume_levels(ck_levels, ck_meta,
+                                    label=args.resume_from)
+        levels, data = miner.run_file_raw(args.input + "D.dat")
+        freq_items, item_to_rank = data.freq_items, data.item_to_rank
+        item_counts = data.item_counts
+        manifest: dict = {}
+        save_freq_itemsets_levels(
+            args.output, levels, freq_items, manifest=manifest,
+            item_counts=item_counts, with_counts_path=args.save_counts)
+        if args.save_counts:
+            save_phase1_aux(args.output, freq_items, item_to_rank,
+                            manifest=manifest)
+        write_manifest(args.output, manifest)
     print("==== Total time for get freqItemsets "
           f"{int((time.perf_counter() - t1) * 1e3)}", file=sys.stderr)
 
     t2 = time.perf_counter()
     recommender = AssociationRules(
-        data.freq_items, data.item_to_rank, levels, data.item_counts,
+        freq_items, item_to_rank, levels, item_counts,
         config=config, device=device,
     )
     recommends = recommender.run(u_lines)

@@ -53,6 +53,12 @@ class MinerConfig:
     # grown budgets; 0 rows turns the fold off.
     pair_l3_rows: int = 1 << 13
     pair_l3_cap: int = 1 << 14
+    # Deferred survivor counts (models/apriori.py ``_level_loop``): each
+    # level's per-candidate count tensors stay on the device for the one
+    # gather after the loop; once their bytes exceed this budget the loop
+    # drains them early (one gather compacts the survivors and frees the
+    # tensors, its fetch is read after the loop).
+    pending_fetch_budget_bytes: int = 256 << 20
     # Recommender: rules per chunk of the padded rule table, and basket
     # rows per first-match micro-batch (pow2-bucketed, floor 32).
     rule_chunk: int = 1 << 13
@@ -135,5 +141,18 @@ class MinerConfig:
     # device engine: the JAX package's floor, kept until H100 runs set
     # the port's own (PERF.md, "rule crossover").
     rule_device_min_rules: int = 1 << 21
+    # Per-level checkpoints (io/checkpoint.py): after every completed
+    # level, atomically rewrite <checkpoint_prefix>checkpoint.npz and its
+    # manifest entry, so an interrupted mine resumes from the deepest
+    # completed level (FastApriori.set_resume_levels, the CLI's
+    # --resume-from).  A durable level carries its counts, so the level
+    # loop fetches them eagerly.  engine "auto"/"level" skip the fused
+    # whole-loop engine (it has no mid-points); engine "fused" mines in
+    # segments instead (below).  None disables (the default).
+    checkpoint_prefix: Optional[str] = None
+    # With engine="fused" and a checkpoint prefix: levels per device
+    # segment (the tail program with 2x row headroom and flat slot caps),
+    # a durable checkpoint after each.
+    checkpoint_every_levels: int = 1
     # Emit per-phase structured metrics as JSON lines on stderr.
     log_metrics: bool = False

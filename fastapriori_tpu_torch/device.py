@@ -6,10 +6,13 @@ overlapped pair program ``ingest_pair_miner``, its overflow
 memos (``fused_m_cap_hint``, ``fused_failed``, ``auto_level``) with the
 device's memory size for its memory model, and the survivor-count
 gather ``gather_level_counts_start`` / ``finish_level_counts`` with
-``PendingCounts`` and ``_pad_positions``; no mesh and no
-collectives — and of fastapriori_tpu/reliability/retry.py
-``fetch_async``, without its retry policy: retries belong to the
-reliability core, which is not ported yet).
+``PendingCounts`` and ``_pad_positions``; no
+mesh and no collectives).
+
+Every device -> host read goes through the reliability core's audited
+fetch (reliability/retry.py ``fetch`` / ``fetch_async``) under the site
+name of the JAX package's inventory: the ``fetch.<site>`` failpoint,
+bounded retries of transient errors, and the dispatch watchdog.
 
 The pipelined ingest's uploads (:class:`BlockUploader`) go through pinned
 host memory on a side stream, so they overlap the host's compression of
@@ -42,6 +45,8 @@ from fastapriori_tpu_torch.ops.count import (
 )
 from fastapriori_tpu_torch.ops.vertical import assemble_arena
 from fastapriori_tpu_torch.ops.vertical_kernel import lane_plane_mask
+from fastapriori_tpu_torch.reliability import retry
+from fastapriori_tpu_torch.reliability.retry import AsyncFetch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None):
@@ -67,39 +72,29 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None):
     return dev
 
 
-class AsyncFetch:
-    """A device -> host copy issued without waiting: on CUDA a
-    non-blocking copy into pinned host memory and an event behind it,
-    which :meth:`result` waits on."""
-
-    def __init__(self, x: torch.Tensor):
-        if x.device.type == "cuda":
-            self._host = torch.empty(x.shape, dtype=x.dtype,
-                                     pin_memory=True)
-            self._host.copy_(x, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host, self._event = x, None
-
-    def result(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+# Fewest positions a gather segment is padded to.  PyTorch's CUDA
+# index_select takes another kernel for at most 16 indexes, and a fresh
+# process loads that kernel's module at its first launch (the zero-flag
+# run's resolve waited on it: PERF.md, PR 10); 32 keeps every segment on
+# the one kernel the larger gathers load anyway.
+GATHER_MIN_POSITIONS = 32
 
 
 def _pad_positions(pos: np.ndarray) -> np.ndarray:
-    """Gather positions padded to the next power of two with 0 (a valid
-    index whose gathered value :class:`PendingCounts` strips), so the
-    gather's shapes come from a few buckets."""
-    out = np.zeros(next_pow2(max(int(pos.size), 1)), dtype=np.int64)
+    """Gather positions padded with 0 (a valid index whose gathered value
+    :class:`PendingCounts` strips) to the next power of two, at least
+    :data:`GATHER_MIN_POSITIONS`, so the gather's shapes come from a few
+    buckets and take one kernel."""
+    out = np.zeros(next_pow2(max(int(pos.size), GATHER_MIN_POSITIONS)),
+                   dtype=np.int64)
     out[: pos.size] = pos
     return out
 
 
 class PendingCounts:
     """A started survivor-count gather whose compact output is on its way
-    to the host (:class:`AsyncFetch`); :meth:`result` waits, decodes the
+    to the host (an audited :class:`AsyncFetch`); :meth:`result` waits,
+    decodes the
     optional u24 3-byte planes and strips each segment's position
     padding, so the caller gets exactly its counts, concatenated in
     segment order."""
@@ -321,43 +316,53 @@ class DeviceContext:
         return bitmap, packed, counts
 
     def pair_regather(
-        self, counts: torch.Tensor, min_count: int, num_items: int, cap: int
+        self, counts: torch.Tensor, min_count: int, num_items: int, cap: int,
+        site: str = "pair_regather",
     ) -> Tuple[np.ndarray, np.ndarray, int]:
         """The first ``cap`` frequent pairs of a resident count matrix
-        (ops/count.py ``local_pair_regather``; the pair threshold's
-        overflow path): host int64 ``(flat_idx, counts, n2)``, one
-        fetch."""
+        (ops/count.py ``local_pair_regather``): host int64 ``(flat_idx,
+        counts, n2)``, one fetch under ``fetch.<site>`` (``pair`` or
+        ``vpair`` for a pair level's first extraction, ``pair_regather``
+        for the overflow path's)."""
         idx, cnt, n2 = local_pair_regather(counts, min_count, num_items, cap)
-        out = self.fetch(torch.cat([idx, cnt.long(), n2.long()[None]]))
+        out = self.fetch(torch.cat([idx, cnt.long(), n2.long()[None]]),
+                         site)
         return out[:cap], out[cap : 2 * cap], int(out[2 * cap])
 
     @staticmethod
-    def fetch_async(x: torch.Tensor) -> AsyncFetch:
-        return AsyncFetch(x)
+    def fetch_async(x: torch.Tensor, site: str) -> AsyncFetch:
+        """An audited fetch of ``x`` started now, read later."""
+        return retry.fetch_async(x, site)
 
+    @staticmethod
     def gather_level_counts_start(
-        self,
         pending: Sequence[Tuple[torch.Tensor, np.ndarray]],
         u24: bool = False,
+        site: str = "counts",
     ) -> PendingCounts:
-        """Gather each ``(counts_dev, flat positions)`` pair's counts on
-        the device, concatenated, and start one non-blocking fetch of the
-        result; the host does not wait.  The positions go up as one
-        pinned upload, each segment padded by :func:`_pad_positions`.
-        ``u24``: every count is < 2^24 (the caller's gate), so three
-        uint8 planes cross instead of int32.  ``pending`` holds at least
-        one pair."""
+        """The survivor-count gather: each ``(counts_dev, flat
+        positions)`` pair's counts gathered on the device, concatenated,
+        and one non-blocking audited fetch of the result started under
+        ``fetch.<site>``; the host does not wait.  ``pending`` holds at
+        least one pair.  The positions go up as one pinned upload, each
+        segment padded by :func:`_pad_positions`.  ``u24``: every count
+        is < 2^24 (the caller's gate), so three uint8 planes cross
+        instead of int32."""
+        dev = pending[0][0].device
         real = [np.asarray(p) for _, p in pending]
         padded = [_pad_positions(p) for p in real]
-        pos = self.upload_async(np.concatenate(padded))
+        pos = torch.from_numpy(np.concatenate(padded))
+        if dev.type == "cuda":
+            pos = pos.pin_memory().to(dev, non_blocking=True)
         segs = torch.split(pos, [p.size for p in padded])
         g = torch.cat([c.reshape(-1).index_select(0, p)
                        for (c, _), p in zip(pending, segs)])
         if u24:
             g = torch.stack([((g >> s) & 0xFF).to(torch.uint8)
                              for s in (0, 8, 16)])
-        return PendingCounts(AsyncFetch(g), [p.size for p in real],
-                             [p.size for p in padded], u24)
+        return PendingCounts(retry.fetch_async(g, site),
+                             [p.size for p in real], [p.size for p in padded],
+                             u24)
 
     @staticmethod
     def finish_level_counts(handle: PendingCounts) -> np.ndarray:
@@ -399,5 +404,6 @@ class DeviceContext:
         return planes
 
     @staticmethod
-    def fetch(x: torch.Tensor) -> np.ndarray:
-        return x.cpu().numpy()
+    def fetch(x: torch.Tensor, site: str) -> np.ndarray:
+        """An audited, retried fetch of ``x`` under ``fetch.<site>``."""
+        return retry.fetch(lambda: x.cpu().numpy(), site)

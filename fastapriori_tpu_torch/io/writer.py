@@ -10,8 +10,13 @@ Every artifact goes through :func:`write_artifact_bytes`: a ``.tmp``
 file, fsync, then an atomic rename, so a crash mid-write never leaves a
 torn file under the final name; each write records its size and sha256
 into a manifest dict that :func:`write_manifest` persists as
-``<prefix>MANIFEST.json``.  Local paths only; no quorum fence (the port
-runs one process).
+``<prefix>MANIFEST.json``, which io/resume.py validates artifacts
+against.  The failpoint site ``write.<name>`` can fail a write or
+truncate its physical bytes (reliability/failpoints.py).  A remote
+prefix (``gs://``, ``memory://`` ...) goes through fsspec, imported only
+for such a path (no tmp + rename: object stores commit on close).  The
+manifest's ``fence`` is the JAX package's quorum fence; one process
+never has one.
 """
 
 from __future__ import annotations
@@ -23,7 +28,20 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
+from fastapriori_tpu_torch.reliability import failpoints
+
 MANIFEST_NAME = "MANIFEST.json"
+
+
+def _open_write_bytes(path: str):
+    if "://" in path:
+        from fastapriori_tpu_torch.io.reader import _require_fsspec
+
+        return _require_fsspec(path).open(path, "wb").open()
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    return open(path, "wb")
 
 
 def write_artifact_bytes(
@@ -32,29 +50,41 @@ def write_artifact_bytes(
     name: str,
     manifest: Optional[Dict[str, dict]] = None,
 ) -> str:
-    """Atomic write of ``path``; records ``manifest[name]`` (size and
-    sha256 of the content) when a manifest dict is given."""
-    parent = os.path.dirname(path)
-    if parent:
-        os.makedirs(parent, exist_ok=True)
+    """Crash-safe write of ``path``: locally ``<path>.tmp``, fsync and an
+    atomic ``os.replace``; remote paths stream.  The failpoint site
+    ``write.<name>`` may raise or truncate the physical bytes at byte N;
+    the manifest entry ``manifest[name]`` records the full intended
+    content (size and sha256), so a truncation is exactly what
+    resume-side validation rejects."""
+    site = "write." + name
+    failpoints.fire(site)
+    trunc = failpoints.truncation(site)
     digest = hashlib.sha256()
-    size = 0
-    tmp = path + ".tmp"
+    intended = written = 0
+    local = "://" not in path
+    tmp = path + ".tmp" if local else path
+    f = _open_write_bytes(tmp)
     try:
-        with open(tmp, "wb") as f:
+        with f:
             for chunk in chunks:
                 digest.update(chunk)
-                size += len(chunk)
-                f.write(chunk)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
+                intended += len(chunk)
+                if trunc is not None:
+                    chunk = chunk[: max(trunc - written, 0)]
+                if chunk:
+                    f.write(chunk)
+                    written += len(chunk)
+            if local:
+                f.flush()
+                os.fsync(f.fileno())
+        if local:
+            os.replace(tmp, path)
     except BaseException:
-        if os.path.exists(tmp):
+        if local and os.path.exists(tmp):
             os.unlink(tmp)
         raise
     if manifest is not None:
-        manifest[name] = {"bytes": size, "sha256": digest.hexdigest()}
+        manifest[name] = {"bytes": intended, "sha256": digest.hexdigest()}
     return path
 
 
@@ -70,24 +100,36 @@ def write_artifact(
     )
 
 
-def write_manifest(prefix: str, entries: Dict[str, dict]) -> str:
+def write_manifest(
+    prefix: str, entries: Dict[str, dict], fence: Optional[int] = None
+) -> str:
     """Persist ``<prefix>MANIFEST.json``, merged over any manifest already
     at the prefix (phase 1 and phase 2 write at different times).  The
     manifest is the last write, so a crash between an artifact and its
-    entry leaves a manifest that still validates what it lists."""
+    entry leaves a manifest that still validates what it lists.
+    ``fence``: a writer's fence epoch, stamped as a top-level field that
+    a merge never lowers (None at one process)."""
+    from fastapriori_tpu_torch.io.reader import _open_bytes
+
     path = prefix + MANIFEST_NAME
     merged: Dict[str, dict] = {}
+    prev_fence: Optional[int] = None
     try:
-        with open(path, "rb") as f:
+        with _open_bytes(path) as f:
             prev = json.loads(f.read().decode("utf-8"))
         artifacts = prev.get("artifacts", {})
         if isinstance(artifacts, dict):
             merged.update(artifacts)
+        if isinstance(prev.get("fence"), int):
+            prev_fence = prev["fence"]
     except (OSError, ValueError, UnicodeDecodeError, AttributeError):
         pass  # absent or corrupt old manifest: superseded by the rewrite
     merged.update(entries)
-    body = json.dumps({"version": 1, "artifacts": merged}, indent=2,
-                      sort_keys=True)
+    doc: Dict[str, object] = {"version": 1, "artifacts": merged}
+    fences = [f for f in (fence, prev_fence) if f is not None]
+    if fences:
+        doc["fence"] = max(fences)
+    body = json.dumps(doc, indent=2, sort_keys=True)
     return write_artifact(path, [body + "\n"], MANIFEST_NAME)
 
 
@@ -105,23 +147,67 @@ def _level_joined(levels, freq_items: Sequence[str]):
         yield joined, cnts
 
 
+def format_itemset_line(ranks: Iterable[int],
+                        freq_items: Sequence[str]) -> str:
+    """One itemset: ranks sorted descending, mapped to item strings,
+    joined by a single space (Utils.scala:38)."""
+    return " ".join(freq_items[r] for r in sorted(ranks, reverse=True))
+
+
+def save_freq_itemsets_with_count(
+    output_prefix: str,
+    freq_itemsets: Sequence[Tuple[frozenset, int]],
+    freq_items: Sequence[str],
+    manifest: Optional[Dict[str, dict]] = None,
+) -> str:
+    """Write ``<output>freqItems`` with counts as ``...[count]``
+    (Utils.scala:51-63) from ``(rank frozenset, count)`` pairs."""
+    lines = [format_itemset_line(s, freq_items) + "[" + str(c) + "]"
+             for s, c in freq_itemsets]
+    lines.sort()
+    return write_artifact(
+        output_prefix + "freqItems", (line + "\n" for line in lines),
+        "freqItems", manifest,
+    )
+
+
 def save_freq_itemsets_levels(
     output_prefix: str,
     levels,
     freq_items: Sequence[str],
     manifest: Optional[Dict[str, dict]] = None,
+    item_counts=None,
+    with_counts_path: bool = False,
 ) -> str:
     """Write ``<output>freqItemset`` from the level matrices plus the
-    1-itemsets (every rank), lines sorted lexicographically."""
+    1-itemsets (every rank), lines sorted lexicographically.
+    ``with_counts_path`` (the CLI's ``--save-counts``): also
+    ``<output>freqItems``, the same itemsets with ``[count]`` suffixes
+    (the 1-itemsets' from ``item_counts``), the phase-1 resume
+    artifact."""
     lines: list = []
-    for joined, _ in _level_joined(levels, freq_items):
+    clines: list = []
+    for joined, cnts in _level_joined(levels, freq_items):
         lines.extend(joined.tolist())
+        if with_counts_path:
+            clines.extend(np.char.add(
+                np.char.add(joined, "["),
+                np.char.add(np.asarray(cnts).astype(np.str_), "]"),
+            ).tolist())
     lines.extend(freq_items)
     lines.sort()
     path = output_prefix + "freqItemset"
-    return write_artifact(
+    write_artifact(
         path, (line + "\n" for line in lines), "freqItemset", manifest
     )
+    if with_counts_path:
+        clines.extend(f"{tok}[{int(c)}]"
+                      for tok, c in zip(freq_items, np.asarray(item_counts)))
+        clines.sort()
+        write_artifact(output_prefix + "freqItems",
+                       (line + "\n" for line in clines), "freqItems",
+                       manifest)
+    return path
 
 
 def save_recommends(

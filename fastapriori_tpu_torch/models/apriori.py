@@ -6,10 +6,15 @@ pair + level-3 program, the fused whole-loop engine (``_mine_fused``,
 ``_fused_resident``, ``_size_fused_budget``, ``_auto_fused_ok``,
 ``_fused_attempt_loop``) and the level engine with its shallow-tail fold
 (``_mine_levels``, ``_level_loop_impl``, ``_tail_entry_ok``,
-``_mine_tail``, ``_count_level``), ``_split_weights``, ``_mine_engine``
-and ``_mine_vertical``, at one device, without the elastic, quorum,
-checkpoint, sparse, lane-tiled and deferred-count branches; reference
-C6-C9, FastApriori.scala:31-160).
+``_mine_tail``, ``_count_level``) with its deferred survivor counts
+(``_drain_pending``, ``_resolve_pending_counts``), per-level checkpoints
+and resume (``set_resume_levels``, ``_take_resume``,
+``_checkpoint_levels``, the fused engine's checkpoint segments), the
+cascade's safe wrappers (``_mine_vertical_safe``,
+``_fused_resident_safe``), ``_split_weights``, ``_mine_engine`` and
+``_mine_vertical``, at one process and one device, without the elastic,
+quorum, sparse and lane-tiled branches; reference C6-C9,
+FastApriori.scala:31-160).
 
 ``run_file_raw`` ingests D.dat in one native call that cuts it into
 ``ingest_pipeline_blocks`` line-aligned blocks (pass 1 over
@@ -68,6 +73,24 @@ the reference package does:
   off on the CPU), the remaining levels run as one tail fold
   (ops/fused.py ``tail_mine``, a ``tail_fuse`` event); a fold that
   overflows its budgets resumes per level from its last complete level.
+
+How a level's counts reach the host (``_level_loop``): by default each
+level reads only its survivor bitmask (one fetch per level, all its
+chunks issued before it), the per-candidate counts stay on the device,
+and one gather and one fetch after the loop resolve them
+(``counts_resolve``); past ``pending_fetch_budget_bytes`` a mid-loop
+drain compacts them (``counts_drain``), and a tail fold that ends the
+mine gathers them inside its own program.  With ``checkpoint_prefix``
+each completed level is written to ``<prefix>checkpoint.npz`` with its
+counts, fetched eagerly, and ``set_resume_levels`` seeds a later mine
+from such a checkpoint: the level loop restarts after its deepest level.
+A resume or a checkpoint prefix skips the fused whole-loop engine, except
+that ``engine="fused"`` with a checkpoint prefix mines in checkpointed
+segments of ``checkpoint_every_levels`` levels.  A transient error that
+an audited fetch's retries gave up on walks the cascade
+(reliability/retry.py ``exhausted``): fused -> level, tail -> level,
+vertical -> bitmap; an error raised anywhere else, a kernel's launch
+included, propagates.
 """
 
 from __future__ import annotations
@@ -75,7 +98,7 @@ from __future__ import annotations
 import dataclasses
 import mmap
 import time
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +126,7 @@ from fastapriori_tpu_torch.ops.count import (
     heavy_pair_correction,
     local_level_gather,
     local_pair_counts,
+    survivor_bits,
 )
 from fastapriori_tpu_torch.ops.fused import (
     decode_level_matrices,
@@ -126,6 +150,12 @@ from fastapriori_tpu_torch.preprocess import (
     ingest_thread_count,
     native_choice,
     preprocess_file,
+)
+from fastapriori_tpu_torch.reliability import (
+    failpoints,
+    ledger,
+    retry,
+    watchdog,
 )
 from fastapriori_tpu_torch.utils.env import env_choice
 from fastapriori_tpu_torch.utils.logging import MetricsLogger
@@ -390,6 +420,65 @@ class FastApriori:
         self.engine = resolve_engine(self.config.engine)
         self.ctx = context if context is not None else DeviceContext(device)
         self.metrics = MetricsLogger(enabled=self.config.log_metrics)
+        # Degradation events (the ledger) go to this miner's metrics.
+        ledger.attach_metrics(self.metrics)
+        # Levels an interrupted run completed, consumed by the next mine.
+        self._resume_levels: Optional[Levels] = None
+        self._resume_meta: Optional[Dict[str, int]] = None
+        self._resume_label = "checkpoint"
+
+    def set_resume_levels(
+        self,
+        levels: Levels,
+        meta: Optional[Dict[str, int]] = None,
+        label: str = "checkpoint",
+    ) -> "FastApriori":
+        """Seed the next mine with levels an interrupted run completed
+        (``--resume-from`` a ``--checkpoint-every-level`` checkpoint,
+        io/checkpoint.py): the level loop restarts after the deepest one.
+        ``meta`` (``n_raw``, ``min_count``, ``num_items``) pins them to
+        their dataset; a mismatch with the ingested data is an
+        InputError."""
+        self._resume_levels = levels
+        self._resume_meta = meta
+        self._resume_label = label
+        return self
+
+    def _take_resume(self, data: CompressedData) -> Optional[Levels]:
+        """The resume levels, once: a later mine on this instance never
+        grafts them again."""
+        levels = self._resume_levels
+        if not levels:
+            return None
+        meta, label = self._resume_meta, self._resume_label
+        self._resume_levels = None
+        self._resume_meta = None
+        if meta is not None:
+            from fastapriori_tpu_torch.io.checkpoint import check_meta
+
+            check_meta(meta, n_raw=data.n_raw, min_count=data.min_count,
+                       num_items=data.num_items, prefix=label)
+        return list(levels)
+
+    def _checkpoint_levels(self, levels: Levels,
+                           data: CompressedData) -> None:
+        """After a completed level: with ``checkpoint_prefix``, atomically
+        rewrite ``<prefix>checkpoint.npz`` and its manifest entry (a
+        ``checkpoint`` metrics event); then the ``level.<k>`` failpoint,
+        k the deepest level written, so a test can kill the run where the
+        checkpoint exists and nothing after it does."""
+        if not levels:
+            return
+        k = int(levels[-1][0].shape[1])
+        prefix = self.config.checkpoint_prefix
+        if prefix:
+            from fastapriori_tpu_torch.io.checkpoint import save_checkpoint
+
+            with self.metrics.timed("checkpoint", levels=len(levels), k=k):
+                save_checkpoint(prefix, levels, {
+                    "n_raw": data.n_raw, "min_count": data.min_count,
+                    "num_items": data.num_items})
+        failpoints.fire(f"level.{k}")
 
     def run_file_raw(self, d_path: str) -> Tuple[Levels, CompressedData]:
         """Mine ``D.dat``: returns the level matrices (k >= 2) and the
@@ -400,11 +489,14 @@ class FastApriori:
         # Parsed before the ingest, so a bad FA_INGEST_THREADS fails every
         # run.
         n_threads = ingest_thread_count(self.config.ingest_threads)
-        if self._can_pipeline_ingest():
+        remote = "://" in d_path
+        if not remote and self._can_pipeline_ingest():
             return self._run_file_pipelined_capture(d_path, n_threads)
         with self.metrics.timed("preprocess", path=d_path) as m:
-            # A file always passes the native size gate.
-            native, reason = native_choice(None, 1 << 62)
+            # A local file always passes the native size gate; a remote
+            # one is read through fsspec by the Python ingest.
+            native, reason = native_choice(False if remote else None,
+                                           1 << 62)
             data = preprocess_file(d_path, self.config.min_support,
                                    native=native)
             m.update(
@@ -641,7 +733,7 @@ class FastApriori:
                 )
                 self._emit_mine_engine("vertical", req_engine, density,
                                        probe="pass1")
-                return self._mine_vertical(data), data
+                return self._mine_vertical_safe(data), data
             self._emit_mine_engine("bitmap", req_engine, density,
                                    probe="pass1")
             n_chunks = max(1, -(-n_raw // cfg.level_txn_chunk))
@@ -684,7 +776,7 @@ class FastApriori:
                         )
                         pair_pre = {
                             "events": (start, ctx.timing_event()),
-                            "fetch": ctx.fetch_async(packed),
+                            "fetch": ctx.fetch_async(packed, "pair_pre"),
                             "counts_dev": counts_dev,
                             "cap": cap,
                             "cap_key": cap_key,
@@ -754,7 +846,7 @@ class FastApriori:
         layout, requested, density = self._mine_engine(data)
         self._emit_mine_engine(layout, requested, density)
         if layout == "vertical":
-            return self._mine_vertical(data)
+            return self._mine_vertical_safe(data)
         if not has_csr(data):
             # The packed upload and the bitmap build read the CSR: mining
             # an empty one would return an empty lattice.
@@ -764,14 +856,26 @@ class FastApriori:
                 "re-ingest with retain_csr=True to mine it through this "
                 "path"
             )
-        if self.engine in ("fused", "auto"):
-            levels, partial = self._mine_fused(data,
-                                               auto=self.engine == "auto")
+        # A resume or a checkpoint prefix skips the whole-lattice fused
+        # loop: it has no mid-points to seed or checkpoint (engine "fused"
+        # under a checkpoint prefix mines in segments in the level loop).
+        if self.engine in ("fused", "auto") and not (
+                self._resume_levels or self.config.checkpoint_prefix):
+            reason = "row_budget_or_bound"
+            try:
+                levels, partial = self._mine_fused(
+                    data, auto=self.engine == "auto")
+            except Exception as exc:
+                # A transient at the fused fetch that outlasted its
+                # retries: the level engine (with its own fetch budgets).
+                if not retry.exhausted(exc):
+                    raise
+                levels, partial, reason = None, None, "transient_exhausted"
             if levels is not None:
                 return levels
-            # Row budget, level bound or the auto choice: the level
-            # engine, resumed from the salvaged complete levels.
-            self._fused_fallback(partial)
+            # Row budget, level bound, the auto choice or a transient:
+            # the level engine, resumed from the salvaged complete levels.
+            self._fused_fallback(partial, reason)
             return self._mine_levels(data, resume=partial or None)
         return self._mine_levels(data)
 
@@ -819,18 +923,20 @@ class FastApriori:
             return "vertical", req, density
         return "bitmap", req, density
 
-    def _pair_level(self, counts, min_count: int, f: int, cap_key: tuple):
+    def _pair_level(self, counts, min_count: int, f: int, cap_key: tuple,
+                    site: str):
         """Level 2 from a resident [f_pad, f_pad] pair count matrix
         without the pair program: the first ``pair_cap`` survivors in one
-        fetch; more survivors re-extract at the next power of two, and
-        the grown budget is remembered.  Returns host ``(flat_idx,
-        counts, n2, dispatches)``."""
+        fetch under ``fetch.<site>``; more survivors re-extract at the
+        next power of two (``fetch.pair_regather``), and the grown budget
+        is remembered.  Returns host ``(flat_idx, counts, n2,
+        dispatches)``."""
         ctx = self.ctx
         cap = max(self.config.pair_cap, ctx.pair_cap_hint(cap_key) or 0)
-        idx, cnt, n2 = ctx.pair_regather(counts, min_count, f, cap)
+        idx, cnt, n2 = ctx.pair_regather(counts, min_count, f, cap, site)
         dispatches = 1
         if n2 > cap:
-            self.metrics.emit("pair_cap_overflow", n2=n2, cap=cap)
+            self._degraded("pair_cap_overflow", n2=n2, cap=cap)
             cap = next_pow2(n2)
             idx, cnt, _ = ctx.pair_regather(counts, min_count, f, cap)
             ctx.record_pair_cap(cap_key, cap)
@@ -864,11 +970,62 @@ class FastApriori:
                 )
         return pair_pre["host"]
 
-    def _fused_fallback(self, partial: Optional[Levels]) -> None:
+    def _degraded(self, kind: str, **fields) -> None:
+        """A degradation: its metrics event and its ledger event."""
+        self.metrics.emit(kind, **fields)
+        ledger.record(kind, **fields)
+
+    def _fused_fallback(self, partial: Optional[Levels],
+                        reason: str = "row_budget_or_bound") -> None:
         """One ``fused_fallback`` event per fused -> level handover, with
-        the salvaged complete levels it resumes from."""
-        self.metrics.emit("fused_fallback",
-                          resume_levels=len(partial) if partial else 0)
+        the salvaged complete levels it resumes from.  A degradation (a
+        forced fused engine, a salvage, a transient) is also a ledger
+        event and a cascade walk; the auto choice of the level engine is
+        a choice, not a degradation."""
+        n = len(partial) if partial else 0
+        self.metrics.emit("fused_fallback", resume_levels=n)
+        if (self.engine == "fused" or partial
+                or reason == "transient_exhausted"):
+            ledger.record("fused_fallback", resume_levels=n, reason=reason)
+            watchdog.downgrade("engine", "fused", "level", reason=reason,
+                               resume_levels=n)
+
+    def _fused_resident_safe(self, *args, **kw):
+        """:meth:`_fused_resident` with the cascade's transient arm: a
+        fused fetch that outlasted its retries walks to the level engine
+        instead of ending the mine."""
+        try:
+            return self._fused_resident(*args, **kw)
+        except Exception as exc:
+            if not retry.exhausted(exc):
+                raise
+            watchdog.downgrade("engine", "fused", "level",
+                               reason="transient_exhausted",
+                               error=f"{type(exc).__name__}: {exc}"[:200])
+            return None, None, False
+
+    def _mine_vertical_safe(self, data: CompressedData) -> Levels:
+        """:meth:`_mine_vertical` with the cascade's transient arm: a
+        vertical fetch that outlasted its retries walks mine_engine
+        vertical -> bitmap and the bitmap level engine mines (the same
+        levels), seeded from the resume levels the vertical attempt had
+        taken.  Any other error, K3's launch included, propagates."""
+        resume_state = (self._resume_levels, self._resume_meta,
+                        self._resume_label)
+        try:
+            return self._mine_vertical(data)
+        except Exception as exc:
+            if not retry.exhausted(exc):
+                raise
+            (self._resume_levels, self._resume_meta,
+             self._resume_label) = resume_state
+            watchdog.downgrade("mine_engine", "vertical", "bitmap",
+                               reason="transient_exhausted",
+                               error=f"{type(exc).__name__}: {exc}"[:200])
+            ledger.record("mine_engine_fallback",
+                          once_key="transient_exhausted",
+                          reason="transient_exhausted")
+            return self._mine_levels(data)
 
     def _device_peak(self, m) -> None:
         if self.ctx.device.type == "cuda":
@@ -925,7 +1082,7 @@ class FastApriori:
             with self.metrics.timed("pair_prepass") as met:
                 n2, tri = (int(x) for x in ctx.fetch(torch.stack(
                     make_pair_counter(n_digits, n_chunks, fast_f32)(
-                        packed, w, data.min_count))))
+                        packed, w, data.min_count)), "pair"))
                 met.update(n2=n2, cand3=tri)
             m_cap = self._size_fused_budget(profile, n2, tri, m_cap_max, auto)
             if m_cap is None:  # auto chose the level engine
@@ -985,7 +1142,7 @@ class FastApriori:
                 fn = make_fused_miner(m_cap, l_max, n_digits, n_chunks,
                                       fast_f32, packed_input=packed_input)
                 out = ctx.fetch(fn(bitmap, w, min_count,
-                                   region=ctx.sync_free))
+                                   region=ctx.sync_free), "fused")
                 (rows, cols, counts, n_lvl, incomplete, overflow, _,
                  _) = unpack_fused_result(out, l_max)
                 m_cap_run = m_cap
@@ -1084,11 +1241,14 @@ class FastApriori:
         count and census (or by the pair level's).  ``pair_pre``: the
         ingest-overlapped pair program in flight; level 2, and level 3
         when it fits the program's budgets, are then reads of its one
-        fetch instead of launches."""
+        fetch instead of launches.  Without ``resume``, the levels of
+        :meth:`set_resume_levels` (a checkpoint) seed the loop."""
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
         min_count = data.min_count
+        if resume is None:
+            resume = self._take_resume(data)
         if preupload is not None:
             bitmap, w_digits, scales, n_chunks, t_pad, f_pad, heavy = preupload
         else:
@@ -1112,14 +1272,15 @@ class FastApriori:
                          heavy_rows=self._heavy_stats(heavy_b, heavy_w)[0])
 
         need_n2 = False
-        if not resume and try_fused and self.engine in ("fused", "auto"):
+        if (not resume and try_fused and self.engine in ("fused", "auto")
+                and not cfg.checkpoint_prefix):
             # A remembered budget or choice decides without level 2.
-            lv, partial, need_n2 = self._fused_resident(data, bitmap,
-                                                        n_chunks, t_pad)
+            lv, partial, need_n2 = self._fused_resident_safe(
+                data, bitmap, n_chunks, t_pad)
             if lv is None and need_n2 and pair_pre is not None:
                 # The pair program's count and census size the budget.
                 _, _, n2, tri = self._pair_fetch(pair_pre)
-                lv, partial, _ = self._fused_resident(
+                lv, partial, _ = self._fused_resident_safe(
                     data, bitmap, n_chunks, t_pad, n2=n2, tri=tri)
                 need_n2 = False
             if lv is not None:
@@ -1132,8 +1293,8 @@ class FastApriori:
             levels: Levels = list(resume)
             cur = levels[-1][0]
             self.metrics.emit("level_resume", from_k=int(cur.shape[1]) + 1)
-            return self._level_loop(levels, bitmap, w_digits, scales,
-                                    min_count, heavy, n_chunks=n_chunks)
+            return self._level_loop(data, levels, bitmap, w_digits, scales,
+                                    heavy, n_chunks=n_chunks)
 
         with self.metrics.timed("level", k=2) as m:
             if pair_pre is not None:
@@ -1141,7 +1302,7 @@ class FastApriori:
                 cap = pair_pre["cap"]
                 dispatches = 0  # the pair program rode the ingest
                 if n2 > cap:
-                    self.metrics.emit("pair_cap_overflow", n2=n2, cap=cap)
+                    self._degraded("pair_cap_overflow", n2=n2, cap=cap)
                     cap = next_pow2(n2)
                     idx, cnt, _ = ctx.pair_regather(
                         pair_pre["counts_dev"], min_count, f, cap
@@ -1164,12 +1325,13 @@ class FastApriori:
                 if heavy is not None:
                     counts = counts + heavy_pair_correction(*heavy)
                 idx, cnt, n2, dispatches = self._pair_level(
-                    counts, min_count, f, ("pair_cap", t_pad, f, min_count))
+                    counts, min_count, f, ("pair_cap", t_pad, f, min_count),
+                    "pair")
                 tri = None
                 if need_n2:
                     # The fused engine's auto choice reads the census.
                     tri = (int(ctx.fetch(_pair_triangles(frequent_pair_mask(
-                        counts, min_count, f)))) if f_pad <= TRI_F_CAP
+                        counts, min_count, f)), "pair")) if f_pad <= TRI_F_CAP
                         else -1)
                 del counts
             idx, cnt = idx[:n2], cnt[:n2]
@@ -1185,7 +1347,7 @@ class FastApriori:
             self._device_peak(m)
         if need_n2:
             # The pair level doubles as the fused engine's sizing pre-pass.
-            lv, partial, _ = self._fused_resident(
+            lv, partial, _ = self._fused_resident_safe(
                 data, bitmap, n_chunks, t_pad, n2=n2, tri=tri)
             if lv is not None:
                 return lv
@@ -1194,6 +1356,7 @@ class FastApriori:
                 self._fused_fallback(partial)
                 levels[:] = partial
                 cur = levels[-1][0]
+        self._checkpoint_levels(levels, data)
 
         l3h = pair_pre.get("l3_host") if pair_pre is not None else None
         if (l3h is not None and len(levels) == 1 and cur.shape[1] == 2
@@ -1213,25 +1376,28 @@ class FastApriori:
                     m.update(candidates=tri, frequent=n3, launches=0,
                              overlapped=True, dispatches=0, n2=n2_now,
                              p3=p3, n3=n3, cap3=cap3)
+                self._checkpoint_levels(levels, data)
             else:
                 l3p_key, l3c_key = pair_pre["l3_keys"]
                 if n2_now > p3:
                     ctx.record_pair_cap(l3p_key, next_pow2(n2_now))
                 if n3 > cap3:
                     ctx.record_pair_cap(l3c_key, next_pow2(n3))
-                self.metrics.emit("pair_l3_overflow", n2=n2_now, p3=p3,
-                                  n3=n3, cap3=cap3)
-        return self._level_loop(levels, bitmap, w_digits, scales, min_count,
+                self._degraded("pair_l3_overflow", n2=n2_now, p3=p3, n3=n3,
+                               cap3=cap3)
+        return self._level_loop(data, levels, bitmap, w_digits, scales,
                                 heavy, n_chunks=n_chunks)
 
     def _mine_vertical(self, data: CompressedData) -> Levels:
         """Vertical (Eclat-style) mining: the tid-lane arena and weight
         bit-planes on the device, the pair phase as a Gram product over
         unpacked lane chunks, then the level loop the bitmap engine uses,
-        counting with K3."""
+        counting with K3.  Resume levels (:meth:`set_resume_levels`) skip
+        the pair phase."""
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
+        resume = self._take_resume(data)
         n_threads = ingest_thread_count(cfg.ingest_threads)
         with self.metrics.timed("arena_build") as m:
             arena_np, f_pad, t_pad = build_tid_arena_csr(
@@ -1259,6 +1425,11 @@ class FastApriori:
                 upload_bytes=upload_bytes + planes_np.nbytes,
                 threads=n_threads,
             )
+        if resume:
+            self.metrics.emit("level_resume",
+                              from_k=int(resume[-1][0].shape[1]) + 1)
+            return self._level_loop(data, resume, arena, w_planes, scales,
+                                    vertical=True)
 
         with self.metrics.timed("level", k=2) as m:
             n_chunks = max(1, -(-t_pad // PAIR_TXN_CHUNK))
@@ -1270,7 +1441,7 @@ class FastApriori:
             )
             idx, cnt, n2, dispatches = self._pair_level(
                 counts, data.min_count, f,
-                ("vpair_cap", t_pad, f, data.min_count))
+                ("vpair_cap", t_pad, f, data.min_count), "vpair")
             del counts
             idx, cnt = idx[:n2], cnt[:n2]
             cur = np.stack([idx // f_pad, idx % f_pad], axis=1).astype(
@@ -1278,31 +1449,60 @@ class FastApriori:
             m.update(candidates=f * (f - 1) // 2, frequent=n2,
                      overlapped=False, dispatches=dispatches,
                      engine="vertical", chunks=n_chunks)
-        return self._level_loop(
-            [(cur, cnt.astype(np.int64))], arena, w_planes, scales,
-            data.min_count, vertical=True,
-        )
+        levels = [(cur, cnt.astype(np.int64))]
+        self._checkpoint_levels(levels, data)
+        return self._level_loop(data, levels, arena, w_planes, scales,
+                                vertical=True)
 
     def _level_loop(
         self,
+        data: CompressedData,
         levels: Levels,
         table,
         weights,
         scales,
-        min_count: int,
         heavy: Optional[tuple] = None,
         vertical: bool = False,
         n_chunks: int = 1,
     ) -> Levels:
         """The levels after the last one in ``levels`` (the pair level,
-        level 3 when the pair program counted it, or the last salvaged
-        one), with the reference's termination rule
-        (FastApriori.scala:111).  On the bitmap layout a seed level k - 1
-        with k > 3 and at most the fold threshold's rows hands the rest
-        to :meth:`_mine_tail`, at most twice, each seed smaller than the
-        last; an incomplete fold resumes here from its last complete
-        level."""
+        level 3 when the pair program counted it, the last salvaged one
+        or the deepest resumed one), with the reference's termination
+        rule (FastApriori.scala:111).
+
+        Counts: without a checkpoint prefix each level's counts stay on
+        the device (``pending_map``) and resolve after the loop in one
+        gather and one fetch (:meth:`_resolve_pending_counts`); past
+        ``pending_fetch_budget_bytes`` they drain early
+        (:meth:`_drain_pending`).  A checkpoint prefix fetches each
+        level's counts eagerly: a durable level carries its counts.
+
+        On the bitmap layout a seed level k - 1 with k > 3 and at most the
+        fold threshold's rows hands the rest to :meth:`_mine_tail`, at
+        most twice, each seed smaller than the last; an incomplete fold
+        resumes here from its last complete level.  With
+        ``engine="fused"`` and a checkpoint prefix every step is a
+        segment of ``checkpoint_every_levels`` levels (the tail program
+        with 2x row headroom and flat slot caps), checkpointed after
+        each; a segment that overflows at its first level, or that the
+        memory model refuses, walks the cascade to per-level counting
+        until the lattice shrinks under the failed seed."""
         cfg = self.config
+        pending_map: Dict[int, list] = {}
+        drained: list = []  # [(per-level segment sizes, PendingCounts)]
+        pending_bytes = [0]
+        defer = not cfg.checkpoint_prefix
+
+        def note_pending(entries) -> None:
+            pending_bytes[0] += sum(c.numel() * 4 for c, _ in entries)
+            if pending_bytes[0] > cfg.pending_fetch_budget_bytes:
+                self._drain_pending(pending_map, drained, data.n_raw)
+                pending_bytes[0] = 0
+
+        def finish(lvls: Levels) -> Levels:
+            return self._resolve_pending_counts(lvls, pending_map, drained,
+                                                data.n_raw)
+
         auto_tail = cfg.tail_fuse_rows is None
         tail_rows = cfg.tail_fuse_rows
         if tail_rows is None:
@@ -1310,47 +1510,95 @@ class FastApriori:
             # which the CPU does not pay.
             tail_rows = 0 if self.ctx.platform == "cpu" else 65536
         tail_ok = tail_rows > 0 and not vertical
+        fused_ckpt = (self.engine == "fused" and bool(cfg.checkpoint_prefix)
+                      and not vertical)
         cur = levels[-1][0]
         k = cur.shape[1] + 1
         prev_rows = None  # the previous level's rows (shrink evidence)
         fold_attempts = 2
         last_fold_seed = None
         while cur.shape[0] >= k:
-            # Never fold off the pair level: a lattice that fits one loop
-            # from level 2 is the fused engine's.
-            if (tail_ok and fold_attempts > 0 and k > 3
+            if fused_ckpt:
+                # The engine was forced: a segment whenever the seed fits
+                # memory and no segment failed at this size.
+                want_fold = (last_fold_seed is None
+                             or cur.shape[0] < last_fold_seed)
+            else:
+                # Never fold off the pair level: a lattice that fits one
+                # loop from level 2 is the fused engine's.
+                want_fold = (
+                    tail_ok and fold_attempts > 0 and k > 3
                     and cur.shape[0] <= tail_rows
                     and self._tail_entry_ok(auto_tail, cur.shape[0],
                                             prev_rows)
                     and (last_fold_seed is None
-                         or cur.shape[0] < last_fold_seed)):
-                tail, complete, ran = self._mine_tail(
-                    table, weights, scales, cur, n_chunks, heavy, min_count)
+                         or cur.shape[0] < last_fold_seed))
+            if want_fold:
+                fold_err = False
+                try:
+                    tail, complete, ran = self._mine_tail(
+                        data, table, weights, scales, cur, n_chunks, heavy,
+                        pending_state=((pending_map, drained, pending_bytes)
+                                       if defer else None),
+                        l_max=cfg.checkpoint_every_levels if fused_ckpt
+                        else None,
+                        segment=fused_ckpt)
+                except Exception as exc:
+                    # A transient at the fold's fetch that outlasted its
+                    # retries: per-level counting, with its own budgets.
+                    if not retry.exhausted(exc):
+                        raise
+                    watchdog.downgrade(
+                        "engine", "tail", "level",
+                        reason="transient_exhausted",
+                        error=f"{type(exc).__name__}: {exc}"[:200])
+                    tail, complete, ran = [], False, True
+                    fold_err = True
                 if ran:
-                    fold_attempts -= 1
+                    if not fused_ckpt:
+                        fold_attempts -= 1
                     last_fold_seed = cur.shape[0]
                     if tail:
                         levels.extend(tail)
                         cur = tail[-1][0]
                         k = cur.shape[1] + 1
+                        self._checkpoint_levels(levels, data)
+                        if fused_ckpt:
+                            last_fold_seed = None  # progress: fold again
                     if complete:
-                        return levels
+                        return finish(levels)
+                    if fused_ckpt and not tail and not fold_err:
+                        watchdog.downgrade(
+                            "engine", "fused", "level",
+                            reason="segment_overflow", k=int(k),
+                            seed_rows=int(cur.shape[0]))
                     continue  # per level from the last complete level
+                if fused_ckpt:
+                    watchdog.downgrade("engine", "fused", "level",
+                                       reason="segment_memory",
+                                       seed_rows=int(cur.shape[0]))
+                    last_fold_seed = cur.shape[0]
                 # The memory model refused this seed: count it per level;
                 # a smaller seed may fit.
             with self.metrics.timed("level", k=k) as m:
                 nxt, nxt_counts, stats = self._count_level(
-                    table, weights, scales, cur, min_count, heavy,
-                    vertical=vertical,
+                    table, weights, scales, cur, data.min_count, heavy,
+                    vertical=vertical, defer=defer,
                 )
                 m.update(frequent=int(nxt.shape[0]), **stats)
                 if k == 3:
                     m.update(overlapped=False, dispatches=stats["launches"])
+            if isinstance(nxt_counts, list):  # deferred
+                pending_map[len(levels)] = nxt_counts
+                note_pending(nxt_counts)
+                nxt_counts = None
             levels.append((nxt, nxt_counts))
+            if nxt.shape[0]:
+                self._checkpoint_levels(levels, data)
             prev_rows = cur.shape[0]
             cur = nxt
             k += 1
-        return levels
+        return finish(levels)
 
     @staticmethod
     def _tail_entry_ok(auto_tail: bool, n0: int,
@@ -1366,32 +1614,116 @@ class FastApriori:
             return False
         return n0 < prev_rows or n0 * 5 <= prev_rows * 6
 
-    def _mine_tail(self, bitmap, w_digits, scales, cur: np.ndarray,
-                   n_chunks: int, heavy: Optional[tuple], min_count: int):
+    def _drain_pending(self, pending_map, drained, n_raw: int) -> None:
+        """The mid-loop drain of the deferred counts: one gather compacts
+        every pending level's survivor counts, the per-candidate tensors
+        are released (``pending_map`` is cleared) and the fetch of the
+        compact result starts now and is read after the loop (the
+        ``drain.counts`` failpoint fires first)."""
+        flat = [(idx, c, p) for idx in sorted(pending_map)
+                for c, p in pending_map[idx] if p.size]
+        pending_map.clear()
+        if not flat:
+            return
+        failpoints.fire("drain.counts")
+        u24 = n_raw < 2**24
+        n_out = sum(p.size for _, _, p in flat)
+        with self.metrics.timed("counts_drain") as m:
+            handle = self.ctx.gather_level_counts_start(
+                [(c, p) for _, c, p in flat], u24=u24, site="counts_drain")
+            m.update(levels=len({i for i, _, _ in flat}), dispatches=1,
+                     fetch_bytes=(3 if u24 else 4) * n_out)
+        drained.append(([(i, p.size) for i, _, p in flat], handle))
+
+    def _resolve_pending_counts(self, levels: Levels, pending_map, drained,
+                                n_raw: int) -> Levels:
+        """Every still-deferred level's survivor counts in one gather and
+        one fetch (``counts_resolve``), after the drains' fetches (read
+        first, in launch order, so each level's segments concatenate in
+        row order).  ``pending_map``: level index -> ``[(counts_dev,
+        survivor positions)]``."""
+        if not pending_map and not drained:
+            return levels
+        per_level: Dict[int, list] = {}
+        for seg_sizes, handle in drained:
+            out = self.ctx.finish_level_counts(handle)
+            off = 0
+            for idx, size in seg_sizes:
+                per_level.setdefault(idx, []).append(out[off : off + size])
+                off += size
+        flat = [(idx, c, p) for idx in sorted(pending_map)
+                for c, p in pending_map[idx] if p.size]
+        with self.metrics.timed("counts_resolve") as m:
+            # Counts < 2^24 (bounded by n_raw) cross as 3 bytes each.
+            u24 = n_raw < 2**24
+            out = np.empty(0, np.int64)
+            t0 = time.perf_counter()
+            if flat:
+                handle = self.ctx.gather_level_counts_start(
+                    [(c, p) for _, c, p in flat], u24=u24)
+                t1 = time.perf_counter()
+                out = self.ctx.finish_level_counts(handle)
+                # The host's issue time, then the wait for the fetch.
+                m.update(issue_ms=round((t1 - t0) * 1e3, 3),
+                         wait_ms=round((time.perf_counter() - t1) * 1e3, 3))
+            m.update(levels=len(pending_map), drains=len(drained),
+                     dispatches=1 if flat else 0,
+                     fetch_bytes=(3 if u24 else 4) * int(out.size))
+        off = 0
+        for idx, _, p in flat:
+            per_level.setdefault(idx, []).append(out[off : off + p.size])
+            off += p.size
+        resolved = []
+        for i, (mat, cnts) in enumerate(levels):
+            if cnts is None:
+                parts = per_level.get(i, [])
+                cnts = (np.concatenate(parts) if parts
+                        else np.empty(0, np.int64))
+                assert cnts.size == mat.shape[0], (cnts.size, mat.shape)
+            resolved.append((mat, cnts))
+        return resolved
+
+    def _mine_tail(self, data: CompressedData, bitmap, w_digits, scales,
+                   cur: np.ndarray, n_chunks: int, heavy: Optional[tuple],
+                   pending_state: Optional[tuple] = None,
+                   l_max: Optional[int] = None, segment: bool = False):
         """The shallow-tail fold: every remaining level from the seed
         level ``cur`` in one device loop (ops/fused.py ``tail_mine``).
         Returns ``(complete tail levels, finished, ran)``; ``ran`` False
-        means the memory model refused the seed before any device
-        work."""
+        means the memory model refused the seed before any device work.
+
+        ``pending_state = (pending_map, drained, pending_bytes)``: the
+        level loop's deferred counts are gathered inside the fold's own
+        program (its fetch is read after the loop), so a fold that ends
+        the mine leaves no resolve dispatch.  ``segment`` (with ``l_max``
+        the checkpoint cadence): the fused engine's checkpoint segment,
+        seeded mid-lattice where levels may grow: 2x row headroom, flat
+        slot caps, an uncompacted prefix budget."""
         cfg = self.config
         ctx = self.ctx
         n0, k0 = cur.shape
         t_pad, f_pad = bitmap.shape
-        l_max = cfg.tail_fuse_l_max
-        # No 2x headroom: in a shrinking tail the seed is the largest
-        # level, and the [m, m] candidate products are the memory wall.
-        m_cap = max(next_pow2(n0), cfg.min_prefix_bucket,
-                    next_pow2(l_max + 2))
+        if l_max is None:
+            l_max = cfg.tail_fuse_l_max
+        # No 2x headroom outside a segment: in a shrinking tail the seed
+        # is the largest level, and the [m, m] candidate products are the
+        # memory wall.
+        m_cap = max(next_pow2(2 * n0 if segment else n0),
+                    cfg.min_prefix_bucket, next_pow2(l_max + 2))
         if m_cap > fused_m_cap_memory_limit(
                 cfg, ctx, t_pad, f_pad, n_chunks, unpacked_resident=True,
                 cap=m_cap, tail_chunked=True):
             return [], False, False
-        # The prefix budget grows with large seeds; at or below 16,384
-        # rows the knob keeps its configured value.
-        p_cap = cfg.tail_fuse_p_cap
-        if m_cap > 16384:
-            p_cap = max(p_cap, m_cap // 8)
-        p_cap = min(p_cap, m_cap)
+        if segment:
+            # Every row of a mid-lattice seed may extend.
+            p_cap = m_cap
+        else:
+            # The prefix budget grows with large seeds; at or below
+            # 16,384 rows the knob keeps its configured value.
+            p_cap = cfg.tail_fuse_p_cap
+            if m_cap > 16384:
+                p_cap = max(p_cap, m_cap // 8)
+            p_cap = min(p_cap, m_cap)
         # The [t_c, p_cap] membership is narrower than the level
         # engine's: fewer, larger chunks while it stays <= 768 MiB.
         tail_chunks = n_chunks
@@ -1400,15 +1732,38 @@ class FastApriori:
             tail_chunks //= 2
         seed = np.zeros((m_cap, k0), np.int32)
         seed[:n0] = cur
+        resolve_flat = []
+        if pending_state is not None:
+            pending_map, drained, pending_bytes = pending_state
+            resolve_flat = [(idx, c, p) for idx in sorted(pending_map)
+                            for c, p in pending_map[idx] if p.size]
+        # Segments run only under a checkpoint prefix, which fetches
+        # counts eagerly: nothing is ever pending there.
+        assert not (segment and resolve_flat)
         with self.metrics.timed("tail_fuse", k0=k0, m_cap=m_cap, p_cap=p_cap,
-                                n_chunks=tail_chunks, l_max=l_max) as met:
+                                n_chunks=tail_chunks, l_max=l_max,
+                                checkpoint_segment=segment) as met:
             fn = make_tail_miner(scales, k0, m_cap, p_cap, l_max,
-                                 tail_chunks, heavy is not None)
-            out = ctx.fetch(fn(bitmap, w_digits, ctx.upload(seed), n0,
-                               min_count, *(heavy or ()),
-                               region=ctx.sync_free))
+                                 tail_chunks, heavy is not None,
+                                 flat_caps=segment)
+            args = (bitmap, w_digits, ctx.upload(seed), n0, data.min_count,
+                    *(heavy or ()))
+            if resolve_flat:
+                out_dev, handle = fn(*args, region=ctx.sync_free, resolve=(
+                    [(c, p) for _, c, p in resolve_flat],
+                    data.n_raw < 2**24))
+                drained.append(
+                    ([(i, p.size) for i, _, p in resolve_flat], handle))
+                pending_map.clear()
+                pending_bytes[0] = 0
+                met.update(resolve_levels=len({i for i, _, _ in
+                                               resolve_flat}),
+                           resolve_folded=True)
+            else:
+                out_dev = fn(*args, region=ctx.sync_free)
+            out = ctx.fetch(out_dev, "tail")
             rows, cols, counts, n_lvl, incomplete, _ = unpack_tail_result(
-                out, m_cap, l_max)
+                out, m_cap, l_max, flat=segment)
             n_iters = max(int(np.count_nonzero(n_lvl)), 1)
             met.update(
                 levels=int(np.count_nonzero(n_lvl)),
@@ -1420,7 +1775,8 @@ class FastApriori:
             self._device_peak(met)
             lvls = decode_level_matrices(
                 rows, cols, counts, n_lvl,
-                max_rows=tail_slot_caps(m_cap, l_max), prev=cur)
+                max_rows=tail_slot_caps(m_cap, l_max, flat=segment),
+                prev=cur)
             met.update(complete_levels=len(lvls))
         return lvls, not incomplete, True
 
@@ -1433,42 +1789,65 @@ class FastApriori:
         min_count: int,
         heavy: Optional[tuple],
         vertical: bool = False,
-    ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        defer: bool = False,
+    ) -> Tuple[np.ndarray, object, dict]:
         """C7 + C8 for one level: candidates on the host, counts through
         K1 (``table`` the bitmap, ``weights`` its weight digits) or,
         with ``vertical``, through K3 (``table`` the tid-lane arena,
         ``weights`` its weight bit-planes), survivors at ``min_count``.
-        Returns the next level's lex-sorted matrix, its int64 counts and
-        per-level stats."""
+
+        Every chunk is issued (pinned uploads, no host wait) before the
+        level's one host read: the survivor bitmask, packed on the
+        device (``fetch.level_bits`` / ``fetch.vlevel_bits``).  The
+        per-candidate counts stay on the device: with ``defer`` the
+        second return is ``[(counts_dev, survivor positions)]`` for the
+        loop's resolve, else the host int64 counts of the survivors
+        (``fetch.level_counts``).  Returns the next level's lex-sorted
+        matrix, its counts and per-level stats."""
         ctx = self.ctx
         s = level.shape[1]
         f_pad = table.shape[0] - 1 if vertical else table.shape[1]
         x_idx, ys = concat_blocks(gen_candidates_stream(level))
         stats = {"candidates": int(x_idx.size), "launches": 0, "p_cap": 0}
-        counts = np.zeros(x_idx.size, dtype=np.int64)
+        empty = (np.empty((0, s + 1), dtype=np.int32),
+                 np.empty(0, dtype=np.int64), stats)
+        if x_idx.size == 0:
+            return empty
         hb, hw = heavy if heavy is not None else (None, None)
-        for prefix_cols, cand_idx, sl in level_chunks(
+        parts = []
+        for prefix_cols, cand_idx, _ in level_chunks(
             level, x_idx, ys, f_pad, self.config
         ):
             if vertical:
                 got = vertical_level_local(
-                    table, weights, scales, ctx.upload(prefix_cols),
-                    ctx.upload(cand_idx.astype(np.int32)),
+                    table, weights, scales, ctx.upload_async(prefix_cols),
+                    ctx.upload_async(cand_idx.astype(np.int32)),
                     self.config.vertical_cand_chunk,
                 )
                 stats["launches"] += 1
             else:
                 got = local_level_gather(
-                    table, weights, scales, ctx.upload(prefix_cols),
-                    s, ctx.upload(cand_idx), heavy_b=hb, heavy_w=hw,
+                    table, weights, scales, ctx.upload_async(prefix_cols),
+                    s, ctx.upload_async(cand_idx), heavy_b=hb, heavy_w=hw,
                 )
                 stats["launches"] += len(scales)
-            counts[sl] = ctx.fetch(got)
+            parts.append(got)
             stats["p_cap"] = max(stats["p_cap"], prefix_cols.shape[0])
-        keep = counts >= min_count
+        counts_dev = torch.cat(parts) if len(parts) > 1 else parts[0]
+        t0 = time.perf_counter()
+        bits = ctx.fetch_async(survivor_bits(counts_dev, min_count),
+                               "vlevel_bits" if vertical else "level_bits")
+        keep = np.unpackbits(bits.result(), count=x_idx.size).astype(bool)
+        stats["fetch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        if not keep.any():
+            return empty
         nxt = np.concatenate(
             [level[x_idx[keep]], ys[keep, None]], axis=1
         ).astype(np.int32)
         # Candidates arrive in (x_idx, y) order over a lex-sorted level,
-        # so nxt is lex-sorted — the invariant the next join needs.
-        return nxt, counts[keep], stats
+        # so nxt is lex-sorted — the invariant the next join needs — and
+        # the survivor positions follow its rows.
+        if defer:
+            return nxt, [(counts_dev, np.flatnonzero(keep))], stats
+        counts = ctx.fetch(counts_dev, "level_counts")[keep]
+        return nxt, counts.astype(np.int64), stats

@@ -16,7 +16,10 @@ built on the device from the engine's resident state (ops/contain.py
 ``rule_scan_build``; the JAX package's ``_ensure_scan_table`` at one
 shard) and the rules never cross to the device from the host; else the
 host's sorted rule arrays go up as a padded table (ops/contain.py
-``rule_table``).
+``rule_table``).  Any failure of the device scan, K2's launch or its
+``rec_match`` fetches after their retries, is an error: the cascade's
+``rule_scan`` chain (device -> host scan) is named but never walked, so
+K2's work never moves to the CPU while its table is on the card.
 """
 
 from __future__ import annotations
@@ -285,7 +288,7 @@ class AssociationRules:
             _, cons = strided_match_scan(
                 ctx.upload(bm), ctx.upload(blen), ant, size, consequent
             )
-            recs[b0 : b0 + n] = ctx.fetch(cons)[:n]
+            recs[b0 : b0 + n] = ctx.fetch(cons, "rec_match")[:n]
             launches += 1
         stats.update(rules=self.n_rules, table_rows=int(ant.shape[0]),
                      launches=launches, resident_table=False)
@@ -305,7 +308,7 @@ class AssociationRules:
                 ctx.upload_async(bm), ctx.upload_async(blen), ant, size,
                 consequent,
             )
-            fetches.append((b0, n, ctx.fetch_async(cons)))
+            fetches.append((b0, n, ctx.fetch_async(cons, "rec_match")))
         recs = np.full(len(baskets), -1, dtype=np.int64)
         for b0, n, fetch in fetches:
             recs[b0 : b0 + n] = fetch.result()[:n]

@@ -6,8 +6,13 @@ by ops/build.py with the host compiler into the git-ignored ``_build/``.
 When it cannot be built or loaded, :func:`get_lib` returns None and
 :func:`load_error` says why (the compiler's first error line): callers
 that may fall back to the Python path (preprocess.py ``_use_native``)
-put that reason on their metrics line; the entry points below raise.
-A failure inside the library is never turned into a fallback: it raises.
+put that reason on their metrics line and the degradation ledger gets a
+``native_unavailable`` event; the entry points below raise.  A failure
+inside the library is never turned into a fallback: it raises.  The
+failpoint sites ``native.load`` (before the library is loaded) and
+``native.blocks`` (the block ingest's entry) inject faults here
+(reliability/failpoints.py); an injected load failure is not
+remembered, so the next call loads again.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from fastapriori_tpu_torch.ops import build
+from fastapriori_tpu_torch.reliability import failpoints, ledger
 
 LIB = "fa_native"
 
@@ -27,6 +33,8 @@ LIB = "fa_native"
 # or build directory is a new attempt.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ERRORS: Dict[str, str] = {}
+# The last injected load failure per path (not remembered as an error).
+_INJECTED: Dict[str, str] = {}
 
 
 class _FaResult(ctypes.Structure):
@@ -157,20 +165,34 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """The native library, built first if needed; None when it cannot be
-    built or loaded (:func:`load_error` says why)."""
+    built or loaded (:func:`load_error` says why, and the ledger has a
+    ``native_unavailable`` event)."""
     key = str(build.library_path(LIB))
     lib = _LIBS.get(key)
     if lib is not None or key in _ERRORS:
         return lib
     try:
         build.build([LIB])
-        lib = ctypes.CDLL(key)
     except RuntimeError as e:  # the compiler failed or is missing
         _ERRORS[key] = f"library build failed: {_first_error_line(str(e))}"
+        ledger.record("native_unavailable", once_key="build", stage="build",
+                      error=_ERRORS[key])
         return None
+    try:
+        failpoints.fire("native.load")
+    except OSError as e:
+        _INJECTED[key] = f"library load failed: {str(e)[:200]}"
+        ledger.record("native_unavailable", once_key="load", stage="load",
+                      error=_INJECTED[key])
+        return None
+    try:
+        lib = ctypes.CDLL(key)
     except OSError as e:  # built, but the loader refused it
         _ERRORS[key] = f"library load failed: {str(e)[:200]}"
+        ledger.record("native_unavailable", once_key="load", stage="load",
+                      error=_ERRORS[key])
         return None
+    _INJECTED.pop(key, None)
     _bind(lib)
     _LIBS[key] = lib
     return lib
@@ -178,7 +200,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def load_error() -> Optional[str]:
     """Why the last :func:`get_lib` for the current build returned None."""
-    return _ERRORS.get(str(build.library_path(LIB)))
+    key = str(build.library_path(LIB))
+    if key in _LIBS:
+        return None
+    return _ERRORS.get(key, _INJECTED.get(key))
 
 
 def _require_lib() -> ctypes.CDLL:
@@ -422,6 +447,7 @@ def preprocess_buffer_blocks(
 
     An exception in a callback stops the remaining callbacks and is
     raised after the native call returns."""
+    failpoints.fire("native.blocks")
     lib = _require_lib()
     data_arg, data_len = _data_arg(data)
     errs: list = []

@@ -1,6 +1,7 @@
 """Support counting (counterpart: fastapriori_tpu/ops/count.py
 ``local_pair_counts``, ``heavy_pair_correction``,
-``heavy_level_correction``, ``frequent_pair_mask``,
+``heavy_level_correction``, ``frequent_pair_mask``, the level gather's
+survivor bitmask (:func:`survivor_bits`),
 ``pair_threshold_pack``, ``l3_threshold_pack``, ``local_pair_regather``
 and ``local_level_gather`` at ``axis_name=None``; reference C6/C8).
 
@@ -248,6 +249,19 @@ def _survivors(counts: torch.Tensor, mask: torch.Tensor, cap: int):
     flat_idx = _flat(_first_set(mask, cap), counts.shape[1])
     return (flat_idx, counts.reshape(-1).index_select(0, flat_idx),
             mask.sum(dtype=torch.int32))
+
+
+def survivor_bits(counts: torch.Tensor, min_count: int) -> torch.Tensor:
+    """The survivor mask ``counts >= min_count`` of a 1-D count tensor,
+    bit-packed on the device in ``np.packbits``' order (big-endian within
+    each byte, zero-padded to whole bytes): what crosses to the host per
+    level when the counts themselves stay on the device."""
+    m = (counts >= min_count).to(torch.int32)
+    pad = (-m.numel()) % 8
+    if pad:
+        m = torch.cat([m, m.new_zeros(pad)])
+    w = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=m.device)
+    return (m.view(-1, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
 
 
 def prefix_onehot(prefix_cols: torch.Tensor, f_pad: int) -> torch.Tensor:

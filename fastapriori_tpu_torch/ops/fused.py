@@ -41,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fastapriori_tpu_torch.device import AsyncFetch
+from fastapriori_tpu_torch.device import DeviceContext
 from fastapriori_tpu_torch.ops.bitmap import unpack_bitmap
 from fastapriori_tpu_torch.ops.count import (
     TRI_F_CAP,
@@ -226,7 +226,7 @@ def fused_mine(
             valid[:, None].to(torch.int8)
         store(0, rc[:, 0], rc[:, 1], pair, n, valid)
         del pair, mask
-    m = int(AsyncFetch(n).result())
+    m = int(DeviceContext.fetch_async(n, "fused").result())
     overflow = m > m_cap
     k = 3
     while not overflow and m >= k and k <= l_max + 1:
@@ -248,7 +248,7 @@ def fused_mine(
             s = extend_rows(s, rows, cols, valid)
             store(k - 2, rows, cols, counts, n, valid)
             del counts
-        m = int(AsyncFetch(n).result())
+        m = int(DeviceContext.fetch_async(n, "fused").result())
         overflow = m > m_cap
         k += 1
     incomplete = overflow or (m >= k and k > l_max + 1)
@@ -323,7 +323,8 @@ def tail_mine(
     slot_caps: Sequence[int],
     cand_row_chunks: int = 1,
     region: Optional[Region] = None,
-) -> torch.Tensor:
+    resolve: Optional[tuple] = None,
+):
     """The shallow-tail fold (the reference's ``_tail_mine_local`` at one
     device with the dense reduction): the levels after ``k0`` from the
     seed level, in one device loop.  Against :func:`fused_mine`: seeded
@@ -337,7 +338,14 @@ def tail_mine(
 
     Returns the reference's 1-D int32 layout: per slot i ``rows[:cap_i] |
     cols[:cap_i] | counts[:cap_i]``, then ``n_per_level[l_max] |
-    incomplete | 0`` (:func:`unpack_tail_result`)."""
+    incomplete | 0`` (:func:`unpack_tail_result`).
+
+    ``resolve = (pending, u24)``: the level loop's deferred survivor
+    counts (``[(counts_dev, flat positions)]``) are gathered inside the
+    same program, issued before its first level, and fetched while it
+    runs (the reference's ``tail_miner_with_resolve``); the return is
+    then ``(result, PendingCounts)`` with the fetch under
+    ``fetch.counts_resolve``."""
     assert m_cap > l_max + 1, (m_cap, l_max)
     region = region or contextlib.nullcontext
     dev = bitmap.device
@@ -351,6 +359,9 @@ def tail_mine(
     base = int(offs[-1])
     out = torch.zeros(base + l_max + 2, dtype=torch.int32, device=dev)
     n_out = out[base : base + l_max]
+    handle = (DeviceContext.gather_level_counts_start(
+        resolve[0], resolve[1], "counts_resolve")
+              if resolve is not None else None)
 
     with region():
         s = torch.zeros((m_cap, f), dtype=torch.int8, device=dev)
@@ -398,18 +409,24 @@ def tail_mine(
             out[o + 2 * cap : o + 3 * cap] = level_counts[:cap]
             n_out[idx] = torch.where(bad, m_cap + 1, n)
             flags = torch.stack([n, bad.to(torch.int32)])
-        m, bad_h = (int(x) for x in AsyncFetch(flags).result())
+        m, bad_h = (int(x) for x in
+                    DeviceContext.fetch_async(flags, "tail").result())
         stop = bool(bad_h)
         k += 1
     out[base + l_max] = int(stop or (m >= k and k > k0 + l_max))
-    return out
+    return out if handle is None else (out, handle)
 
 
-def tail_slot_caps(m_cap: int, l_max: int) -> Tuple[int, ...]:
+def tail_slot_caps(m_cap: int, l_max: int,
+                   flat: bool = False) -> Tuple[int, ...]:
     """Descending per-level row caps of the tail fold: slot i keeps
     ``m_cap >> i`` rows, at least 4,096 and at most m_cap (a fold's
     levels shrink; a level that does not trips the fold's sentinel and
-    the host resumes per level, exact either way)."""
+    the host resumes per level, exact either way).  ``flat``: every slot
+    keeps m_cap rows, the fused engine's checkpoint segment (seeded
+    mid-lattice, where levels may still grow)."""
+    if flat:
+        return tuple(m_cap for _ in range(l_max))
     return tuple(min(m_cap, max(m_cap >> i, 4096)) for i in range(l_max))
 
 
@@ -430,35 +447,42 @@ def make_tail_miner(
     l_max: int,
     n_chunks: int,
     has_heavy: bool,
+    flat_caps: bool = False,
 ):
     """The tail fold at one static configuration (the reference's
     ``make_tail_miner`` at ``mesh=None``): ``fn(bitmap, w_digits,
-    seed_cols, n0, min_count[, heavy_b, heavy_w], region=None)`` -> the
-    1-D int32 result of :func:`tail_mine`."""
+    seed_cols, n0, min_count[, heavy_b, heavy_w], region=None,
+    resolve=None)`` -> the 1-D int32 result of :func:`tail_mine`, or
+    ``(result, PendingCounts)`` with ``resolve`` (the pending-count
+    gather folded into the program: the reference's
+    ``tail_miner_with_resolve``).  ``flat_caps``: the checkpoint
+    segment's slot caps (:func:`tail_slot_caps`)."""
     assert m_cap > l_max + 1, (m_cap, l_max)
-    caps = tail_slot_caps(m_cap, l_max)
+    caps = tail_slot_caps(m_cap, l_max, flat=flat_caps)
     row_chunks = tail_cand_row_chunks(m_cap)
 
     def run(bitmap, w_digits, seed_cols, n0, min_count, *heavy,
-            region=None):
+            region=None, resolve=None):
         hb, hw = heavy if has_heavy else (None, None)
         return tail_mine(
             bitmap, w_digits, seed_cols, int(n0), int(min_count), hb, hw,
             scales=tuple(scales), k0=k0, m_cap=m_cap, p_cap=p_cap,
             l_max=l_max, n_chunks=n_chunks, slot_caps=caps,
-            cand_row_chunks=row_chunks, region=region)
+            cand_row_chunks=row_chunks, region=region, resolve=resolve)
 
     return run
 
 
-def unpack_tail_result(packed: np.ndarray, m_cap: int, l_max: int):
+def unpack_tail_result(packed: np.ndarray, m_cap: int, l_max: int,
+                       flat: bool = False):
     """Split the tail fold's 1-D result into ``(rows_list, cols_list,
     counts_list, n_per_level, incomplete, census)``: per-slot arrays
-    sized by :func:`tail_slot_caps` (decode them with ``max_rows`` = the
-    slot caps); the census is 0 (no sparse reduction at one device)."""
+    sized by :func:`tail_slot_caps` (``flat`` as built; decode them with
+    ``max_rows`` = the slot caps); the census is 0 (no sparse reduction
+    at one device)."""
     rows, cols, counts = [], [], []
     off = 0
-    for c in tail_slot_caps(m_cap, l_max):
+    for c in tail_slot_caps(m_cap, l_max, flat=flat):
         rows.append(packed[off : off + c])
         cols.append(packed[off + c : off + 2 * c])
         counts.append(packed[off + 2 * c : off + 3 * c])

@@ -22,7 +22,11 @@ device engine, which runs the joins and the prune level by level on the
 device (ops/contain.py ``rule_level_kernel``) and fetches only the
 survivor masks and the survivors' denominators; the host then divides
 the same integers.  The device engine can leave its per-level state on
-the device for the recommender's scan table (``DeviceRuleState``).
+the device for the recommender's scan table (``DeviceRuleState``).  A
+forced device engine that falls back, and a device engine whose fetches
+failed past their retries (reliability/retry.py: transient errors only),
+walk the cascade's ``rule_engine`` chain, device -> host, with a ledger
+event.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 from fastapriori_tpu_torch.errors import InputError
 from fastapriori_tpu_torch.ops.bitmap import next_pow2
 from fastapriori_tpu_torch.ops.contain import rule_key_bits, rule_level_kernel
+from fastapriori_tpu_torch.reliability import ledger, retry, watchdog
 from fastapriori_tpu_torch.utils.env import env_choice
 from fastapriori_tpu_torch.utils.order import consequent_key
 
@@ -111,8 +116,13 @@ def _pick_rule_engine(mats, context, config, metrics=None) -> str:
     raw = _raw_rule_count(mats)
 
     def fallback(reason: str) -> str:
-        if engine == "device" and metrics is not None:
-            metrics.emit("rule_gen_fallback", reason=reason, raw_rules=raw)
+        if engine == "device":
+            if metrics is not None:
+                metrics.emit("rule_gen_fallback", reason=reason,
+                             raw_rules=raw)
+            ledger.record("rule_gen_fallback", reason=reason, raw_rules=raw)
+            watchdog.downgrade("rule_engine", "device", "host",
+                               reason=reason)
         return "host"
 
     if context is None:
@@ -326,7 +336,18 @@ def rule_arrays_from_tables(
     eligible, and ``scan_state`` keeps its per-level state on the device
     for the recommender's scan table."""
     if _pick_rule_engine(mats, context, config, metrics) == "device":
-        return _rule_arrays_device(mats, context, metrics, scan_state)
+        try:
+            return _rule_arrays_device(mats, context, metrics, scan_state)
+        except Exception as exc:
+            # A transient at the joins' fetches that outlasted its
+            # retries walks to the host engine (the same arrays).
+            if not retry.exhausted(exc):
+                raise
+            watchdog.downgrade("rule_engine", "device", "host",
+                               reason="transient_exhausted",
+                               error=f"{type(exc).__name__}: {exc}"[:200])
+            if scan_state is not None:
+                scan_state.release()
     return _rule_arrays_host(mats)
 
 
@@ -388,7 +409,7 @@ def _rule_arrays_device(
             per_level.append({
                 "k": k, "n": n, "n_pad": n_pad, "mat": mat, "cnts": cnts,
                 "arrays": (mat_dev, cnts_dev, d_flat, surv_flat),
-                "fetch": ctx.fetch_async(packed),
+                "fetch": ctx.fetch_async(packed, "rule_mask"),
             })
             psorted, porder, pcnts = skeys, order, cnts_dev
             prev_surv, prev_d, prev_n = surv_flat, d_flat, n
@@ -416,7 +437,7 @@ def _rule_arrays_device(
         pend.append((lv["arrays"][2], pos))
     have = [(d, p) for d, p in pend if p.size]
     den = (ctx.finish_level_counts(
-        ctx.gather_level_counts_start(have, u24=True))
+        ctx.gather_level_counts_start(have, u24=True, site="rule_counts"))
         if have else np.empty(0, np.int64))
 
     out: List[RuleArrays] = []

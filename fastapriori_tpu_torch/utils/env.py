@@ -1,10 +1,13 @@
 """Strict environment parsing (counterpart: fastapriori_tpu/utils/env.py
-``env_choice`` and ``env_int``).
+``env_choice``, ``env_int`` and ``env_float``).
 
-The port reads three environment variables, ``FA_MINE_ENGINE``
-(models/apriori.py), ``FA_INGEST_THREADS`` (preprocess.py
-``ingest_thread_count``) and ``FA_RULE_ENGINE`` (rules/gen.py
-``rule_engine_from_env``); a value it does not know is an error, never
+The port reads ``FA_MINE_ENGINE`` (models/apriori.py),
+``FA_INGEST_THREADS`` (preprocess.py ``ingest_thread_count``),
+``FA_RULE_ENGINE`` (rules/gen.py ``rule_engine_from_env``), and the
+reliability core's ``FA_FAILPOINTS`` (reliability/failpoints.py),
+``FA_RETRY_MAX`` and ``FA_RETRY_BACKOFF_MS`` (reliability/retry.py),
+``FA_DISPATCH_TIMEOUT_S`` and ``FA_DISPATCH_MAX_ABANDONED``
+(reliability/watchdog.py); a value it does not know is an error, never
 a quiet default.
 """
 
@@ -44,6 +47,25 @@ def env_int(name: str, default: int, minimum: Optional[int] = None) -> int:
     except ValueError:
         raise InputError(
             f"unrecognized {name} value {raw!r}: expected an integer"
+        ) from None
+    if minimum is not None and val < minimum:
+        raise InputError(f"{name}={val} is out of range: must be >= {minimum}")
+    return val
+
+
+def env_float(
+    name: str, default: float, minimum: Optional[float] = None
+) -> float:
+    """Strict float knob: unset -> ``default``, a number of at least
+    ``minimum`` -> itself, anything else -> ``InputError``."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        val = float(raw)
+    except ValueError:
+        raise InputError(
+            f"unrecognized {name} value {raw!r}: expected a number"
         ) from None
     if minimum is not None and val < minimum:
         raise InputError(f"{name}={val} is out of range: must be >= {minimum}")

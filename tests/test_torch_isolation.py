@@ -11,9 +11,12 @@
   loads only its own native sources).
 
 The vertical engine's modules (ops/vertical.py, ops/vertical_kernel.py,
-utils/env.py) and the device rule engine's (rules/gen.py, ops/contain.py,
-device.py) are imported by name, and a forced vertical mine or a forced
-device rule engine without a CUDA device is refused like any other run.
+utils/env.py), the device rule engine's (rules/gen.py, ops/contain.py,
+device.py) and the reliability core's (reliability/*, io/checkpoint.py,
+io/resume.py) are imported by name, and a forced vertical mine or a
+forced device rule engine without a CUDA device is refused like any
+other run.  fsspec is imported only inside the functions that open a
+remote path: importing the port, and a local run, leave it out.
 """
 
 import ast
@@ -43,9 +46,15 @@ def test_import_leaves_jax_out():
         "fastapriori_tpu_torch.utils.env, fastapriori_tpu_torch.native, "
         "fastapriori_tpu_torch.native.loader, fastapriori_tpu_torch.device, "
         "fastapriori_tpu_torch.rules.gen, fastapriori_tpu_torch.ops.contain, "
-        "fastapriori_tpu_torch.models.recommender\n"
+        "fastapriori_tpu_torch.models.recommender, "
+        "fastapriori_tpu_torch.reliability.failpoints, "
+        "fastapriori_tpu_torch.reliability.ledger, "
+        "fastapriori_tpu_torch.reliability.retry, "
+        "fastapriori_tpu_torch.reliability.watchdog, "
+        "fastapriori_tpu_torch.io.checkpoint, "
+        "fastapriori_tpu_torch.io.resume, fastapriori_tpu_torch.io.writer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'fastapriori_tpu'))\n"
+        "('jax', 'fastapriori_tpu', 'fsspec'))\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -75,9 +84,47 @@ def test_no_module_of_the_port_names_jax():
             os.path.join("fastapriori_tpu_torch", "utils", "env.py"),
             os.path.join("fastapriori_tpu_torch", "rules", "gen.py"),
             os.path.join("fastapriori_tpu_torch", "ops", "contain.py"),
-            os.path.join("fastapriori_tpu_torch", "device.py")} <= names
+            os.path.join("fastapriori_tpu_torch", "device.py"),
+            os.path.join("fastapriori_tpu_torch", "reliability", "retry.py"),
+            os.path.join("fastapriori_tpu_torch", "reliability",
+                         "watchdog.py"),
+            os.path.join("fastapriori_tpu_torch", "io", "checkpoint.py"),
+            os.path.join("fastapriori_tpu_torch", "io", "resume.py")} <= names
     for path in files:
         assert FORBIDDEN.isdisjoint(_imported_roots(path)), path
+
+
+def test_fsspec_is_imported_only_for_a_remote_path(tmp_path):
+    """No module of the port imports fsspec at its top level, and a local
+    CLI run with checkpoints and phase-1 artifacts leaves it out."""
+    for dirpath, _, names in os.walk(PKG):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, n)) as f:
+                tree = ast.parse(f.read())
+            top = [a.name for node in tree.body
+                   if isinstance(node, ast.Import) for a in node.names]
+            top += [node.module for node in tree.body
+                    if isinstance(node, ast.ImportFrom) and node.module]
+            assert "fsspec" not in top, n
+    (tmp_path / "D.dat").write_text("1 2\n2 3\n1 2 3\n")
+    (tmp_path / "U.dat").write_text("1\n")
+    out = str(tmp_path) + "/out-"
+    code = (
+        "import sys\n"
+        "from fastapriori_tpu_torch.cli import main\n"
+        f"assert main([{str(tmp_path) + '/'!r}, {out!r}, '--platform', "
+        "'cpu', '--min-support', '0.3', '--checkpoint-every-level', "
+        "'--save-counts']) == 0\n"
+        f"assert main([{str(tmp_path) + '/'!r}, {out!r}, '--platform', "
+        f"'cpu', '--resume-from', {out!r}]) == 0\n"
+        "print('fsspec' in sys.modules)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
 
 
 # A path under the JAX package: "fastapriori_tpu/...", or the bare

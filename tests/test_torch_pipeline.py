@@ -336,7 +336,8 @@ def test_uploader_and_async_fetch_on_the_cpu():
     up.close()
     assert all(np.array_equal(g.numpy(), a) for g, a in zip(got, arrays))
     x = torch.arange(7, dtype=torch.int32)
-    assert np.array_equal(ctx.fetch_async(x).result(), np.arange(7))
+    assert np.array_equal(ctx.fetch_async(x, "pair_pre").result(),
+                          np.arange(7))
     assert ctx.upload_async(np.ones(3, np.int8)).dtype == torch.int8
     with ctx.sync_free():  # a no-op off CUDA
         pass
