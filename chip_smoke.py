@@ -127,6 +127,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``fetch.level_bits:oom*1`` armed: the digests, and exactly one
    ``retry`` ledger event at that site.  Every CLI run of the script
    that was not injected must leave the degradation ledger empty.
+10. Observability (``observability_phase``): (a) the warm T10 zero-flag
+   CLI four times each, in turns, plain, with ``--trace`` and with
+   ``--profile-dir``, after one untimed round (the process's first
+   profiler start): median, min and max wall of each beside the card's
+   name and power limit; (b) T10 with ``--trace`` and ``--profile-dir``:
+   the JAX digests, a valid Chrome trace whose spans nest run -> phase ->
+   mine -> level with one level span per level event, and a device
+   trace (obs/device_trace.py ``kernel_summary``) that names K1 7 times
+   and K2 once, equal to the launch counters; (c) kosarak with
+   ``FA_MINE_ENGINE=vertical --profile-dir``: K3 6 times in the device
+   trace, equal to its counter; a capture whose device trace lacks a
+   counted launch is retaken up to three times, then the phase fails;
+   each capture's device time by stage (``by_stage``) and its heaviest
+   rows are printed; (d) T10 with ``FA_NO_PALLAS=1``: the JAX digests,
+   no hand kernel launched, ``plain_kernels`` on the level and
+   ``first_match`` events, exactly one ``pallas_disabled`` ledger event.
 
 Every child process starts first, when ``nvidia-smi`` is on the path:
 the prep child, which writes both corpora and runs the Python ingest of
@@ -731,21 +747,25 @@ def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
 
 
 # The environment variables the CLI reads (cli_path sets them per call).
-CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE")
+CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE", "FA_NO_PALLAS")
 
 
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
              digests: dict, env=None, extra_args=(), ingest: bool = True,
-             injected=None) -> tuple:
-    """Phases 3, 4 and 9: the port's CLI in-process, with the variables
-    of :data:`CLI_ENV` set as ``env`` says (the rest unset) for this call
-    only and ``extra_args`` after the zero-flag arguments; checks the
-    output digests and, with ``ingest``, that the run took the pipelined
-    capture ingest on more than one thread, and returns the kernels'
-    launch counts on this run with the run's metrics fields.  The
-    degradation ledger is emptied before the run and must be empty after
-    it, unless ``injected = (site, spec)`` arms that failpoint for the
-    run: then it must hold exactly one ``retry`` at that site."""
+             injected=None, ledgered=None, allowed=(),
+             verbose: bool = True) -> tuple:
+    """Phases 3, 4, 9 and 10: the port's CLI in-process, with the
+    variables of :data:`CLI_ENV` set as ``env`` says (the rest unset) for
+    this call only and ``extra_args`` after the zero-flag arguments;
+    checks the output digests and, with ``ingest``, that the run took the
+    pipelined capture ingest on more than one thread, and returns the
+    kernels' launch counts on this run with the run's metrics fields.
+    The degradation ledger is emptied before the run and must be empty
+    after it, but for events of the kinds in ``allowed``; with
+    ``ledgered`` (a summary) it must hold exactly those; with
+    ``injected = (site, spec)`` that failpoint is armed for the run and
+    the ledger must hold exactly one ``retry`` at that site.
+    ``verbose`` False logs the wall line only."""
     import torch
 
     from fastapriori_tpu_torch import cli
@@ -778,8 +798,14 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
         sys.stderr.write(captured.getvalue())
     if rc != 0:
         raise SystemExit(f"{name}: CLI exited {rc}")
-    summary = ledger.summary()
-    if injected is None and summary:
+    summary = {k: v for k, v in ledger.summary().items()
+                if k not in allowed}
+    if ledgered is not None:
+        if summary != ledgered:
+            raise SystemExit(f"{name}: the ledger holds {ledger.snapshot()}, "
+                             f"expected {ledgered}")
+        log(f"{name}: ledger {summary}")
+    elif injected is None and summary:
         raise SystemExit(f"{name}: a clean run degraded: {summary} "
                          f"{ledger.snapshot()}")
     if injected is not None:
@@ -791,8 +817,9 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     log(f"{name}: CLI wall {wall:.3f} s, launches {launches}, peak device "
         f"memory {torch.cuda.max_memory_allocated()} bytes")
     walls, fields = phase_metrics(captured.getvalue())
-    log(f"{name} phases (wall ms): " + json.dumps(walls))
-    log(f"{name} phase metrics: " + json.dumps(fields))
+    if verbose:
+        log(f"{name} phases (wall ms): " + json.dumps(walls))
+        log(f"{name} phase metrics: " + json.dumps(fields))
     fields["cli_wall_s"] = wall
     fields["walls"] = walls
     if not ingest:
@@ -807,7 +834,8 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
         raise SystemExit(f"{name}: the CLI did not take the pipelined "
                          f"capture ingest on more than one thread: {pre}")
     k3 = fields.get("level k=3", {})
-    log(f"{name}: level 3 overlapped={k3.get('overlapped')} n2="
+    log_if = log if verbose else (lambda msg: None)
+    log_if(f"{name}: level 3 overlapped={k3.get('overlapped')} n2="
         f"{k3.get('n2', fields.get('level k=2', {}).get('frequent'))} "
         f"p3={k3.get('p3')} n3={k3.get('n3', k3.get('frequent'))} "
         f"cap3={k3.get('cap3')}; pair_l3_overflow "
@@ -861,14 +889,16 @@ def expected_launches(fields: dict) -> dict:
     """Each kernel's launches as the run's own metrics count them: K1 or
     K3 (by the level events' engine) once per launch of each level that
     ran through the level loop, K2 once per micro-batch of the device
-    first-match scan."""
+    first-match scan; none where the event says ``plain_kernels``
+    (``FA_NO_PALLAS``: the plain versions ran on the card)."""
     level = sum(v.get("launches", 0) for k, v in fields.items()
-                if k.startswith("level k="))
+                if k.startswith("level k=") and not v.get("plain_kernels"))
     vertical = "arena_build" in fields
     fm = fields.get("first_match", {})
     return {"level_counts": 0 if vertical else level,
             "vertical_counts": level if vertical else 0,
-            "first_match": fm.get("launches", 0) if fm.get("device") else 0}
+            "first_match": fm.get("launches", 0)
+            if fm.get("device") and not fm.get("plain_kernels") else 0}
 
 
 def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
@@ -2114,6 +2144,179 @@ def reliability_phases(in_dir: str, k_in: str, main_fields: dict,
     return out
 
 
+# Phase 10: each hand kernel's symbol in the device trace (the name
+# torch.profiler reports holds it) and the launch counter it must equal.
+KERNEL_SYMBOLS = {"level_counts": "level_counts_packed",
+                  "first_match": "first_match_kernel",
+                  "vertical_counts": "vertical_counts_kernel"}
+
+
+def traced_kernel_calls(summary: dict) -> dict:
+    """Launches of each hand kernel in a ``kernel_summary``."""
+    return {name: sum(r["calls"] for r in summary["kernels"]
+                      if sym in r["name"])
+            for name, sym in KERNEL_SYMBOLS.items()}
+
+
+def profiled_run(name: str, in_dir: str, min_support: str, digests: dict,
+                 env=None, trace_path=None) -> tuple:
+    """Phase 10: the CLI with ``--profile-dir`` (and ``--trace`` with
+    ``trace_path``), retaken up to three times while the device trace
+    lacks a launch the counters saw (torch.profiler has returned an empty
+    device trace once after full ones): each hand kernel's launches in
+    the trace must equal its counter, else the phase fails.  Returns
+    ``(launches, fields, kernel_summary)``."""
+    from fastapriori_tpu_torch.obs import device_trace, trace
+
+    for attempt in range(3):
+        prof = os.path.join(WORK, f"prof_{name.replace(' ', '_')}_{attempt}")
+        extra = ["--profile-dir", prof]
+        if trace_path:
+            extra += ["--trace", trace_path]
+        launches, fields = cli_path(
+            f"{name} (attempt {attempt + 1})", in_dir,
+            os.path.join(WORK, "out_prof"), min_support, digests, env=env,
+            extra_args=extra, allowed=("device_trace_unavailable",),
+            verbose=attempt == 0)
+        trace.TRACER.disable()
+        summary = device_trace.kernel_summary(prof)
+        traced = traced_kernel_calls(summary)
+        if traced == launches:
+            log(f"{name}: device trace {summary['trace']}: hand kernels "
+                f"{traced}, equal to the launch counters")
+            return launches, fields, summary
+        log(f"{name}: the device trace holds {traced}, the counters "
+            f"{launches} (capture {attempt + 1} of 3)")
+    raise SystemExit(f"{name}: after three captures the device trace still "
+                     f"lacks launches the counters saw")
+
+
+def log_device_stages(name: str, summary: dict, card: str) -> dict:
+    """One line of per-stage device time and one of the heaviest kernel
+    rows (names cut to 120 characters) from a ``kernel_summary``."""
+    stages = {k: round(v / 1e3, 4) for k, v in summary["by_stage"].items()}
+    log(f"{name}: device time by stage (ms; {card}): {json.dumps(stages)}")
+    top = [{"name": r["name"][:120], "stage": r["stage"],
+            "calls": r["calls"], "ms": round(r["total_us"] / 1e3, 4)}
+           for r in summary["kernels"][:8]]
+    log(f"{name}: heaviest device events: {json.dumps(top)}")
+    return stages
+
+
+def require_span_tree(name: str, trace_path: str, fields: dict) -> int:
+    """The ``--trace`` artifact of a run: a valid Chrome trace whose
+    spans nest run -> phase -> mine -> level, with one ``level`` span per
+    ``level`` event of the run.  Returns its event count."""
+    from fastapriori_tpu_torch.obs.trace import validate_chrome_trace
+
+    with open(trace_path) as f:
+        doc = json.load(f)
+    problems = validate_chrome_trace(doc)
+    if problems:
+        raise SystemExit(f"{name}: invalid Chrome trace: {problems[:5]}")
+    spans = {e["args"]["sid"]: e for e in doc["traceEvents"]
+             if e["ph"] == "X"}
+    for sid in ("main:run#0", "main:run#0/phase#0", "main:run#0/phase#1",
+                "main:run#0/phase#0/mine#0"):
+        if sid not in spans:
+            raise SystemExit(f"{name}: the trace lacks span {sid}")
+    ks = sorted(e["args"]["k"] for e in spans.values()
+                if e["name"] == "level"
+                and e["args"]["sid"].startswith("main:run#0/phase#0/mine#0/"))
+    want = sorted(int(key.split("=")[1].split()[0]) for key in fields
+                  if key.startswith("level k="))
+    if ks != want:
+        raise SystemExit(f"{name}: level spans k {ks}, level events {want}")
+    log(f"{name}: trace {len(doc['traceEvents'])} events, valid, run -> "
+        f"phase -> mine -> level k = {ks}")
+    return len(doc["traceEvents"])
+
+
+def observability_phase(in_dir: str, k_in: str, card: str) -> dict:
+    """Phase 10: the traced and profiled CLI (the module docstring).
+    Returns the walls and the per-stage device times."""
+    from fastapriori_tpu_torch.obs import trace
+
+    digests = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
+    kdigests = {"freqItemset": KOSARAK["freq_sha256"],
+                "recommends": KOSARAK["rec_sha256"]}
+    trace.TRACER.disable()
+    out: dict = {"card": card}
+    # (a) The warm T10 zero-flag wall: plain, --trace, --profile-dir, in
+    # turns, four runs each after one untimed round (the process's first
+    # profiler start is logged there: it is not a warm run's).
+    walls = {"plain": [], "trace": [], "profile": []}
+    for i in range(-1, 4):
+        for kind in walls:
+            extra = ()
+            if kind == "trace":
+                extra = ("--trace", os.path.join(WORK, f"wall_{i}.json"))
+            elif kind == "profile":
+                extra = ("--profile-dir", os.path.join(WORK, f"wall_{i}"))
+            launches, fields = cli_path(
+                f"wall {kind} {i + 1}", in_dir, os.path.join(WORK, "out_obs"),
+                MIN_SUPPORT, digests, extra_args=extra,
+                allowed=("device_trace_unavailable",), verbose=False)
+            trace.TRACER.disable()
+            require_launches(f"wall {kind} {i + 1}", launches, fields,
+                             ran=("level_counts", "first_match"))
+            if i < 0:
+                out[f"t10_{kind}_first_cli_s"] = fields["cli_wall_s"]
+            else:
+                walls[kind].append(fields["cli_wall_s"])
+    for kind, ws in walls.items():
+        ws = sorted(ws)
+        out[f"t10_{kind}_cli_s"] = ws
+        log(f"observability wall, T10 zero flags {kind} ({card}): median "
+            f"{(ws[1] + ws[2]) / 2:.4f} s, min {ws[0]:.4f}, max {ws[-1]:.4f} "
+            f"over {len(ws)} warm runs")
+    # (b) --trace and --profile-dir together: the span tree, and K1 x 7
+    # and K2 x 1 in the device trace.
+    path = os.path.join(WORK, "t10.trace.json")
+    launches, fields, summary = profiled_run(
+        "traced main path", in_dir, MIN_SUPPORT, digests, trace_path=path)
+    require_launches("traced main path", launches, fields,
+                     ran=("level_counts", "first_match"))
+    if (launches["level_counts"], launches["first_match"]) != (7, 1):
+        raise SystemExit(f"traced main path: launches {launches}, expected "
+                         f"K1 x 7 and K2 x 1")
+    out["t10_trace_events"] = require_span_tree("traced main path", path,
+                                                fields)
+    out["t10_device_ms_by_stage"] = log_device_stages("traced main path",
+                                                      summary, card)
+    # (c) kosarak vertical with --profile-dir: K3 x 6.
+    launches, fields, summary = profiled_run(
+        "profiled vertical path", k_in, KOSARAK["min_support"], kdigests,
+        env={"FA_MINE_ENGINE": "vertical"})
+    require_launches("profiled vertical path", launches, fields,
+                     ran=("vertical_counts", "first_match"))
+    if launches["vertical_counts"] != 6:
+        raise SystemExit(f"profiled vertical path: launches {launches}, "
+                         f"expected K3 x 6")
+    out["kosarak_device_ms_by_stage"] = log_device_stages(
+        "profiled vertical path", summary, card)
+    # (d) FA_NO_PALLAS=1: the plain versions on the card, no hand kernel,
+    # one pallas_disabled event, the JAX digests.
+    launches, fields = cli_path(
+        "FA_NO_PALLAS path", in_dir, os.path.join(WORK, "out_plain"),
+        MIN_SUPPORT, digests, env={"FA_NO_PALLAS": "1"},
+        ledgered={"pallas_disabled": 1})
+    if any(launches.values()):
+        raise SystemExit(f"FA_NO_PALLAS path: hand kernels launched "
+                         f"{launches}")
+    plain = [k for k, v in fields.items()
+             if isinstance(v, dict) and v.get("plain_kernels")]
+    if "first_match" not in plain or not any(k.startswith("level k=")
+                                             for k in plain):
+        raise SystemExit(f"FA_NO_PALLAS path: events with plain_kernels "
+                         f"{plain}")
+    out["t10_no_pallas_cli_s"] = fields["cli_wall_s"]
+    log(f"FA_NO_PALLAS path: no hand kernel launched, plain versions in "
+        f"{plain} ({card})")
+    log("observability summary: " + json.dumps(out))
+    return out
+
+
 def require_replayed(name: str, measured: dict, counted: int) -> None:
     """Phase 5's replay of a path must launch a kernel as often as the
     counted CLI run did, or its per-launch times are not the path's."""
@@ -2163,7 +2366,7 @@ def main() -> int:
 
 
 def run(t_start: float) -> int:
-    """Phases 1-9 (the module docstring); returns 0 when all passed."""
+    """Phases 1-10 (the module docstring); returns 0 when all passed."""
     import torch
 
     from fastapriori_tpu_torch.ops import build
@@ -2228,6 +2431,7 @@ def run(t_start: float) -> int:
     require_rule_engine("vertical device rules path", vrules_fields,
                         device=True)
     reliability = reliability_phases(in_dir, k_in, main_fields, vert_fields)
+    observability = observability_phase(in_dir, k_in, card)
     for name, path, _, min_support in corpora():
         ingest_compare(name, path, min_support, python_ingest[name])
 
@@ -2309,6 +2513,7 @@ def run(t_start: float) -> int:
     log("rule crossover summary: " + json.dumps(
         {path: m["rule_crossover"] for path, m in built.items()}))
     log("reliability walls: " + json.dumps(reliability))
+    log("observability walls: " + json.dumps(observability))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
         f"torch's import, {time.perf_counter() - T_START:.3f} s from the "
         f"script's start")

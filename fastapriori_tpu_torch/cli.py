@@ -4,7 +4,8 @@ reference C1, Main.scala:15-41).
     python -m fastapriori_tpu_torch <input-prefix> <output-prefix> [tmp] \\
         [--min-support S] [--engine auto|fused|level] [--metrics] \\
         [--platform default|cpu] [--save-counts] [--resume-from PREFIX] \\
-        [--checkpoint-every-level] [--checkpoint-cadence N]
+        [--checkpoint-every-level] [--checkpoint-cadence N] \\
+        [--trace PATH] [--profile-dir DIR]
 
 - ``input`` prefix: reads ``<input>D.dat`` and ``<input>U.dat`` (path
   concatenation, Utils.scala:21-23 — a trailing slash matters);
@@ -36,15 +37,28 @@ reference C1, Main.scala:15-41).
   D.dat and restarts the level loop after the deepest saved level;
   ``--checkpoint-cadence`` is the levels per device segment of
   ``--engine fused`` under ``--checkpoint-every-level``.  Prefixes with
-  a scheme (``gs://`` ...) need fsspec.
+  a scheme (``gs://`` ...) need fsspec;
+- ``--trace PATH`` records the span tracer (run -> phase -> mine ->
+  level and the other metrics sections -> audited fetches; obs/trace.py)
+  and writes its Chrome trace JSON to PATH (Perfetto loads it);
+  ``FA_TRACE=1`` records without writing;
+- ``--profile-dir DIR`` captures a ``torch.profiler`` trace of both
+  phases into DIR (obs/device_trace.py; ``kernel_summary(DIR)`` gives
+  each kernel's device time and stage); the JAX CLI's profiles the
+  mining phase alone, but K2 runs in the recommend phase.
 
-User-correctable failures print one line and exit 2; an injected crash
+Phase walls print as the reference's ``====`` lines, and are ``phase``
+spans and ``phase`` metrics events as well.  User-correctable failures
+print one line and exit 2, after the flight recorder has written
+``<output>flight.json`` (obs/flight.py: the last span, ledger and
+watchdog events, reason ``classified_error``); an injected crash
 (``FA_FAILPOINTS=<site>:abort``) prints the site and exits 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 from typing import List, Optional
@@ -110,6 +124,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "levels mined per device segment between checkpoint "
                    "commits (default 1 = a durable checkpoint after every "
                    "level, matching the level engine)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the mining and "
+                   "recommend phases here (CPU and CUDA activity, a gzip "
+                   "Chrome trace)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the span tracer (run → phase → mine → "
+                   "level → fetch) and export Chrome-trace-event JSON here "
+                   "— load it in Perfetto (ui.perfetto.dev); FA_TRACE=1 "
+                   "records without exporting")
     return p
 
 
@@ -118,6 +141,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         return _run(args)
     except InputError as e:
+        # A classified failure: the flight recorder's post-mortem (the
+        # last span, ledger and watchdog events) goes next to the run's
+        # other artifacts before the one-line message.
+        from fastapriori_tpu_torch.obs import flight
+
+        flight.auto_dump("classified_error",
+                         extra={"error": f"InputError: {e}"[:400]})
         print(f"error: {e}", file=sys.stderr)
         return 2
     except FileNotFoundError as e:
@@ -166,14 +196,8 @@ def _load_resume(prefix: str):
 
 def _run(args) -> int:
     from fastapriori_tpu_torch.io.reader import read_dat
-    from fastapriori_tpu_torch.io.resume import phase1_levels, save_phase1_aux
-    from fastapriori_tpu_torch.io.writer import (
-        save_freq_itemsets_levels,
-        save_recommends,
-        write_manifest,
-    )
     from fastapriori_tpu_torch.models.apriori import FastApriori
-    from fastapriori_tpu_torch.models.recommender import AssociationRules
+    from fastapriori_tpu_torch.obs import device_trace, flight, trace
 
     config = MinerConfig(
         min_support=args.min_support,
@@ -187,47 +211,86 @@ def _run(args) -> int:
         checkpoint_every_levels=max(args.checkpoint_cadence, 1),
     )
     device = "cpu" if args.platform == "cpu" else "cuda"
+    # Observability: the strict knobs, span recording on --trace or
+    # FA_TRACE, and the flight recorder's dumps under this run's prefix.
+    flight.reload_from_env()
+    device_trace.enabled_by_env()
+    trace.maybe_enable(bool(args.trace))
+    flight.set_dump_prefix(args.output)
     miner = FastApriori(config=config, device=device)
     u_lines = read_dat(args.input + "U.dat")
 
+    # --profile-dir captures both phases: K2, the recommend scan's
+    # kernel, runs in the second.
+    profile = (device_trace.capture(args.profile_dir, explicit=True)
+               if args.profile_dir else contextlib.nullcontext({}))
+    with trace.span("run", cmd="mine"), profile as captured:
+        _phases(args, config, device, miner, u_lines)
+    if captured.get("active"):
+        print(f"device trace written: {captured['trace']} "
+              f"({captured['device_events']} device events)",
+              file=sys.stderr)
+    if args.trace:
+        path = trace.TRACER.export(args.trace)
+        print(f"trace written: {path} ({len(trace.TRACER.events())} events; "
+              "load in Perfetto)", file=sys.stderr)
+    return 0
+
+
+def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
+    """The reference's two phases, each a ``phase`` span with its
+    ``====`` wall: mining (or the phase-1 artifacts of
+    ``--resume-from``) and its writes, then recommendation and its
+    writes."""
+    from fastapriori_tpu_torch.io.resume import phase1_levels, save_phase1_aux
+    from fastapriori_tpu_torch.io.writer import (
+        save_freq_itemsets_levels,
+        save_recommends,
+        write_manifest,
+    )
+    from fastapriori_tpu_torch.models.recommender import AssociationRules
+    from fastapriori_tpu_torch.utils.logging import phase_timer
+
     t1 = time.perf_counter()
-    kind, resumed = (_load_resume(args.resume_from) if args.resume_from
-                     else (None, None))
-    if kind == "phase1":
-        # The recommend phase alone, from the phase-1 artifacts.
-        freq_itemsets, item_to_rank, freq_items = resumed
-        levels, item_counts = phase1_levels(freq_itemsets, len(freq_items))
-    else:
-        if kind == "checkpoint":
-            ck_levels, ck_meta = resumed
-            miner.set_resume_levels(ck_levels, ck_meta,
-                                    label=args.resume_from)
-        levels, data = miner.run_file_raw(args.input + "D.dat")
-        freq_items, item_to_rank = data.freq_items, data.item_to_rank
-        item_counts = data.item_counts
-        manifest: dict = {}
-        save_freq_itemsets_levels(
-            args.output, levels, freq_items, manifest=manifest,
-            item_counts=item_counts, with_counts_path=args.save_counts)
-        if args.save_counts:
-            save_phase1_aux(args.output, freq_items, item_to_rank,
-                            manifest=manifest)
-        write_manifest(args.output, manifest)
+    with phase_timer("get freqItemsets", enabled=False):
+        kind, resumed = (_load_resume(args.resume_from) if args.resume_from
+                         else (None, None))
+        if kind == "phase1":
+            # The recommend phase alone, from the phase-1 artifacts.
+            freq_itemsets, item_to_rank, freq_items = resumed
+            levels, item_counts = phase1_levels(freq_itemsets,
+                                                len(freq_items))
+        else:
+            if kind == "checkpoint":
+                ck_levels, ck_meta = resumed
+                miner.set_resume_levels(ck_levels, ck_meta,
+                                        label=args.resume_from)
+            levels, data = miner.run_file_raw(args.input + "D.dat")
+            freq_items, item_to_rank = data.freq_items, data.item_to_rank
+            item_counts = data.item_counts
+            manifest: dict = {}
+            save_freq_itemsets_levels(
+                args.output, levels, freq_items, manifest=manifest,
+                item_counts=item_counts, with_counts_path=args.save_counts)
+            if args.save_counts:
+                save_phase1_aux(args.output, freq_items, item_to_rank,
+                                manifest=manifest)
+            write_manifest(args.output, manifest)
     print("==== Total time for get freqItemsets "
           f"{int((time.perf_counter() - t1) * 1e3)}", file=sys.stderr)
 
     t2 = time.perf_counter()
-    recommender = AssociationRules(
-        freq_items, item_to_rank, levels, item_counts,
-        config=config, device=device,
-    )
-    recommends = recommender.run(u_lines)
-    manifest = {}
-    save_recommends(args.output, recommends, manifest=manifest)
-    write_manifest(args.output, manifest)
+    with phase_timer("get recommends", enabled=False):
+        recommender = AssociationRules(
+            freq_items, item_to_rank, levels, item_counts,
+            config=config, device=device,
+        )
+        recommends = recommender.run(u_lines)
+        manifest = {}
+        save_recommends(args.output, recommends, manifest=manifest)
+        write_manifest(args.output, manifest)
     print("==== Total time for get recommends "
           f"{int((time.perf_counter() - t2) * 1e3)}", file=sys.stderr)
-    return 0
 
 
 if __name__ == "__main__":

@@ -109,8 +109,25 @@ class MinerConfig:
     vertical_density_max: float = 0.01
     vertical_min_items: int = 512
     # Candidates per step of K3's plain version (bounds its [chunk, NL]
-    # intermediate; the CUDA kernel does not read it).
+    # intermediate; the CUDA kernel does not read it): pow2-bucketed,
+    # then halved until it divides the launch's candidate budget
+    # (models/apriori.py ``_vertical_chunk``).  FA_VERTICAL_CHUNK
+    # overrides, strictly parsed.
     vertical_cand_chunk: int = 1 << 12
+    # Lanes (32-bit words of the tid axis) per streamed slab of K3's
+    # plain version (bounds its [P, lane_tile] prefix intermediate;
+    # pow2-bucketed, floor 128).  K3 itself streams 512-lane chunks and
+    # does not read it.  FA_VERTICAL_LANE_TILE overrides, strictly
+    # parsed.
+    vertical_lane_tile: int = 1 << 13
+    # Count reduction across transaction shards: "auto" or "dense" (the
+    # one psum a shard count needs), or "sparse" (the thresholded
+    # exchange).  The port mines on one device, one shard, where auto
+    # and dense run dense and a forced sparse falls back to dense with a
+    # `count_reduce_fallback` event and a `count_reduce` cascade walk,
+    # as the JAX package does there.  FA_COUNT_REDUCE overrides,
+    # strictly parsed.
+    count_reduce: str = "auto"
     # Host threads for the native ingest and the arena build's reduce
     # pass.  None = one thread per core; FA_INGEST_THREADS overrides,
     # strictly parsed.

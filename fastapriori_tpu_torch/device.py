@@ -29,6 +29,7 @@ CUDA device and no such request, :func:`resolve_device` raises
 from __future__ import annotations
 
 import contextlib
+import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.obs import trace
 from fastapriori_tpu_torch.ops.bitmap import next_pow2, unpack_bitmap
 from fastapriori_tpu_torch.ops.count import (
     frequent_pair_mask,
@@ -127,11 +129,14 @@ class BlockUploader:
     a side stream (entered in the worker thread: the current stream is
     per thread); the pinned buffers stay referenced until :meth:`close`
     has waited for their copies.  On the CPU the array itself becomes
-    the tensor."""
+    the tensor.  The worker thread is ``fa-upload_0``; with tracing on,
+    each submission is an ``upload`` span there (its host time: the
+    pinned copy and the copy's launch)."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="fa-upload")
         self._stream = (
             torch.cuda.Stream(device) if device.type == "cuda" else None
         )
@@ -141,6 +146,10 @@ class BlockUploader:
         return self._pool.submit(self._put, x)
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
+        with trace.span("upload", bytes=int(x.nbytes)):
+            return self._put_now(x)
+
+    def _put_now(self, x: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(x)
         if self._stream is None:
             return host
@@ -203,6 +212,25 @@ class DeviceContext:
 
     def block_uploader(self) -> BlockUploader:
         return BlockUploader(self.device)
+
+    def plain_kernels(self) -> bool:
+        """``FA_NO_PALLAS`` (strictly parsed on every device: a value it
+        does not know is an InputError): true on a CUDA device means the
+        caller runs each hand kernel's plain PyTorch version on the card
+        (K1 ``level_counts_plain``, K2 ``first_match_plain``, K3
+        ``vertical_counts_plain``), an explicit choice of the user that
+        the ledger records once per run (``pallas_disabled``).  On the
+        CPU the wrappers run their plain versions anyway: False, and no
+        event, as the JAX package off the TPU."""
+        from fastapriori_tpu_torch.reliability import ledger
+        from fastapriori_tpu_torch.utils.env import env_flag
+
+        off = env_flag("FA_NO_PALLAS", False)
+        if not off or self.device.type != "cuda":
+            return False
+        ledger.record_once("pallas_disabled", "env", reason="FA_NO_PALLAS",
+                           value=os.environ.get("FA_NO_PALLAS", ""))
+        return True
 
     @contextlib.contextmanager
     def sync_free(self):

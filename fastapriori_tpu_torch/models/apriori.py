@@ -137,14 +137,22 @@ from fastapriori_tpu_torch.ops.fused import (
     unpack_fused_result,
     unpack_tail_result,
 )
+from fastapriori_tpu_torch.obs import trace
+from fastapriori_tpu_torch.ops.level_kernel import (
+    level_counts,
+    level_counts_plain,
+)
 from fastapriori_tpu_torch.ops.vertical import (
     PAIR_TXN_CHUNK,
     build_tid_arena_csr,
     compress_arena,
     vertical_level_local,
+    vertical_level_word_ops,
+    vertical_member_bytes,
     vertical_pair_local,
     weight_bit_planes,
 )
+from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts_plain
 from fastapriori_tpu_torch.preprocess import (
     CompressedData,
     ingest_thread_count,
@@ -157,7 +165,7 @@ from fastapriori_tpu_torch.reliability import (
     retry,
     watchdog,
 )
-from fastapriori_tpu_torch.utils.env import env_choice
+from fastapriori_tpu_torch.utils.env import env_choice, env_int
 from fastapriori_tpu_torch.utils.logging import MetricsLogger
 
 Levels = List[Tuple[np.ndarray, np.ndarray]]
@@ -419,9 +427,9 @@ class FastApriori:
             self.config.min_support = min_support
         self.engine = resolve_engine(self.config.engine)
         self.ctx = context if context is not None else DeviceContext(device)
-        self.metrics = MetricsLogger(enabled=self.config.log_metrics)
         # Degradation events (the ledger) go to this miner's metrics.
-        ledger.attach_metrics(self.metrics)
+        self.metrics = MetricsLogger(
+            enabled=self.config.log_metrics).bind_global_ledger()
         # Levels an interrupted run completed, consumed by the next mine.
         self._resume_levels: Optional[Levels] = None
         self._resume_meta: Optional[Dict[str, int]] = None
@@ -486,6 +494,13 @@ class FastApriori:
         pipelined ingest (the default) the data's rows are deduplicated
         per block, and with ``retain_csr=False`` it holds no basket
         CSR."""
+        # The mining root span: every metrics.timed section below
+        # (preprocess, level, tail_fuse, fused_mine, counts_resolve,
+        # checkpoint ...) nests under it.
+        with trace.span("mine", path=d_path):
+            return self._run_file_raw(d_path)
+
+    def _run_file_raw(self, d_path: str) -> Tuple[Levels, CompressedData]:
         # Parsed before the ingest, so a bad FA_INGEST_THREADS fails every
         # run.
         n_threads = ingest_thread_count(self.config.ingest_threads)
@@ -879,6 +894,55 @@ class FastApriori:
             return self._mine_levels(data, resume=partial or None)
         return self._mine_levels(data)
 
+    _COUNT_REDUCE = ("auto", "dense", "sparse")
+
+    def _count_reduce_engine(self) -> Tuple[str, str]:
+        """``(engine, requested)`` of the count reduction:
+        ``FA_COUNT_REDUCE`` over ``config.count_reduce``, both strictly
+        parsed.  The port mines on one device, one transaction shard,
+        where the JAX package runs dense: auto and dense quietly, a
+        forced sparse with a ``count_reduce_fallback`` event and a
+        ``count_reduce`` cascade walk (reason ``one_txn_shard``).
+        Resolved where the JAX package resolves it: once per level loop
+        and once per fused attempt."""
+        req = env_choice("FA_COUNT_REDUCE", self._COUNT_REDUCE)
+        if req is None:
+            req = self.config.count_reduce
+            if req not in self._COUNT_REDUCE:
+                raise InputError(
+                    f"unrecognized MinerConfig.count_reduce value {req!r}: "
+                    f"use one of {'/'.join(self._COUNT_REDUCE)}"
+                )
+        if req == "sparse":
+            reason = "one_txn_shard"
+            ledger.record("count_reduce_fallback", once_key=reason,
+                          reason=reason)
+            watchdog.downgrade("count_reduce", "sparse", "dense",
+                               reason=reason)
+        return "dense", req
+
+    def _vertical_chunk(self, c_cap: int) -> int:
+        """Candidates per step of K3's plain version: ``FA_VERTICAL_CHUNK``
+        (strict; unset or 0 = ``config.vertical_cand_chunk``) in a
+        power-of-two bucket, at most next_pow2(c_cap), then halved until
+        it divides the launch's candidate budget ``c_cap`` (the JAX
+        package's scan reshape needs an exact divisor)."""
+        chunk = (env_int("FA_VERTICAL_CHUNK", 0, minimum=0)
+                 or self.config.vertical_cand_chunk)
+        chunk = min(next_pow2(max(int(chunk), 8)), next_pow2(c_cap))
+        while chunk > 1 and c_cap % chunk:
+            chunk //= 2
+        return max(chunk, 1)
+
+    def _vertical_lane_tile(self) -> int:
+        """Lanes per slab of K3's plain version:
+        ``FA_VERTICAL_LANE_TILE`` (strict; unset or 0 =
+        ``config.vertical_lane_tile``) in a power-of-two bucket, at
+        least 128."""
+        tile = (env_int("FA_VERTICAL_LANE_TILE", 0, minimum=0)
+                or self.config.vertical_lane_tile)
+        return next_pow2(max(int(tile), 128))
+
     def _requested_mine_engine(self) -> str:
         """The strictly parsed layout request: ``FA_MINE_ENGINE`` over
         ``config.mine_engine``; a value outside ``MINE_ENGINES`` in either
@@ -1088,6 +1152,7 @@ class FastApriori:
             if m_cap is None:  # auto chose the level engine
                 return None, None
         m_cap = max(m_cap, next_pow2(cfg.fused_l_max + 2))
+        self._count_reduce_engine()
         return self._fused_attempt_loop(
             profile, packed, w, data.min_count, m_cap, m_cap_max,
             n_digits, n_chunks, fast_f32, packed_input=True,
@@ -1216,6 +1281,7 @@ class FastApriori:
         # level engine's digits.
         w_np = np.zeros(t_pad, dtype=np.int32)
         w_np[: data.total_count] = data.weights
+        self._count_reduce_engine()
         lv, partial = self._fused_attempt_loop(
             profile, bitmap, ctx.upload(w_np), data.min_count, m_cap,
             m_cap_max, n_digits, n_chunks, fast_f32, packed_input=False,
@@ -1488,6 +1554,9 @@ class FastApriori:
         memory model refuses, walks the cascade to per-level counting
         until the lattice shrinks under the failed seed."""
         cfg = self.config
+        count_reduce, requested = self._count_reduce_engine()
+        self.metrics.emit("count_reduce", engine=count_reduce,
+                          requested=requested)
         pending_map: Dict[int, list] = {}
         drained: list = []  # [(per-level segment sizes, PendingCounts)]
         pending_bytes = [0]
@@ -1803,12 +1872,26 @@ class FastApriori:
         second return is ``[(counts_dev, survivor positions)]`` for the
         loop's resolve, else the host int64 counts of the survivors
         (``fetch.level_counts``).  Returns the next level's lex-sorted
-        matrix, its counts and per-level stats."""
+        matrix, its counts and per-level stats.
+
+        ``FA_NO_PALLAS`` on CUDA (device.py ``plain_kernels``) counts
+        with K1's or K3's plain version on the card instead, and the
+        level's stats say ``plain_kernels``.  A vertical level's stats
+        add ``vops`` and ``member_bytes_saved`` (ops/vertical.py) summed
+        over its launches at their shapes (one block; real candidates,
+        which is what K3 and its plain version count)."""
         ctx = self.ctx
         s = level.shape[1]
         f_pad = table.shape[0] - 1 if vertical else table.shape[1]
+        plain = ctx.plain_kernels()
         x_idx, ys = concat_blocks(gen_candidates_stream(level))
         stats = {"candidates": int(x_idx.size), "launches": 0, "p_cap": 0}
+        if plain:
+            stats["plain_kernels"] = True
+        if vertical:
+            stats.update(engine="vertical", vops=0, member_bytes_saved=0)
+            lane_tile = self._vertical_lane_tile()
+            c_bound = max(self.config.level_cand_cap, f_pad)
         empty = (np.empty((0, s + 1), dtype=np.int32),
                  np.empty(0, dtype=np.int64), stats)
         if x_idx.size == 0:
@@ -1819,16 +1902,27 @@ class FastApriori:
             level, x_idx, ys, f_pad, self.config
         ):
             if vertical:
-                got = vertical_level_local(
+                # The JAX package's candidate budget of the launch, which
+                # the plain version's chunk must divide.
+                c_cap = min(max(next_pow2(cand_idx.size), f_pad), c_bound)
+                count = vertical_counts_plain if plain else vertical_level_local
+                got = count(
                     table, weights, scales, ctx.upload_async(prefix_cols),
                     ctx.upload_async(cand_idx.astype(np.int32)),
-                    self.config.vertical_cand_chunk,
+                    self._vertical_chunk(c_cap), lane_tile,
                 )
                 stats["launches"] += 1
+                nl = table.shape[1]
+                stats["vops"] += vertical_level_word_ops(
+                    1, prefix_cols.shape[0], s, int(cand_idx.size),
+                    len(scales), nl)
+                stats["member_bytes_saved"] += vertical_member_bytes(
+                    1, prefix_cols.shape[0], nl)
             else:
                 got = local_level_gather(
                     table, weights, scales, ctx.upload_async(prefix_cols),
                     s, ctx.upload_async(cand_idx), heavy_b=hb, heavy_w=hw,
+                    count_fn=level_counts_plain if plain else level_counts,
                 )
                 stats["launches"] += len(scales)
             parts.append(got)

@@ -38,6 +38,10 @@ from fastapriori_tpu_torch.ops.contain import (
     rule_table,
     strided_match_scan,
 )
+from fastapriori_tpu_torch.ops.match_kernel import (
+    first_match,
+    first_match_plain,
+)
 from fastapriori_tpu_torch.preprocess import dedup_user_baskets
 from fastapriori_tpu_torch.rules.gen import (
     DeviceRuleState,
@@ -45,6 +49,7 @@ from fastapriori_tpu_torch.rules.gen import (
     gen_rule_arrays_levels,
     sort_rule_arrays,
 )
+from fastapriori_tpu_torch.utils.env import env_flag, env_int
 from fastapriori_tpu_torch.utils.logging import MetricsLogger
 
 # Distinct baskets x rules at which the device scan takes over.  On an
@@ -56,6 +61,13 @@ from fastapriori_tpu_torch.utils.logging import MetricsLogger
 # kosarak-shape path can reach below 10^5 checks, so the threshold stays
 # until a second corpus shows the device ahead there too.
 DEVICE_MIN_CHECKS = 100_000
+
+
+def bucket_batch_rows(rows: int) -> int:
+    """Scan micro-batch rows in a power-of-two bucket, at least 32
+    (counterpart: fastapriori_tpu/models/recommender.py
+    ``bucket_batch_rows``)."""
+    return max(next_pow2(max(int(rows), 1)), 32)
 
 
 def device_scan_wanted(n_baskets: int, n_rules: int) -> bool:
@@ -141,6 +153,10 @@ class AssociationRules:
             for rows in indexes:
                 out.extend((i, "0") for i in rows)
             return out
+        # Both knobs of the device scan are parsed on every run, whichever
+        # side scans: a typo fails the run.
+        self.rec_batch_rows()
+        env_flag("FA_NO_PALLAS", False)
         if use_device is None:
             use_device = device_scan_wanted(len(baskets), n_rules)
         if not use_device and self._scan_state is not None:
@@ -208,9 +224,12 @@ class AssociationRules:
         return recs.tolist()
 
     def rec_batch_rows(self) -> int:
-        """Scan micro-batch rows: ``config.rec_batch_rows``, pow2-bucketed
-        (floor 32)."""
-        return max(next_pow2(self.config.rec_batch_rows), 32)
+        """Scan micro-batch rows: ``FA_REC_BATCH`` (strictly parsed; unset
+        or 0 = ``config.rec_batch_rows``), :func:`bucket_batch_rows`."""
+        rows = env_int("FA_REC_BATCH", 0, minimum=0)
+        if rows == 0:
+            rows = self.config.rec_batch_rows
+        return bucket_batch_rows(rows)
 
     def table(self) -> tuple:
         """The padded rule table on the device, uploaded once per
@@ -272,6 +291,15 @@ class AssociationRules:
             blen[: len(block)] = [len(b) for b in block]
             yield b0, len(block), bm, blen
 
+    def _match_fn(self, stats: dict):
+        """K2's wrapper, or its plain version on the card under
+        ``FA_NO_PALLAS`` (device.py ``plain_kernels``; the scan's stats
+        then say ``plain_kernels``)."""
+        if self.ctx.plain_kernels():
+            stats["plain_kernels"] = True
+            return first_match_plain
+        return first_match
+
     def _device_first_match(self, baskets: List[np.ndarray],
                             stats: dict) -> List[int]:
         """K2 over the rule table on the device, one launch per basket
@@ -281,12 +309,14 @@ class AssociationRules:
         if self._scan_state is not None or self._scan_table is not None:
             return self._resident_first_match(baskets, stats)
         ctx = self.ctx
+        match = self._match_fn(stats)
         ant, size, consequent = self.table()
         recs = np.full(len(baskets), -1, dtype=np.int64)
         launches = 0
         for b0, n, bm, blen in self.micro_batches(baskets):
             _, cons = strided_match_scan(
-                ctx.upload(bm), ctx.upload(blen), ant, size, consequent
+                ctx.upload(bm), ctx.upload(blen), ant, size, consequent,
+                match_fn=match,
             )
             recs[b0 : b0 + n] = ctx.fetch(cons, "rec_match")[:n]
             launches += 1
@@ -300,13 +330,14 @@ class AssociationRules:
         basket upload and one non-blocking fetch of the consequents, all
         read after the last launch."""
         ctx = self.ctx
+        match = self._match_fn(stats)
         first_build = self._scan_table is None
         ant, size, consequent, build_ms = self.scan_table()
         fetches = []
         for b0, n, bm, blen in self.micro_batches(baskets):
             _, cons = strided_match_scan(
                 ctx.upload_async(bm), ctx.upload_async(blen), ant, size,
-                consequent,
+                consequent, match_fn=match,
             )
             fetches.append((b0, n, ctx.fetch_async(cons, "rec_match")))
         recs = np.full(len(baskets), -1, dtype=np.int64)

@@ -320,11 +320,13 @@ def strided_match_scan(
     ant: torch.Tensor,  # [R, K] int32
     size: torch.Tensor,  # [R] int32
     consequent: torch.Tensor,  # [R] int32
+    match_fn=first_match,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-shard first-match: ``(best rank [mb], consequent or -1 [mb])``
-    — K2 for the rank, then the owner-row consequent select of
-    ``_strided_merge`` at S=1 (rank == row)."""
-    best = first_match(baskets, basket_len, ant, size, consequent)
+    — K2 for the rank (``match_fn``: K2's wrapper, or its plain version
+    where the caller chose it, ``FA_NO_PALLAS``), then the owner-row
+    consequent select of ``_strided_merge`` at S=1 (rank == row)."""
+    best = match_fn(baskets, basket_len, ant, size, consequent)
     row = best.clamp(0, ant.shape[0] - 1).long()
     found = best < NO_MATCH
     cons = torch.where(found, consequent[row], torch.full_like(best, -1))

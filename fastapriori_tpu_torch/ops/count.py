@@ -284,6 +284,7 @@ def local_level_gather(
     cand_idx: torch.Tensor,  # [C] flat indexes row * F + y
     heavy_b: Optional[torch.Tensor] = None,  # [Th, F] int8
     heavy_w: Optional[torch.Tensor] = None,  # [Th] int32
+    count_fn=level_counts,
 ) -> torch.Tensor:
     """C8 for one prefix chunk: returns the candidates' int32 counts [C].
 
@@ -291,12 +292,13 @@ def local_level_gather(
     after the weight split), each digit's counts scaled by 128^d; then
     the heavy-row remainder; then the gather.  Padded prefix rows point
     at the all-zero column, so their overlap is 0 and they never match a
-    k1 >= 1."""
+    k1 >= 1.  ``count_fn``: K1's wrapper, or its plain version where the
+    caller chose it (``FA_NO_PALLAS``)."""
     onehot = prefix_onehot(prefix_cols, bitmap.shape[1])
     counts = None
     for d, scale in enumerate(scales):
         wb = bitmap * w_digits[d][:, None]  # int8 in [0, 127]
-        part = level_counts(bitmap, wb, onehot, k1)
+        part = count_fn(bitmap, wb, onehot, k1)
         part = part if scale == 1 else part * scale
         counts = part if counts is None else counts + part
     if heavy_b is not None:

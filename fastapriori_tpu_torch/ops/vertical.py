@@ -132,7 +132,8 @@ def build_tid_arena_csr(
                     bit_sorted[base : end[hi - 1]], start[lo:hi] - base
                 )
 
-            with ThreadPoolExecutor(n_threads) as pool:
+            with ThreadPoolExecutor(n_threads,
+                                    thread_name_prefix="fa-arena") as pool:
                 list(pool.map(_reduce, range(n_threads)))
         else:
             flat[uniq] = np.bitwise_or.reduceat(bit_sorted, start)
@@ -276,3 +277,21 @@ def vertical_pair_local(
 # C8, vertical form, under the JAX module's name: K3 itself (the CUDA
 # kernel on a CUDA tensor, its plain version on a CPU tensor).
 vertical_level_local = vertical_counts
+
+
+def vertical_level_word_ops(
+    nb: int, p_cap: int, k_pad: int, c_cap: int, n_planes: int, nl: int
+) -> int:
+    """32-bit word operations of one vertical level launch (the metrics
+    field ``vops``, counterpart: fastapriori_tpu/ops/vertical.py): per
+    block, K gather-ANDs over the [P, NL] prefix lanes plus ``1 + B``
+    AND+popcount passes over the [C, NL] candidate intersections."""
+    return nb * (k_pad * p_cap + (1 + n_planes) * c_cap) * nl
+
+
+def vertical_member_bytes(nb: int, p_cap: int, nl: int) -> int:
+    """Device-memory bytes of the [P, NL] prefix-AND intermediate of one
+    level launch, one 32-bit write and one read (the metrics field
+    ``member_bytes_saved``): the traffic K3, which keeps each prefix
+    AND in shared memory, does not pay, and K3's plain version does."""
+    return nb * 2 * 4 * p_cap * nl

@@ -94,11 +94,32 @@ def vertical_counts_plain(
     prefix_cols: torch.Tensor,
     cand_idx: torch.Tensor,
     cand_chunk: int = 1 << 12,
+    lane_tile: int = 0,
 ) -> torch.Tensor:
     """The same function in plain PyTorch (the JAX package's XLA path,
     ops/vertical.py ``_chunked_candidate_counts``): the [P, NL] prefix
     ANDs, then candidates in chunks of ``cand_chunk``, which bounds the
-    [chunk, NL] intersection intermediate."""
+    [chunk, NL] intersection intermediate.  With ``0 < lane_tile < NL``
+    the lanes stream in ``lane_tile``-wide slabs of the arena and the
+    planes, each slab's int32 counts added (``_lane_tiled_counts``):
+    the prefix intermediate is then [P, lane_tile].  Exact either way:
+    the narrower last slab counts what the JAX package's zero-padded
+    one does, and int32 addition is associative."""
+    nl = arena.shape[1]
+    if not lane_tile or nl <= lane_tile:
+        return _slab_counts(arena, w_planes, scales, prefix_cols, cand_idx,
+                            cand_chunk)
+    out = torch.zeros(cand_idx.shape[0], dtype=torch.int32,
+                      device=arena.device)
+    for l0 in range(0, nl, lane_tile):
+        out += _slab_counts(arena[:, l0 : l0 + lane_tile],
+                            w_planes[:, l0 : l0 + lane_tile], scales,
+                            prefix_cols, cand_idx, cand_chunk)
+    return out
+
+
+def _slab_counts(arena, w_planes, scales, prefix_cols, cand_idx,
+                 cand_chunk: int) -> torch.Tensor:
     f_pad = arena.shape[0] - 1
     pref = _prefix_and(arena, prefix_cols)
     out = torch.empty(cand_idx.shape[0], dtype=torch.int32,
@@ -196,15 +217,16 @@ def vertical_counts(
     prefix_cols: torch.Tensor,
     cand_idx: torch.Tensor,
     cand_chunk: int = 1 << 12,
+    lane_tile: int = 0,
 ) -> torch.Tensor:
     """K3 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version (over ``cand_chunk`` candidates at a time) for CPU
-    tensors."""
+    plain version (over ``cand_chunk`` candidates and ``lane_tile``
+    lanes at a time) for CPU tensors; the kernel reads neither."""
     _check(arena, w_planes, scales, prefix_cols, cand_idx)
     if arena.device.type == "cpu":
         _check_contract(arena, prefix_cols, cand_idx)
         return vertical_counts_plain(arena, w_planes, scales, prefix_cols,
-                                     cand_idx, cand_chunk)
+                                     cand_idx, cand_chunk, lane_tile)
     if arena.device.type != "cuda":
         raise ValueError(f"K3 runs on cuda or cpu, not {arena.device}")
     f_pad = arena.shape[0] - 1

@@ -1,6 +1,5 @@
 """Degradation ledger: every fallback becomes a structured event
-(counterpart: fastapriori_tpu/reliability/ledger.py, without its
-flight-recorder and span-tracer hooks).
+(counterpart: fastapriori_tpu/reliability/ledger.py).
 
 The engines degrade in a handful of places (a pair or level-3 budget
 that overflowed, a fused attempt salvaged into the level engine, a
@@ -10,6 +9,10 @@ cascade chain, an unloadable native library).  Each such place calls
 
 - the in-memory ledger (``snapshot()``/``summary()``): a run whose
   summary is empty did not degrade;
+- the flight recorder's ring (obs/flight.py), so a post-mortem dump
+  shows the trips, retries and walks that led to a failure;
+- the span tracer (obs/trace.py) as a ``degraded`` instant under the
+  current span, so the event sits on the timeline it degraded;
 - the attached metrics logger (:func:`attach_metrics`, the miner's
   ``--metrics`` stream) as an ``event="degraded"`` line;
 - stderr, once per ``(kind, once_key)``.
@@ -40,16 +43,32 @@ class DegradationLedger:
     def record(
         self, kind: str, once_key: Optional[str] = None, **fields: Any
     ) -> None:
+        self._record(kind, once_key, fields, only_once=False)
+
+    def record_once(self, kind: str, once_key: str, **fields: Any) -> None:
+        """:meth:`record`, unless ``(kind, once_key)`` was recorded since
+        the last :meth:`reset`: a choice that holds for the whole run,
+        recorded at each site that makes it."""
+        self._record(kind, once_key, fields, only_once=True)
+
+    def _record(self, kind: str, once_key: Optional[str], fields: dict,
+                only_once: bool) -> None:
         event = {"kind": kind, **fields}
         warn_key = (kind, once_key if once_key is not None else kind)
         with self._lock:
-            self._events.append(event)
             first = warn_key not in self._warned
-            if first:
-                self._warned.add(warn_key)
+            if only_once and not first:
+                return
+            self._events.append(event)
+            self._warned.add(warn_key)
             metrics = self._metrics
+        from fastapriori_tpu_torch.obs import flight, trace
+
+        flight.note("ledger", **{"event": kind, **fields})
         if metrics is not None:
-            metrics.emit("degraded", **event)
+            metrics.emit("degraded", **event)  # also the trace's instant
+        else:
+            trace.instant("degraded", **event)
         if first:
             detail = " ".join(f"{k}={v}" for k, v in fields.items())
             print(
@@ -78,6 +97,10 @@ LEDGER = DegradationLedger()
 
 def record(kind: str, once_key: Optional[str] = None, **fields: Any) -> None:
     LEDGER.record(kind, once_key=once_key, **fields)
+
+
+def record_once(kind: str, once_key: str, **fields: Any) -> None:
+    LEDGER.record_once(kind, once_key, **fields)
 
 
 def attach_metrics(metrics) -> None:

@@ -179,32 +179,49 @@ def call_with_retries(
     retry a ``retry`` ledger event; user and fatal errors re-raise
     unchanged, and an exhausted transient re-raises tagged with the site
     (:func:`exhausted`).  After a real CUDA OOM the caching
-    allocator is emptied before the retry."""
+    allocator is emptied before the retry.
+
+    Every call is a span named ``site`` (obs/trace.py; one branch when
+    tracing is off): ``retries=`` on it after a retry, ``failed=`` and
+    ``attempts=`` when it gives up or meets an error it does not retry.
+    A ``fetch.`` site's wall latency, retries included, goes into the
+    per-site histogram of obs/metrics.py ``fetch_latency_observe``."""
+    from fastapriori_tpu_torch.obs import metrics as obs_metrics
+    from fastapriori_tpu_torch.obs import trace
     from fastapriori_tpu_torch.reliability import ledger, watchdog
 
     policy = policy or policy_from_env()
     attempt = 0
-    while True:
-        try:
-            failpoints.fire(site)
-            return watchdog.guard(thunk, site)
-        except Exception as exc:
-            if classify(exc) != "transient":
-                raise
-            if attempt >= policy.max_attempts - 1:
-                exc.fa_retries_exhausted_at = site  # see exhausted()
-                raise
-            ledger.record(
-                "retry",
-                site=site,
-                attempt=attempt + 1,
-                error=f"{type(exc).__name__}: {exc}"[:200],
-            )
-            if (isinstance(exc, torch.cuda.OutOfMemoryError)
-                    and torch.cuda.is_initialized()):
-                torch.cuda.empty_cache()
-            sleep(policy.delay(attempt))
-            attempt += 1
+    with trace.span(site) as sp:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                failpoints.fire(site)
+                result = watchdog.guard(thunk, site)
+                if site.startswith("fetch."):
+                    obs_metrics.fetch_latency_observe(
+                        site[6:], (time.perf_counter() - t0) * 1e3)
+                return result
+            except Exception as exc:
+                transient = classify(exc) == "transient"
+                if not transient or attempt >= policy.max_attempts - 1:
+                    sp.update(failed=type(exc).__name__,
+                              attempts=attempt + 1)
+                    if transient:
+                        exc.fa_retries_exhausted_at = site  # exhausted()
+                    raise
+                ledger.record(
+                    "retry",
+                    site=site,
+                    attempt=attempt + 1,
+                    error=f"{type(exc).__name__}: {exc}"[:200],
+                )
+                sp.update(retries=attempt + 1)
+                if (isinstance(exc, torch.cuda.OutOfMemoryError)
+                        and torch.cuda.is_initialized()):
+                    torch.cuda.empty_cache()
+                sleep(policy.delay(attempt))
+                attempt += 1
 
 
 def exhausted(exc: BaseException) -> Optional[str]:

@@ -1,6 +1,6 @@
 """Dispatch watchdog and the degradation cascade (counterpart:
 fastapriori_tpu/reliability/watchdog.py at one process: no quorum
-proposals, no flight-recorder dump).
+proposals).
 
 **Watchdog.**  A blocking fetch can hang (a wedged device, a runtime
 bug), and the retry layer sees only raised errors.  :func:`guard` bounds
@@ -12,7 +12,8 @@ the bounded retry policy gets its shot.  Every trip is a
 ``watchdog_timeout`` ledger event carrying the live abandoned-thread
 count; a trip past ``FA_DISPATCH_MAX_ABANDONED`` (default 8, 0 = no cap)
 raises the fatal :class:`AbandonedThreadCap` instead of leaking one more
-thread.
+thread, after the flight recorder (obs/flight.py ``auto_dump``) has
+written its ring against the prefix the CLI registered.
 
 **Cascade.**  :data:`CHAINS` is the one escalation policy: each
 subsystem's downgrade order, the same table as the JAX package's.
@@ -206,6 +207,15 @@ def guard(
         ledger.record("watchdog_timeout", once_key=site, site=site,
                       timeout_s=bound, abandoned_live=live)
         if cap and live > cap:
+            # The process is wedged, not flapping: ship the post-mortem
+            # (the trips and retries that led here) before the fatal
+            # raise; a failing dump returns None and masks nothing.
+            from fastapriori_tpu_torch.obs import flight
+
+            flight.auto_dump(
+                "abandoned_thread_cap",
+                extra={"site": site, "abandoned_live": live, "cap": cap},
+            )
             raise AbandonedThreadCap(
                 f"dispatch watchdog: {live} abandoned fetch threads still "
                 f"live after abandoning {site!r}, past the "

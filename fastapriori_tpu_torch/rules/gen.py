@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from fastapriori_tpu_torch.errors import InputError
+from fastapriori_tpu_torch.obs import trace
 from fastapriori_tpu_torch.ops.bitmap import next_pow2
 from fastapriori_tpu_torch.ops.contain import rule_key_bits, rule_level_kernel
 from fastapriori_tpu_torch.reliability import ledger, retry, watchdog
@@ -402,10 +403,13 @@ def _rule_arrays_device(
             cnts_p[:n] = cnts
             mat_dev = ctx.upload_async(mat_p)
             cnts_dev = ctx.upload_async(cnts_p)
-            packed, skeys, order, d_flat, surv_flat = rule_level_kernel(
-                mat_dev, cnts_dev, n, psorted, porder, pcnts, prev_n,
-                prev_surv, prev_d, k=k, bits=bits, first=k == 2,
-            )
+            # One span per join, under the recommender's gen_rules span;
+            # the masks' fetches are spans of their own when read below.
+            with trace.span("rules.level", k=k, n=n, shards=1):
+                packed, skeys, order, d_flat, surv_flat = rule_level_kernel(
+                    mat_dev, cnts_dev, n, psorted, porder, pcnts, prev_n,
+                    prev_surv, prev_d, k=k, bits=bits, first=k == 2,
+                )
             per_level.append({
                 "k": k, "n": n, "n_pad": n_pad, "mat": mat, "cnts": cnts,
                 "arrays": (mat_dev, cnts_dev, d_flat, surv_flat),

@@ -1,14 +1,20 @@
 """Strict environment parsing (counterpart: fastapriori_tpu/utils/env.py
-``env_choice``, ``env_int`` and ``env_float``).
+``env_flag``, ``env_choice``, ``env_int`` and ``env_float``).
 
-The port reads ``FA_MINE_ENGINE`` (models/apriori.py),
-``FA_INGEST_THREADS`` (preprocess.py ``ingest_thread_count``),
-``FA_RULE_ENGINE`` (rules/gen.py ``rule_engine_from_env``), and the
-reliability core's ``FA_FAILPOINTS`` (reliability/failpoints.py),
-``FA_RETRY_MAX`` and ``FA_RETRY_BACKOFF_MS`` (reliability/retry.py),
+The port reads ``FA_MINE_ENGINE``, ``FA_COUNT_REDUCE``,
+``FA_VERTICAL_CHUNK`` and ``FA_VERTICAL_LANE_TILE`` (models/apriori.py),
+``FA_NO_PALLAS`` (device.py ``plain_kernels``), ``FA_REC_BATCH``
+(models/recommender.py), ``FA_INGEST_THREADS`` (preprocess.py
+``ingest_thread_count``), ``FA_RULE_ENGINE`` (rules/gen.py
+``rule_engine_from_env``), the reliability core's ``FA_FAILPOINTS``
+(reliability/failpoints.py), ``FA_RETRY_MAX`` and
+``FA_RETRY_BACKOFF_MS`` (reliability/retry.py),
 ``FA_DISPATCH_TIMEOUT_S`` and ``FA_DISPATCH_MAX_ABANDONED``
-(reliability/watchdog.py); a value it does not know is an error, never
-a quiet default.
+(reliability/watchdog.py), and the observability knobs ``FA_TRACE``,
+``FA_TRACE_EVENTS`` (obs/trace.py), ``FA_FLIGHT_RECORDER_N``
+(obs/flight.py), ``FA_METRICS_DUMP_S`` (obs/metrics.py) and
+``FA_DEVICE_TRACE`` (obs/device_trace.py); a value it does not know is
+an error, never a quiet default.
 """
 
 from __future__ import annotations
@@ -17,6 +23,26 @@ import os
 from typing import Optional
 
 from fastapriori_tpu_torch.errors import InputError
+
+_FALSY = ("", "0", "false", "no")
+_TRUTHY = ("1", "true", "yes", "on")
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    """Strict boolean knob: unset -> ``default``; ``0``/``false``/``no``
+    (or empty) -> False; ``1``/``true``/``yes``/``on`` -> True (any case,
+    surrounding blanks ignored); anything else -> ``InputError``."""
+    raw = os.environ.get(name, "")
+    val = raw.strip().lower()
+    if val in _FALSY:
+        return default if raw == "" else False
+    if val in _TRUTHY:
+        return True
+    raise InputError(
+        f"unrecognized {name} value {raw!r}: use one of "
+        f"{'/'.join(_TRUTHY)} to enable, "
+        f"{'/'.join(v for v in _FALSY if v)} (or unset) to disable"
+    )
 
 
 def env_choice(

@@ -12,8 +12,9 @@
 
 The vertical engine's modules (ops/vertical.py, ops/vertical_kernel.py,
 utils/env.py), the device rule engine's (rules/gen.py, ops/contain.py,
-device.py) and the reliability core's (reliability/*, io/checkpoint.py,
-io/resume.py) are imported by name, and a forced vertical mine or a
+device.py), the reliability core's (reliability/*, io/checkpoint.py,
+io/resume.py) and observability's (obs/*: alone they import neither jax
+nor torch, so not torch.profiler) are imported by name, and a forced vertical mine or a
 forced device rule engine without a CUDA device is refused like any
 other run.  fsspec is imported only inside the functions that open a
 remote path: importing the port, and a local run, leave it out.
@@ -52,9 +53,36 @@ def test_import_leaves_jax_out():
         "fastapriori_tpu_torch.reliability.retry, "
         "fastapriori_tpu_torch.reliability.watchdog, "
         "fastapriori_tpu_torch.io.checkpoint, "
-        "fastapriori_tpu_torch.io.resume, fastapriori_tpu_torch.io.writer\n"
+        "fastapriori_tpu_torch.io.resume, fastapriori_tpu_torch.io.writer, "
+        "fastapriori_tpu_torch.obs, fastapriori_tpu_torch.obs.trace, "
+        "fastapriori_tpu_torch.obs.flight, fastapriori_tpu_torch.obs.metrics, "
+        "fastapriori_tpu_torch.obs.device_trace\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'fastapriori_tpu', 'fsspec'))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+OBS_MODULES = ("fastapriori_tpu_torch.obs", "fastapriori_tpu_torch.obs.trace",
+               "fastapriori_tpu_torch.obs.flight",
+               "fastapriori_tpu_torch.obs.metrics",
+               "fastapriori_tpu_torch.obs.device_trace")
+
+
+def test_obs_imports_leave_jax_and_the_profiler_out():
+    """The observability modules are standard library plus the port's
+    own at import: no jax, no JAX package, no torch (so no
+    torch.profiler, which device_trace imports inside a capture only)."""
+    code = (
+        "import sys\n"
+        f"for m in {OBS_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'fastapriori_tpu', 'torch'))\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -89,7 +117,10 @@ def test_no_module_of_the_port_names_jax():
             os.path.join("fastapriori_tpu_torch", "reliability",
                          "watchdog.py"),
             os.path.join("fastapriori_tpu_torch", "io", "checkpoint.py"),
-            os.path.join("fastapriori_tpu_torch", "io", "resume.py")} <= names
+            os.path.join("fastapriori_tpu_torch", "io", "resume.py"),
+            *(os.path.join("fastapriori_tpu_torch", "obs", n + ".py")
+              for n in ("__init__", "trace", "flight", "metrics",
+                        "device_trace"))} <= names
     for path in files:
         assert FORBIDDEN.isdisjoint(_imported_roots(path)), path
 
