@@ -143,6 +143,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rows are printed; (d) T10 with ``FA_NO_PALLAS=1``: the JAX digests,
    no hand kernel launched, ``plain_kernels`` on the level and
    ``first_match`` events, exactly one ``pallas_disabled`` ledger event.
+11. Serving (``serving_phase``), on T10: (a) the ``serve`` CLI
+   in-process, closed loop over U.dat, with ``--save-serving --trace
+   --metrics-dump``: the JAX recommends digest, every request served (no
+   shed, no ``serve_error``), the device engine on the host-built table
+   with no rule-table byte over the link after the mount, K2 launched
+   once per scan dispatch the state counted (the warm probe included),
+   K1 as on the main path, ``serve.batch``, ``serve.scan`` and
+   ``fetch.serve_match`` spans in the trace, the dump counting every
+   request; (b) ``--from-serving`` (a)'s artifact: the same digest, one
+   ``serving_restart``, the mount wall; (c) T10 at ``BIG_MIN_SUPPORT``:
+   the device rule engine and the resident table, the recommends of the
+   batch CLI at that support; (d) through the API on (a)'s model, at
+   pipeline depths 2 and 0: the closed-batch capacity, a sustained
+   open-loop run at 0.9x of it, an overload at 3x with the queue bounded
+   at one micro-batch (sheds, recorded, the queue within its bound),
+   then a recovery run at 0.5x without shed; every answer that model's
+   batch answer; each batch's upload, launch and fetch issue under
+   ``set_sync_debug_mode("error")``; K2 at a serving block against its
+   plain version, and one basket's round trip at 32 rows against 4,096;
+   (e) an open-loop run on (a)'s model hot-swapped to (c)'s mid-run:
+   each response carries its model's signature and that model's answer,
+   and the device memory drops at the barrier by at least the old
+   table's bytes; (f) ``--hosts 2`` from (a)'s artifact: the digest,
+   both hosts served; (g) ``FA_NO_PALLAS=1``: the digest, no K2 launch,
+   one ``pallas_disabled``.  Every serving run, CLI or API, has its
+   launch counts set to 0 just before it and read just after: K2's
+   equal the scan dispatches the serving states counted, and K1 and K3
+   launch no time in a run that mined nothing.
 
 Every child process starts first, when ``nvidia-smi`` is on the path:
 the prep child, which writes both corpora and runs the Python ingest of
@@ -753,8 +781,9 @@ CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE", "FA_NO_PALLAS")
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
              digests: dict, env=None, extra_args=(), ingest: bool = True,
              injected=None, ledgered=None, allowed=(),
-             verbose: bool = True) -> tuple:
-    """Phases 3, 4, 9 and 10: the port's CLI in-process, with the
+             verbose: bool = True, serve: bool = False) -> tuple:
+    """Phases 3, 4, 9, 10 and 11: the port's CLI in-process (its ``serve``
+    subcommand with ``serve``), with the
     variables of :data:`CLI_ENV` set as ``env`` says (the rest unset) for
     this call only and ``extra_args`` after the zero-flag arguments;
     checks the output digests and, with ``ingest``, that the run took the
@@ -785,8 +814,9 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(captured):
-            rc = cli.main([in_dir + "/", out_dir + "/", "--min-support",
-                           min_support, "--metrics", *extra_args])
+            rc = cli.main([*(("serve",) if serve else ()), in_dir + "/",
+                           out_dir + "/", "--min-support", min_support,
+                           "--metrics", *extra_args])
     finally:
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in kernels.items()}
@@ -2317,6 +2347,512 @@ def observability_phase(in_dir: str, k_in: str, card: str) -> dict:
     return out
 
 
+# Phase 11: requests of the sustained open-loop run, of the overload run
+# and of the recovery run after it (U.dat's 10,000 lines cycled).
+SERVE_SUSTAINED_N = 20_000
+SERVE_OVERLOAD_N = 80_000
+SERVE_RECOVERY_N = 5_000
+
+
+def require_served(name: str, fields: dict, n: int) -> dict:
+    """A serve CLI run's ``serve`` metrics event (the server's stats):
+    every one of the ``n`` requests served, none shed or failed, no
+    ``serve_error``.  Returns the stats."""
+    st = fields.get("serve")
+    if st is None:
+        raise SystemExit(f"{name}: no serve metrics event")
+    got = (st["served"], st["shed"], st.get("failed"), st.get("errors"))
+    if got != (n, 0, 0, 0):
+        raise SystemExit(f"{name}: served, shed, failed, errors = {got}, "
+                         f"expected ({n}, 0, 0, 0)")
+    return st
+
+
+def serve_dispatches(st: dict) -> int:
+    """K2 launches a serve run's states counted (each host's on a mesh)."""
+    hosts = st.get("per_host") or [st]
+    return sum(h["model"]["scan_dispatches"] for h in hosts)
+
+
+def zero_launches() -> dict:
+    """Every kernel's launch count set to 0; the kernels by name, for
+    :func:`read_launches` just after the run they count."""
+    kernels = kernel_launches()
+    for fn in kernels.values():
+        fn.launches = 0
+    return kernels
+
+
+def read_launches(kernels: dict) -> dict:
+    return {n: fn.launches for n, fn in kernels.items()}
+
+
+def require_scan_launches(name: str, launches: dict, dispatched: int,
+                          kernel: bool = True, mined: bool = False) -> None:
+    """K2 launched once per scan dispatch the serving states counted
+    (none with ``kernel`` False: the plain version ran); unless the run
+    ``mined`` its model, K1 and K3 launched no time."""
+    want = dispatched if kernel else 0
+    bad = launches["first_match"] != want or (kernel and want < 2)
+    if not mined:
+        bad = bad or launches["level_counts"] or launches["vertical_counts"]
+    if bad:
+        raise SystemExit(f"{name}: launches {launches}, the states counted "
+                         f"{dispatched} scan dispatches"
+                         + ("" if mined else "; K1 and K3 must not launch"))
+
+
+def require_serve_launches(name: str, launches: dict, st: dict,
+                           kernel: bool = True, mined: bool = False) -> None:
+    """:func:`require_scan_launches` for a serve CLI run: K2 against the
+    scan dispatches of every host's state, the warm probe included."""
+    require_scan_launches(name, launches, serve_dispatches(st), kernel, mined)
+    log(f"{name}: K2 launches {launches['first_match']} = the states' scan "
+        f"dispatches (the warm probe included); {st['batches']} batches, "
+        f"avg {st.get('avg_batch')} rows")
+
+
+def serve_cli_runs(in_dir: str, main_launches: dict) -> tuple:
+    """Phase 11 (a)-(c), (f) and (g): the serve CLI in-process (the
+    module docstring).  Returns ``(walls and facts, K2 and K1 launches by
+    run)``."""
+    from fastapriori_tpu_torch.obs import trace
+
+    digests = {"recommends": REC_SHA256}
+    n_users = T10["n_users"]
+    out: dict = {}
+    launches_by: dict = {}
+    # (a) T10 closed loop, the model mined here, traced and dumped.
+    out_a = os.path.join(WORK, "out_serve")
+    trace_path = os.path.join(WORK, "serve.trace.json")
+    dump = os.path.join(WORK, "serve.metrics.prom")
+    launches, fields = cli_path(
+        "serve T10", in_dir, out_a, MIN_SUPPORT, digests,
+        extra_args=("--save-serving", "--trace", trace_path,
+                    "--metrics-dump", dump),
+        allowed=("serve_engine",), serve=True)
+    trace.TRACER.disable()
+    trace.TRACER.reset()
+    st = require_served("serve T10", fields, n_users)
+    model = st["model"]
+    if (model["engine"], model.get("resident_table"),
+            model["rule_table_host_bytes"]) != ("device", False, 0):
+        raise SystemExit(f"serve T10: model {model}: expected the device "
+                         f"engine on the host-built table, 0 table bytes "
+                         f"over the link")
+    require_serve_launches("serve T10", launches, st, mined=True)
+    if launches["level_counts"] != main_launches["level_counts"]:
+        raise SystemExit(f"serve T10: the model build launched K1 "
+                         f"{launches['level_counts']} times, the batch CLI "
+                         f"{main_launches['level_counts']}")
+    with open(trace_path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    missing = {"serve.batch", "serve.scan", "fetch.serve_match"} - names
+    if missing:
+        raise SystemExit(f"serve T10: the trace lacks {sorted(missing)}")
+    with open(dump) as f:
+        if f"fa_serve_served_total {n_users}\n" not in f.read():
+            raise SystemExit(f"serve T10: the metrics dump does not count "
+                             f"{n_users} served")
+    out["t10"] = {"cli_s": fields["cli_wall_s"],
+                  "mount_ms": fields["walls"].get("serve model mount"),
+                  "serve_ms": fields["walls"].get("serve"),
+                  "batches": st["batches"], "avg_batch": st["avg_batch"],
+                  "warm_ms": model["warm_ms"],
+                  "table_bytes": model["table_bytes"]}
+    launches_by["t10i4d100k_serve_cli"] = launches
+    # (b) Warm restart from (a)'s artifact.
+    launches, fields = cli_path(
+        "serve T10 restart", in_dir, os.path.join(WORK, "out_serve_restart"),
+        MIN_SUPPORT, digests, extra_args=("--from-serving", out_a + "/"),
+        ingest=False, ledgered={"serving_restart": 1},
+        allowed=("serve_engine",), serve=True)
+    st = require_served("serve T10 restart", fields, n_users)
+    require_serve_launches("serve T10 restart", launches, st)
+    out["t10_restart"] = {"cli_s": fields["cli_wall_s"],
+                          "mount_ms": fields["walls"].get("serve model mount"),
+                          "warm_ms": st["model"]["warm_ms"]}
+    launches_by["t10i4d100k_serve_restart_cli"] = launches
+    # (c) The large model: auto takes the device rule engine, the scan
+    # mounts the table built on the device; the batch CLI's bytes.
+    out_c = os.path.join(WORK, "out_serve_big")
+    # The mine at this support outgrows the pair program's budgets
+    # (recorded overflows, phase 8's lattice).
+    big_allowed = ("serve_engine", "pair_cap_overflow", "pair_l3_overflow")
+    launches, fields = cli_path(
+        "serve T10 big", in_dir, out_c, BIG_MIN_SUPPORT, {},
+        extra_args=("--save-serving",), allowed=big_allowed, serve=True)
+    st = require_served("serve T10 big", fields, n_users)
+    model = st["model"]
+    if (model["engine"], model.get("resident_table"),
+            model["rule_table_host_bytes"],
+            fields.get("rule_gen_engine", {}).get("engine")) != (
+                "device", True, 0, "device"):
+        raise SystemExit(f"serve T10 big: model {model}, rule engine "
+                         f"{fields.get('rule_gen_engine')}: expected the "
+                         f"device rule engine and the resident table")
+    require_serve_launches("serve T10 big", launches, st, mined=True)
+    launches_by[f"t10i4d100k_{BIG_MIN_SUPPORT}_serve_cli"] = launches
+    out_bb = os.path.join(WORK, "out_batch_big")
+    launches, fields_bb = cli_path("batch T10 big", in_dir, out_bb,
+                                   BIG_MIN_SUPPORT, {}, allowed=big_allowed)
+    launches_by[f"t10i4d100k_{BIG_MIN_SUPPORT}_batch_cli"] = launches
+    got, want = (sha256(os.path.join(d, "recommends"))
+                 for d in (out_c, out_bb))
+    if got != want:
+        raise SystemExit(f"serve T10 big: recommends {got} != the batch "
+                         f"CLI's {want}")
+    log(f"serve T10 big: recommends equal the batch CLI's at "
+        f"{BIG_MIN_SUPPORT} ({got}); {model['n_rules']} rules, table "
+        f"{model['table_bytes']} bytes, resident")
+    out["t10_big"] = {"cli_s": fields["cli_wall_s"],
+                      "mount_ms": fields["walls"].get("serve model mount"),
+                      "batch_cli_s": fields_bb["cli_wall_s"],
+                      "n_rules": model["n_rules"],
+                      "table_bytes": model["table_bytes"]}
+    # (f) Two in-process hosts behind the router, from (b)'s artifact.
+    launches, fields = cli_path(
+        "serve T10 hosts 2", in_dir, os.path.join(WORK, "out_serve_hosts"),
+        MIN_SUPPORT, digests,
+        extra_args=("--from-serving", out_a + "/", "--hosts", "2"),
+        ingest=False, ledgered={"serving_restart": 2},
+        allowed=("serve_engine",), serve=True)
+    st = require_served("serve T10 hosts 2", fields, n_users)
+    require_serve_launches("serve T10 hosts 2", launches, st)
+    per_host = {h["host"]: {k: h[k] for k in ("served", "batches",
+                                              "avg_batch")}
+                for h in st["per_host"]}
+    if st["hosts"] != 2 or any(h["served"] <= 0 for h in per_host.values()):
+        raise SystemExit(f"serve T10 hosts 2: per host {per_host}")
+    log(f"serve T10 hosts 2: per host {json.dumps(per_host)}")
+    out["t10_hosts2"] = {"cli_s": fields["cli_wall_s"], "per_host": per_host}
+    launches_by["t10i4d100k_serve_hosts2_cli"] = launches
+    # (g) FA_NO_PALLAS=1: K2's plain version on the card.
+    launches, fields = cli_path(
+        "serve T10 FA_NO_PALLAS", in_dir,
+        os.path.join(WORK, "out_serve_plain"), MIN_SUPPORT, digests,
+        env={"FA_NO_PALLAS": "1"},
+        extra_args=("--from-serving", out_a + "/"), ingest=False,
+        ledgered={"pallas_disabled": 1, "serving_restart": 1},
+        allowed=("serve_engine",), serve=True)
+    st = require_served("serve T10 FA_NO_PALLAS", fields, n_users)
+    require_serve_launches("serve T10 FA_NO_PALLAS", launches, st,
+                           kernel=False)
+    if st["model"].get("kernel") is not False:
+        raise SystemExit(f"serve T10 FA_NO_PALLAS: model {st['model']}")
+    out["t10_no_pallas"] = {"cli_s": fields["cli_wall_s"]}
+    launches_by["t10i4d100k_serve_no_pallas_cli"] = launches
+    return out, launches_by
+
+
+def answers_of(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "recommends")) as f:
+        return f.read().splitlines()
+
+
+def require_answers(name: str, reqs, answers: dict, n_lines: int) -> None:
+    """Every served request's answer is the batch answer of its row under
+    the model whose signature it carries (``answers``: signature -> the
+    recommends lines)."""
+    for i, r in enumerate(reqs):
+        if r.error is not None:
+            raise SystemExit(f"{name}: request {i} failed: {r.error}")
+        if r.shed:
+            continue
+        want = answers.get(r.model)
+        if want is None or r.item != want[i % n_lines]:
+            raise SystemExit(f"{name}: request {i} answered {r.item!r} "
+                             f"under model {r.model}")
+
+
+def open_loop_runs(in_dir: str, device, card: str) -> tuple:
+    """Phase 11 (d): closed-batch capacity, a sustained open-loop run at
+    0.9x of it and an overload at 3x with the queue bounded at one
+    micro-batch, then a recovery run at 0.5x, at pipeline depths 2 and
+    0, through the API on (a)'s model; each batch's upload, launch and
+    fetch issue under ``set_sync_debug_mode("error")``.  Returns
+    ``(records, launches by depth, K2 at the serving shapes)``."""
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.reliability import ledger
+    from fastapriori_tpu_torch.serve import (
+        RecommendServer,
+        ServingState,
+        run_open_loop,
+    )
+
+    u_lines = read_dat(os.path.join(in_dir, "U.dat"))
+    n = len(u_lines)
+    out_a = os.path.join(WORK, "out_serve")
+    state = ServingState.load(out_a + "/", config=MinerConfig(
+        min_support=float(MIN_SUPPORT)), device=device)
+    state.warm()
+    state.ctx.sync_check = True
+    answers = {state.signature: answers_of(out_a)}
+    records: dict = {}
+    launches_by: dict = {}
+    for depth in (2, 0):
+        kernels = zero_launches()
+        d0 = state.scan_dispatches
+        server = RecommendServer(state, pipeline_depth=depth).start()
+        # The closed batch four times: the first (allocator and pinned
+        # memory first use at these shapes) untimed, the median of the
+        # other three the capacity.
+        walls = []
+        for i in range(4):
+            before = server.stats()["batches"]
+            t0 = time.perf_counter()
+            reqs = [server.submit_wait(t, timeout_s=60.0) for t in u_lines]
+            if not server.wait_for(reqs, timeout_s=120.0):
+                raise SystemExit(f"serve depth {depth}: the closed batch "
+                                 f"did not drain")
+            if i:
+                walls.append(time.perf_counter() - t0)
+            require_answers(f"serve depth {depth} closed", reqs, answers, n)
+        capacity = n / sorted(walls)[1]
+        closed = server.stats()
+        closed["batches"] -= before
+        reqs = []
+        sustained = run_open_loop(
+            server, u_lines, rate_rps=0.9 * capacity,
+            n_requests=SERVE_SUSTAINED_N, seed=11, drain_timeout_s=120.0,
+            label="sustained", requests_out=reqs)
+        require_answers(f"serve depth {depth} sustained", reqs, answers, n)
+        if not server.stop():
+            raise SystemExit(f"serve depth {depth}: the server did not stop")
+        ledger.reset()
+        rows = state.batch_rows()
+        server = RecommendServer(state, pipeline_depth=depth,
+                                 queue_depth=rows).start()
+        reqs = []
+        over = run_open_loop(
+            server, u_lines, rate_rps=3 * capacity,
+            n_requests=SERVE_OVERLOAD_N, seed=12, drain_timeout_s=120.0,
+            label="overload", requests_out=reqs)
+        require_answers(f"serve depth {depth} overload", reqs, answers, n)
+        cascades = [e for e in ledger.snapshot() if e["kind"] == "cascade"
+                    and e.get("chain") == "serving"]
+        if not (over["drained"] and over["shed"] > 0 and cascades
+                and over["max_queue"] <= rows):
+            raise SystemExit(f"serve depth {depth} overload: {over}, "
+                             f"{len(cascades)} serving cascade events: "
+                             f"expected sheds, recorded, the queue within "
+                             f"{rows}")
+        recovery = run_open_loop(
+            server, u_lines, rate_rps=0.5 * capacity,
+            n_requests=SERVE_RECOVERY_N, seed=13, drain_timeout_s=120.0,
+            label="recovery")
+        if not (recovery["drained"] and recovery["shed"] == 0):
+            raise SystemExit(f"serve depth {depth}: no recovery after the "
+                             f"overload: {recovery}")
+        if not server.stop():
+            raise SystemExit(f"serve depth {depth}: the server did not stop")
+        launches = read_launches(kernels)
+        require_scan_launches(f"serve depth {depth}", launches,
+                              state.scan_dispatches - d0)
+        launched = launches["first_match"]
+        ledger.reset()
+        rec = {"capacity_rps": capacity,
+               "closed_walls_s": walls,
+               "closed_batches": closed["batches"],
+               "sustained": sustained, "overload": over,
+               "recovery": recovery, "k2_launches": launched}
+        for key in ("sustained", "overload", "recovery"):
+            r = rec[key]
+            log(f"serve depth {depth} {key} ({card}): offered "
+                f"{r['offered_rps']} rps, achieved {r['achieved_rps']}, "
+                f"p50/p95/p99 {r['p50_ms']}/{r['p95_ms']}/{r['p99_ms']} ms, "
+                f"served {r['served']}, shed {r['shed']}, max queue "
+                f"{r['max_queue']}, avg batch {r['avg_batch']}")
+        log(f"serve depth {depth} ({card}): closed-batch capacity "
+            f"{capacity:.1f} users/s (median of 3 warm passes of {n}: "
+            f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; the last "
+            f"in {closed['batches']} batches); K2 launches {launched} = "
+            f"scan dispatches")
+        records[f"depth{depth}"] = rec
+        launches_by[f"t10i4d100k_serve_api_depth{depth}"] = launches
+    state.ctx.sync_check = False
+    serve_k2 = serve_block_measure(state, u_lines, device)
+    state.release()
+    return records, launches_by, serve_k2
+
+
+def serve_block_measure(state, u_lines, device) -> dict:
+    """K2 at the serving blocks' shapes on (a)'s table: a full
+    4,096-row block of distinct baskets against the plain version, and
+    one basket's round trip (upload, K2, select, fetch) padded to 32 rows
+    (the port's choice: the next power of two of the real rows) against
+    the same basket padded to the full 4,096 rows (the JAX package's
+    fixed shape)."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.ops.bitmap import build_bitmap
+    from fastapriori_tpu_torch.ops.match_kernel import (
+        NO_MATCH,
+        first_match,
+        first_match_plain,
+    )
+    from fastapriori_tpu_torch.preprocess import dedup_user_baskets
+
+    h = state._handle
+    rec = state._rec
+    ant, size, cons = rec.table()
+    baskets, _, _ = dedup_user_baskets(u_lines, state.item_to_rank)
+    rows = state.batch_rows()
+    bm, blen = state._pack_blocks(baskets[:rows])[0][2:]
+    args = (torch.from_numpy(bm).to(device),
+            torch.from_numpy(blen).to(device), ant, size, cons)
+    got = first_match(*args)
+    err = require_equal("first_match serving block", got,
+                        first_match_plain(*args))
+    ms = time_ms(lambda: first_match(*args), iters=20)
+    plain_ms = time_ms(lambda: first_match_plain(*args), iters=2, warmup=1)
+    mb, f = bm.shape
+    r, k = ant.shape
+    scanned = torch.where(got < NO_MATCH, got.long() + 1,
+                          torch.full_like(got, rec.n_rules, dtype=torch.long))
+    scanned = torch.where(args[1] > 0, scanned, torch.zeros_like(scanned))
+    n_ops = 2 * f * int(scanned.sum().item())
+    n_bytes = mb * f + 4 * mb + 4 * r * k + 8 * r + 4 * mb
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    one = [baskets[0]]
+    small = state._pack_blocks(one)[0][2:]
+    full_bm = build_bitmap(one, len(state.freq_items), rows,
+                           state.config.item_tile)
+    full_blen = np.zeros(rows, dtype=np.int32)
+    full_blen[0] = len(one[0])
+
+    # Each round trip ends in a host wait, so host time is its time: the
+    # median of 200 calls of each form, in turns.
+    times: dict = {"small": [], "full": []}
+    blocks = {"small": small, "full": (full_bm, full_blen)}
+    for i in range(404):
+        key = ("small", "full")[i % 2]
+        t0 = time.perf_counter()
+        h.scan(*blocks[key])[1].cpu()
+        if i >= 4:
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    small_ms, full_ms = (sorted(times[key])[len(times[key]) // 2]
+                         for key in ("small", "full"))
+    log(f"K2 serving block MB={mb} F={f} R={r} K={k}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"one basket's round trip (median of 200, host clock): "
+        f"{small_ms:.4f} ms at 32 rows, {full_ms:.4f} ms at {rows} rows")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "mb": mb, "one_basket_round_trip_ms": {
+                "32_rows": small_ms, f"{rows}_rows": full_ms}}
+
+
+def hot_swap_run(in_dir: str, device, capacity: float) -> tuple:
+    """Phase 11 (e): an open-loop run at half the capacity on (a)'s model,
+    swapped for (c)'s mid-run: every response carries its model's
+    signature and that model's batch answer for its row; the device
+    memory the scan thread holds drops at the barrier by at least the
+    old table's bytes.  The launch counts are set to 0 just before the
+    incoming table's readiness probe and read just after the server
+    stops.  Returns ``(record, launches)``."""
+    import torch
+
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.serve import (
+        RecommendServer,
+        ServingState,
+        run_open_loop,
+    )
+
+    u_lines = read_dat(os.path.join(in_dir, "U.dat"))
+    n = len(u_lines)
+    out_a = os.path.join(WORK, "out_serve")
+    out_c = os.path.join(WORK, "out_serve_big")
+    state_a = ServingState.load(out_a + "/", config=MinerConfig(
+        min_support=float(MIN_SUPPORT)), device=device)
+    state_b = ServingState.load(out_c + "/", config=MinerConfig(
+        min_support=float(BIG_MIN_SUPPORT)), device=device)
+    kernels = zero_launches()
+    t0 = time.perf_counter()
+    state_b.device_ready()  # the incoming table mounted and proven
+    ready_ms = (time.perf_counter() - t0) * 1e3
+    answers = {state_a.signature: answers_of(out_a),
+               state_b.signature: answers_of(out_c)}
+    server = RecommendServer(state_a).start()
+    table_a = state_a.describe()["table_bytes"]
+    mem: dict = {}
+    real_release = state_a.release
+
+    def release() -> None:
+        mem["before"] = torch.cuda.memory_allocated(device)
+        real_release()
+        mem["after"] = torch.cuda.memory_allocated(device)
+
+    state_a.release = release
+    reqs: list = []
+    result: dict = {}
+    loader = threading.Thread(target=lambda: result.update(run_open_loop(
+        server, u_lines, rate_rps=0.5 * capacity,
+        n_requests=SERVE_SUSTAINED_N, seed=21, drain_timeout_s=120.0,
+        label="hot_swap", requests_out=reqs)), daemon=True)
+    loader.start()
+    deadline = time.monotonic() + 60.0
+    while (server.stats()["submitted"] < SERVE_SUSTAINED_N // 2
+           and time.monotonic() < deadline):
+        time.sleep(0.001)
+    t_swap = time.perf_counter()
+    if not server.swap(state_b).wait(60.0):
+        raise SystemExit("serve hot swap: the barrier did not commit")
+    barrier_ms = (time.perf_counter() - t_swap) * 1e3
+    loader.join(180.0)
+    if loader.is_alive() or not result.get("drained"):
+        raise SystemExit(f"serve hot swap: the run did not drain: {result}")
+    if not server.stop():
+        raise SystemExit("serve hot swap: the server did not stop")
+    launches = read_launches(kernels)
+    require_scan_launches("serve hot swap", launches,
+                          state_a.scan_dispatches + state_b.scan_dispatches)
+    require_answers("serve hot swap", reqs, answers, n)
+    by_model = {sig: sum(1 for r in reqs if r.model == sig)
+                for sig in answers}
+    if min(by_model.values()) <= 0:
+        raise SystemExit(f"serve hot swap: responses by model {by_model}")
+    drop = mem["before"] - mem["after"]
+    if drop < table_a:
+        raise SystemExit(f"serve hot swap: device memory dropped {drop} "
+                         f"bytes at the barrier, less than the old table's "
+                         f"{table_a}")
+    rec = {"responses_by_model": by_model, "memory_drop_bytes": drop,
+           "old_table_bytes": table_a, "barrier_ms": barrier_ms,
+           "incoming_ready_ms": ready_ms,
+           "incoming_table_bytes": state_b.describe()["table_bytes"],
+           "run": result}
+    log(f"serve hot swap: {json.dumps(rec)}")
+    state_b.release()
+    return rec, launches
+
+
+def serving_phase(in_dir: str, device, card: str,
+                  main_launches: dict) -> tuple:
+    """Phase 11 (the module docstring).  Returns ``(walls and records,
+    launches by run, K2 at the serving shapes)``."""
+    t0 = time.perf_counter()
+    out, launches_by = serve_cli_runs(in_dir, main_launches)
+    records, api_launches, serve_k2 = open_loop_runs(in_dir, device, card)
+    out["open_loop"] = records
+    swap, swap_launches = hot_swap_run(
+        in_dir, device, records["depth2"]["capacity_rps"])
+    out["hot_swap"] = swap
+    launches_by.update(api_launches)
+    launches_by["t10i4d100k_serve_hot_swap_api"] = swap_launches
+    by_kernel = {kernel: {path: launches[kernel]
+                          for path, launches in launches_by.items()}
+                 for kernel in kernel_launches()}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"serving phase ({card}): {out['wall_s']:.3f} s")
+    log("serving summary: " + json.dumps(out))
+    return out, by_kernel, serve_k2
+
+
 def require_replayed(name: str, measured: dict, counted: int) -> None:
     """Phase 5's replay of a path must launch a kernel as often as the
     counted CLI run did, or its per-launch times are not the path's."""
@@ -2366,7 +2902,7 @@ def main() -> int:
 
 
 def run(t_start: float) -> int:
-    """Phases 1-10 (the module docstring); returns 0 when all passed."""
+    """Phases 1-11 (the module docstring); returns 0 when all passed."""
     import torch
 
     from fastapriori_tpu_torch.ops import build
@@ -2432,6 +2968,8 @@ def run(t_start: float) -> int:
                         device=True)
     reliability = reliability_phases(in_dir, k_in, main_fields, vert_fields)
     observability = observability_phase(in_dir, k_in, card)
+    serving, serving_launches, serve_k2 = serving_phase(
+        in_dir, device, card, main_launches)
     for name, path, _, min_support in corpora():
         ingest_compare(name, path, min_support, python_ingest[name])
 
@@ -2480,7 +3018,8 @@ def run(t_start: float) -> int:
                 "t10i4d100k_level_api": api_k1 if name == "level_counts"
                 else 0,
                 "kosarak_vertical": vert_launches[name],
-                "kosarak_vertical_device_rules_cli": vrules_launches[name]}
+                "kosarak_vertical_device_rules_cli": vrules_launches[name],
+                **serving_launches.get(name, {})}
 
     # Top-level numbers: the first path in "measured_by_path".
     kernels = [
@@ -2495,7 +3034,8 @@ def run(t_start: float) -> int:
          "replaces": "fastapriori_tpu/ops/pallas_vertical.py:210",
          "launches": main_launches["first_match"], "path": "t10i4d100k",
          "launches_by_path": by_path("first_match"), **k2,
-         "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v},
+         "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v,
+                              "t10i4d100k_serving_block": serve_k2},
          "device_built_table": {
              path: {key: m[key] for key in (
                  "ms", "device_ms", "max_abs_err", "table_rows", "k",
@@ -2514,6 +3054,7 @@ def run(t_start: float) -> int:
         {path: m["rule_crossover"] for path, m in built.items()}))
     log("reliability walls: " + json.dumps(reliability))
     log("observability walls: " + json.dumps(observability))
+    log("serving walls: " + json.dumps(serving))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
         f"torch's import, {time.perf_counter() - T_START:.3f} s from the "
         f"script's start")

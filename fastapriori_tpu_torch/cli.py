@@ -47,6 +47,17 @@ reference C1, Main.scala:15-41).
   each kernel's device time and stage); the JAX CLI's profiles the
   mining phase alone, but K2 runs in the recommend phase.
 
+``python -m fastapriori_tpu_torch serve <input> [<output>] ...`` is the
+serving tier (counterpart: the JAX CLI's ``serve`` subcommand): build the
+model once (mine ``<input>D.dat``, or ``--from-serving PREFIX``), mount
+its rule table on the device, answer ``--requests`` (default
+``<input>U.dat``; ``-`` reads stdin) through the micro-batching server
+(closed submission, or ``--rate`` open loop; ``--hosts N`` in-process
+hosts behind the router) and write ``<output>recommends`` with its
+manifest, or the answers to stdout.  Its flags are the JAX CLI's but
+``--num-devices``.  Unlike the JAX CLI, a run in which any batch failed
+(a ``serve_error``) exits 1 and writes no ``recommends``.
+
 Phase walls print as the reference's ``====`` lines, and are ``phase``
 spans and ``phase`` metrics events as well.  User-correctable failures
 print one line and exit 2, after the flight recorder has written
@@ -136,7 +147,80 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_serve_parser() -> argparse.ArgumentParser:
+    """The ``serve`` subcommand's flags (counterpart: the JAX CLI's
+    ``build_serve_parser``, without ``--num-devices``)."""
+    p = argparse.ArgumentParser(
+        prog="fastapriori_tpu_torch serve",
+        description="resident recommend service: mount the model's rule "
+        "table on the device once, serve baskets from a file or stdin "
+        "through the micro-batching request loop",
+    )
+    p.add_argument("input", help="input prefix containing D.dat (model "
+                   "build; ignored with --from-serving)")
+    p.add_argument("output", nargs="?", default=None,
+                   help="output prefix: writes <output>recommends (and its "
+                   "manifest); omitted = answers to stdout")
+    p.add_argument("--requests", default=None,
+                   help="request source: a file of basket lines, or '-' "
+                   "for stdin (default: <input>U.dat)")
+    p.add_argument("--from-serving", default=None,
+                   help="warm restart: load <prefix>serving.npz instead of "
+                   "mining <input>D.dat")
+    p.add_argument("--save-serving", action="store_true",
+                   help="after the model builds, write <output>serving.npz "
+                   "(needs an output prefix)")
+    p.add_argument("--min-support", type=float, default=DEFAULT_MIN_SUPPORT,
+                   help=f"minimum support for the model build (default "
+                   f"{DEFAULT_MIN_SUPPORT})")
+    p.add_argument("--serve-engine", choices=["auto", "device", "host"],
+                   default="auto",
+                   help="scan engine: auto takes the device table when the "
+                   "device rule engine built one or a full micro-batch "
+                   "reaches the batch path's device threshold; host forces "
+                   "the host scan")
+    p.add_argument("--batch-rows", type=int, default=None,
+                   help="micro-batch rows (pow2-bucketed; default "
+                   "config.rec_batch_rows / FA_REC_BATCH)")
+    p.add_argument("--linger-ms", type=float, default=None,
+                   help="the most ms a partial micro-batch waits to fill "
+                   "(default config.serve_linger_ms)")
+    p.add_argument("--queue-depth", type=int, default=None,
+                   help="admission queue bound in requests (default 4x the "
+                   "micro-batch rows); a full queue sheds ('0', recorded)")
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   help="the pack-to-scan ring's depth (default "
+                   "FA_SERVE_PIPELINE_DEPTH=2; 0 = the serial dispatcher)")
+    p.add_argument("--hosts", type=int, default=None,
+                   help="in-process serving hosts behind the router "
+                   "(default FA_SERVE_HOSTS=1)")
+    p.add_argument("--rate", type=float, default=None,
+                   help="open-loop pacing in requests/s (seeded Poisson "
+                   "schedule; overload sheds); default: closed submission")
+    p.add_argument("--seed", type=int, default=0,
+                   help="arrival-schedule seed for --rate (default 0)")
+    p.add_argument("--metrics", action="store_true",
+                   help="emit structured JSON metrics to stderr")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the span tracer (serve.batch, serve.dedup, "
+                   "serve.pack, serve.scan, serve.respond, fetch.<site>) "
+                   "and export Chrome-trace-event JSON here")
+    p.add_argument("--metrics-dump", default=None, metavar="PATH",
+                   help="rewrite the server's Prometheus-text metrics here "
+                   "every FA_METRICS_DUMP_S seconds (atomically), and once "
+                   "at shutdown")
+    p.add_argument("--platform", choices=["default", "cpu"],
+                   default="default",
+                   help="default = the CUDA device; cpu = plain PyTorch "
+                   "versions of every kernel on the CPU")
+    return p
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        return _serve_main(list(argv[1:]))
     args = build_parser().parse_args(argv)
     try:
         return _run(args)
@@ -164,6 +248,222 @@ def main(argv: Optional[List[str]] = None) -> int:
         # A stand-in for a crash: nothing after the failpoint ran.
         print(f"error: aborted: {e}", file=sys.stderr)
         return 1
+
+
+def _serve_main(argv: List[str]) -> int:
+    args = build_serve_parser().parse_args(argv)
+    try:
+        return _run_serve(args)
+    except InputError as e:
+        from fastapriori_tpu_torch.obs import flight
+
+        flight.auto_dump("classified_error",
+                         extra={"error": f"InputError: {e}"[:400]})
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except FileNotFoundError as e:
+        missing = e.filename if e.filename else str(e)
+        print(f"error: file {missing!r} not found", file=sys.stderr)
+        return 2
+    except InjectedAbort as e:
+        print(f"error: aborted: {e}", file=sys.stderr)
+        return 1
+
+
+def _start_metrics_dump(server, path: Optional[str]):
+    """``serve --metrics-dump PATH``: a thread that atomically rewrites
+    the server's Prometheus text every ``FA_METRICS_DUMP_S`` seconds.
+    Returns a callable that stops it (bounded) and writes the final
+    snapshot, or None without a path."""
+    if not path:
+        return None
+    import threading
+
+    from fastapriori_tpu_torch.io.writer import write_artifact_bytes
+    from fastapriori_tpu_torch.obs.metrics import dump_interval_s
+
+    interval = dump_interval_s()
+    stop = threading.Event()
+
+    def write_once() -> None:
+        write_artifact_bytes(
+            path, [server.metrics_text().encode("utf-8")], "metrics")
+
+    def loop() -> None:
+        while not stop.wait(interval):
+            write_once()
+
+    t = threading.Thread(target=loop, name="fa-metrics-dump", daemon=True)
+    t.start()
+
+    def finish() -> None:
+        stop.set()
+        t.join(10.0)
+        write_once()
+
+    return finish
+
+
+def _mount_serving(args, config: MinerConfig, device: str, n_hosts: int):
+    """The serve CLI's model and its server: the state mined or loaded,
+    saved with ``--save-serving``, behind one started RecommendServer or,
+    at ``n_hosts`` > 1, a MeshRouter over that many in-process hosts,
+    each with its own state loaded from the serving artifact (a mined
+    model is saved to a scratch prefix first, removed after the loads)."""
+    import os
+    import shutil
+    import tempfile
+
+    from fastapriori_tpu_torch.serve import (
+        LocalHost,
+        MeshRouter,
+        RecommendServer,
+        ServingState,
+    )
+
+    if args.from_serving:
+        state = ServingState.load(args.from_serving, config=config,
+                                  device=device, engine=args.serve_engine)
+    else:
+        state = ServingState.from_mine(args.input + "D.dat", config=config,
+                                       engine=args.serve_engine,
+                                       device=device)
+    if args.save_serving:
+        state.save(args.output)
+
+    def server_for(st):
+        return RecommendServer(
+            st, batch_rows=args.batch_rows, linger_ms=args.linger_ms,
+            queue_depth=args.queue_depth,
+            pipeline_depth=args.pipeline_depth).start()
+
+    if n_hosts == 1:
+        return server_for(state)
+    scratch = None
+    if args.from_serving:
+        prefix = args.from_serving
+    elif args.save_serving:
+        prefix = args.output
+    else:
+        scratch = tempfile.mkdtemp(prefix="fa_serve_hosts_")
+        prefix = os.path.join(scratch, "m_")
+        state.save(prefix)
+    try:
+        states = [state] + [
+            ServingState.load(prefix, config=config, device=device,
+                              engine=args.serve_engine)
+            for _ in range(n_hosts - 1)]
+    finally:
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+    return MeshRouter([LocalHost(f"host{i}", server_for(st))
+                       for i, st in enumerate(states)])
+
+
+def _run_serve(args) -> int:
+    from fastapriori_tpu_torch.device import resolve_device
+    from fastapriori_tpu_torch.io.reader import read_dat, tokenize_line
+    from fastapriori_tpu_torch.io.writer import save_recommends, write_manifest
+    from fastapriori_tpu_torch.obs import flight, trace
+    from fastapriori_tpu_torch.serve import run_open_loop
+    from fastapriori_tpu_torch.serve.router import hosts_from_env
+    from fastapriori_tpu_torch.utils.logging import MetricsLogger
+
+    if args.save_serving and not args.output:
+        raise InputError("--save-serving writes <output>serving.npz and "
+                         "therefore needs an output prefix")
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    resolve_device(device)  # no CUDA device and no --platform cpu: exit 2
+    flight.reload_from_env()
+    trace.maybe_enable(bool(args.trace))
+    flight.set_dump_prefix(args.output or args.input)
+    config = MinerConfig(min_support=args.min_support,
+                         log_metrics=args.metrics, retain_csr=False)
+    n_hosts = args.hosts if args.hosts is not None else hosts_from_env()
+    if n_hosts < 1:
+        raise InputError(f"--hosts must be >= 1, got {n_hosts}")
+    t0 = time.perf_counter()
+    server = _mount_serving(args, config, device, n_hosts)
+    print("==== Total time for serve model mount "
+          f"{int((time.perf_counter() - t0) * 1e3)}", file=sys.stderr)
+    metrics = MetricsLogger(enabled=args.metrics)
+    dump_stop = _start_metrics_dump(server, args.metrics_dump)
+
+    req_path = args.requests or (args.input + "U.dat")
+    if req_path == "-":
+        lines = (tokenize_line(ln) for ln in sys.stdin)
+    else:
+        lines = iter(read_dat(req_path))
+    t1 = time.perf_counter()
+    reqs = []
+    if args.rate is not None:
+        # Open loop: request i is pool[i], so answers align with rows.
+        pool = list(lines)
+        if pool:
+            result = run_open_loop(server, pool, rate_rps=args.rate,
+                                   n_requests=len(pool), seed=args.seed,
+                                   requests_out=reqs)
+            import json
+
+            print(json.dumps({"serve_open_loop": result}), file=sys.stderr)
+    else:
+        for tokens in lines:
+            # A mesh spills and sheds (never blocks) when every host is
+            # full; one server waits for room.
+            reqs.append(server.submit(tokens) if n_hosts > 1
+                        else server.submit_wait(tokens))
+    completed = server.wait_for(reqs, timeout_s=600.0)
+    served_wall = time.perf_counter() - t1
+    stats = server.stats()
+    if n_hosts > 1:
+        stopped = server.drain() and server.stop()
+    else:
+        stopped = server.stop(drain=True)
+    if dump_stop is not None:
+        dump_stop()
+    metrics.emit("serve", wall_ms=round(served_wall * 1e3, 3), **stats)
+    if args.trace:
+        path = trace.TRACER.export(args.trace)
+        print(f"trace written: {path} ({len(trace.TRACER.events())} events; "
+              "load in Perfetto)", file=sys.stderr)
+    if not completed or not stopped:
+        pending = sum(1 for r in reqs if not r.done)
+        print(f"error: serve did not complete inside the bound ({pending} "
+              f"of {len(reqs)} requests unfinished, dispatcher "
+              f"{'stopped' if stopped else 'STILL RUNNING'}) — no output "
+              "written", file=sys.stderr)
+        return 1
+    failed = sum(1 for r in reqs if r.error is not None)
+    if stats["errors"] or failed:
+        print(f"error: serve: {stats['errors']} batches failed "
+              f"({failed} requests failed"
+              + (f", dispatcher stopped: {stats.get('fatal')}"
+                 if stats.get("fatal") else "")
+              + ") — no output written", file=sys.stderr)
+        return 1
+
+    recommends = [(i, r.item if r.item is not None else "0")
+                  for i, r in enumerate(reqs)]
+    if args.output:
+        manifest: dict = {}
+        save_recommends(args.output, recommends, manifest=manifest)
+        write_manifest(args.output, manifest)
+    else:
+        for _, item in recommends:
+            print(item)
+    avg_batch = stats.get("avg_batch")
+    if avg_batch is None:  # a mesh's stats: the average from the totals
+        avg_batch = round(stats["served"] / max(stats["batches"], 1), 1)
+    engine = (stats.get("model") or {}).get("engine")
+    if engine is None:
+        ph = stats.get("per_host") or [{}]
+        engine = (ph[0].get("model") or {}).get("engine", "?")
+    mesh_note = (f"{stats['hosts']} hosts ({stats.get('router_shed', 0)} "
+                 f"router-shed), " if n_hosts > 1 else "")
+    print(f"==== serve: {stats['served']} served, {stats['shed']} shed, "
+          f"{mesh_note}{stats['batches']} batches (avg {avg_batch} rows), "
+          f"engine {engine}, {int(served_wall * 1e3)} ms", file=sys.stderr)
+    return 0
 
 
 def _load_resume(prefix: str):

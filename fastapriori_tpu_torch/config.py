@@ -1,7 +1,9 @@
-"""Miner and recommender knobs (counterpart: fastapriori_tpu/config.py).
+"""Miner, recommender and serving knobs (counterpart:
+fastapriori_tpu/config.py).
 
-Only the ``MinerConfig`` fields the batch mine + recommend path reads are
-carried over, with the reference package's defaults.
+Only the ``MinerConfig`` fields the batch mine + recommend path and the
+one-process serving tier read are carried over, with the reference
+package's defaults.
 """
 
 from __future__ import annotations
@@ -63,6 +65,13 @@ class MinerConfig:
     # rows per first-match micro-batch (pow2-bucketed, floor 32).
     rule_chunk: int = 1 << 13
     rec_batch_rows: int = 1 << 12
+    # Serving tier (serve/server.py): the most milliseconds a partial
+    # micro-batch waits to fill before it is dispatched anyway (0: at
+    # once), and the admission queue's bound in requests, past which a
+    # submit is shed ("0", counted, recorded); 0 = 4x the micro-batch
+    # rows.
+    serve_linger_ms: float = 2.0
+    serve_queue_depth: int = 0
     # Mining engine: "auto" runs the fused whole-loop engine
     # (ops/fused.py) when the level-2 survivor budget (2x headroom) and
     # the level-3 candidate census both fit the memory-derived row-budget

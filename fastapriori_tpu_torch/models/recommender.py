@@ -20,6 +20,13 @@ host's sorted rule arrays go up as a padded table (ops/contain.py
 ``rec_match`` fetches after their retries, is an error: the cascade's
 ``rule_scan`` chain (device -> host scan) is named but never walked, so
 K2's work never moves to the CPU while its table is on the card.
+
+Both this batch path and the serving tier (serve/state.py) mount the
+table through :meth:`AssociationRules.serve_scan` (counterpart: the JAX
+package's ``serve_scan`` and ``ServeScanHandle``) and cut the baskets
+with :meth:`AssociationRules.micro_batches`: one K2 launch per
+micro-batch over whichever form is on the device, each block padded
+only to the next power of two of its own baskets.
 """
 
 from __future__ import annotations
@@ -62,6 +69,9 @@ from fastapriori_tpu_torch.utils.logging import MetricsLogger
 # until a second corpus shows the device ahead there too.
 DEVICE_MIN_CHECKS = 100_000
 
+# Fewest rows of a scan block (K2's launch shape floor).
+MIN_BLOCK_ROWS = 32
+
 
 def bucket_batch_rows(rows: int) -> int:
     """Scan micro-batch rows in a power-of-two bucket, at least 32
@@ -74,6 +84,41 @@ def device_scan_wanted(n_baskets: int, n_rules: int) -> bool:
     """Whether ``run`` scans ``n_baskets`` distinct baskets against
     ``n_rules`` rules on the device (else on the host)."""
     return n_baskets * n_rules >= DEVICE_MIN_CHECKS
+
+
+class ServeScanHandle:
+    """What the serving tier needs from the recommender's device scan
+    (:meth:`AssociationRules.serve_scan`; counterpart: the JAX package's
+    ``ServeScanHandle``).
+
+    ``scan(bitmap, blen) -> (best_rank, consequent)`` uploads one host
+    micro-batch (``[rows, F_pad]`` int8 basket bitmap and ``[rows]``
+    int32 lengths, 0 on padding rows) without waiting, launches K2 over
+    the mounted table and selects each basket's consequent (-1: no
+    match) on the device; both results are device tensors and the
+    caller owns the audited fetch.  Both table forms select the
+    consequent on the device, so ``decode`` is always None and
+    ``row_multiple`` 1 (one device: no row sharding).  ``resident``:
+    the table was built on the device from the device rule engine's
+    state (else the host-built table was uploaded); ``table_bytes``: the
+    device bytes of the mounted table, ``table_rows`` its rows;
+    ``kernel``: the scan launches K2's CUDA kernel (False: its plain
+    version, on the CPU or under ``FA_NO_PALLAS``)."""
+
+    __slots__ = (
+        "scan", "resident", "shards", "table_bytes", "table_rows",
+        "decode", "row_multiple", "kernel",
+    )
+
+    def __init__(self, scan, *, resident, table_bytes, table_rows, kernel):
+        self.scan = scan
+        self.resident = resident
+        self.shards = 1
+        self.table_bytes = table_bytes
+        self.table_rows = table_rows
+        self.decode = None
+        self.row_multiple = 1
+        self.kernel = kernel
 
 
 class AssociationRules:
@@ -109,6 +154,10 @@ class AssociationRules:
         # (ant, size, consequent, build ms).
         self._scan_state: Optional[DeviceRuleState] = None
         self._scan_table: Optional[tuple] = None
+        # Host bytes of the rule table uploaded to the device, over the
+        # instance's life: the host-built table's arrays, or the
+        # consequent priority the device-built table is sorted by.
+        self.table_upload_bytes = 0
 
     @property
     def n_rules(self) -> int:
@@ -239,11 +288,10 @@ class AssociationRules:
             ant0, lens, cons, _ = self.rule_arrays()
             f = len(self.freq_items)
             f_pad = pad_axis(f + 1, self.config.item_tile)
-            self._table_dev = tuple(
-                self.ctx.upload(x)
-                for x in rule_table(ant0, lens, cons, f, f_pad,
-                                    self.config.rule_chunk)
-            )
+            host = rule_table(ant0, lens, cons, f, f_pad,
+                              self.config.rule_chunk)
+            self._table_dev = tuple(self.ctx.upload(x) for x in host)
+            self.table_upload_bytes += sum(int(x.nbytes) for x in host)
         return self._table_dev
 
     def scan_table(self) -> tuple:
@@ -265,8 +313,9 @@ class AssociationRules:
                         max(next_pow2(max(r, 1)), 128), 1 << 16)
             chunk = pad_axis(chunk, 128)
             r_pad = chunk * next_pow2(max(-(-r // chunk), 1))
-            pr = self.ctx.upload_async(
-                _consequent_priority(self.freq_items).astype(np.int32))
+            pr_host = _consequent_priority(self.freq_items).astype(np.int32)
+            pr = self.ctx.upload_async(pr_host)
+            self.table_upload_bytes += int(pr_host.nbytes)
             table = rule_scan_build(
                 state.arrays, state.offsets, pr, ks=state.ks, r_pad=r_pad,
                 k_max=max(max(state.ks) - 1, 1), zcol=f_pad - 1,
@@ -278,16 +327,22 @@ class AssociationRules:
             self._scan_table = (*table, (time.perf_counter() - t0) * 1e3)
         return self._scan_table
 
-    def micro_batches(self, baskets: List[np.ndarray]):
-        """Yield ``(b0, n, bitmap [mb, F_pad] int8, lengths [mb] int32)``
-        host micro-batches; padding rows have length 0."""
+    def micro_batches(self, baskets: List[np.ndarray],
+                      rows_bound: Optional[int] = None):
+        """Yield ``(b0, n, bitmap [rows, F_pad] int8, lengths [rows]
+        int32)`` host micro-batches of at most ``rows_bound`` baskets
+        (default :meth:`rec_batch_rows`), each padded only to the next
+        power of two of its own baskets, at least
+        :data:`MIN_BLOCK_ROWS`: K2 gives a padding row (length 0) no
+        work, but the upload and K2's packing pass cover it.  Pure numpy
+        (the serving tier's pack thread runs it)."""
         f = len(self.freq_items)
-        nb = len(baskets)
-        mb = max(min(next_pow2(max(nb, 1)), self.rec_batch_rows()), 32)
-        for b0 in range(0, nb, mb):
-            block = baskets[b0 : b0 + mb]
-            bm = build_bitmap(block, f, mb, self.config.item_tile)
-            blen = np.zeros(mb, dtype=np.int32)
+        bound = self.rec_batch_rows() if rows_bound is None else rows_bound
+        for b0 in range(0, len(baskets), bound):
+            block = baskets[b0 : b0 + bound]
+            rows = max(min(next_pow2(len(block)), bound), MIN_BLOCK_ROWS)
+            bm = build_bitmap(block, f, rows, self.config.item_tile)
+            blen = np.zeros(rows, dtype=np.int32)
             blen[: len(block)] = [len(b) for b in block]
             yield b0, len(block), bm, blen
 
@@ -300,51 +355,55 @@ class AssociationRules:
             return first_match_plain
         return first_match
 
-    def _device_first_match(self, baskets: List[np.ndarray],
-                            stats: dict) -> List[int]:
-        """K2 over the rule table on the device, one launch per basket
-        micro-batch; only the selected consequents come back.  The table
-        built on the device (:meth:`scan_table`) when the device rule
-        engine ran, else the host-built one (:meth:`table`)."""
-        if self._scan_state is not None or self._scan_table is not None:
-            return self._resident_first_match(baskets, stats)
+    def serve_scan(self, stats: Optional[dict] = None) -> ServeScanHandle:
+        """Mount the rule table for K2's scans, the serving tier's and the
+        batch path's (counterpart: the JAX package's ``serve_scan``):
+        the table built on the device when the device rule engine left
+        its state (:meth:`scan_table`), else the host-built table,
+        uploaded here once (:meth:`table`).  Either way every later
+        micro-batch moves only baskets up and consequents down.
+        ``stats`` gets ``plain_kernels`` under ``FA_NO_PALLAS``.
+        Returns a :class:`ServeScanHandle`."""
+        self.rule_arrays()
         ctx = self.ctx
-        match = self._match_fn(stats)
-        ant, size, consequent = self.table()
-        recs = np.full(len(baskets), -1, dtype=np.int64)
-        launches = 0
-        for b0, n, bm, blen in self.micro_batches(baskets):
-            _, cons = strided_match_scan(
-                ctx.upload(bm), ctx.upload(blen), ant, size, consequent,
-                match_fn=match,
-            )
-            recs[b0 : b0 + n] = ctx.fetch(cons, "rec_match")[:n]
-            launches += 1
-        stats.update(rules=self.n_rules, table_rows=int(ant.shape[0]),
-                     launches=launches, resident_table=False)
-        return recs.tolist()
+        match = self._match_fn({} if stats is None else stats)
+        resident = self._scan_state is not None or self._scan_table is not None
+        if resident:
+            ant, size, consequent, _ = self.scan_table()
+        else:
+            ant, size, consequent = self.table()
 
-    def _resident_first_match(self, baskets: List[np.ndarray],
-                              stats: dict) -> List[int]:
-        """K2 over the table built on the device: per micro-batch one
-        basket upload and one non-blocking fetch of the consequents, all
-        read after the last launch."""
-        ctx = self.ctx
-        match = self._match_fn(stats)
-        first_build = self._scan_table is None
-        ant, size, consequent, build_ms = self.scan_table()
-        fetches = []
-        for b0, n, bm, blen in self.micro_batches(baskets):
-            _, cons = strided_match_scan(
+        def scan(bm: np.ndarray, blen: np.ndarray):
+            return strided_match_scan(
                 ctx.upload_async(bm), ctx.upload_async(blen), ant, size,
                 consequent, match_fn=match,
             )
-            fetches.append((b0, n, ctx.fetch_async(cons, "rec_match")))
+
+        return ServeScanHandle(
+            scan, resident=resident,
+            table_bytes=int(ant.nbytes + size.nbytes + consequent.nbytes),
+            table_rows=int(ant.shape[0]),
+            kernel=ctx.platform == "cuda" and match is first_match,
+        )
+
+    def _device_first_match(self, baskets: List[np.ndarray],
+                            stats: dict) -> List[int]:
+        """K2 over the table :meth:`serve_scan` mounts (the one built on
+        the device when the device rule engine ran, else the host-built
+        one): per micro-batch one basket upload, one launch and one
+        non-blocking fetch of the consequents, all read after the last
+        launch."""
+        first_build = self._scan_state is not None
+        h = self.serve_scan(stats)
+        fetches = []
+        for b0, n, bm, blen in self.micro_batches(baskets):
+            _, cons = h.scan(bm, blen)
+            fetches.append((b0, n, self.ctx.fetch_async(cons, "rec_match")))
         recs = np.full(len(baskets), -1, dtype=np.int64)
         for b0, n, fetch in fetches:
             recs[b0 : b0 + n] = fetch.result()[:n]
-        stats.update(rules=self.n_rules, table_rows=int(ant.shape[0]),
-                     launches=len(fetches), resident_table=True)
+        stats.update(rules=self.n_rules, table_rows=h.table_rows,
+                     launches=len(fetches), resident_table=h.resident)
         if first_build:
-            stats["table_build_ms"] = round(build_ms, 3)
+            stats["table_build_ms"] = round(self._scan_table[3], 3)
         return recs.tolist()

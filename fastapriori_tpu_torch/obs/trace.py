@@ -57,6 +57,8 @@ FETCH_SITE_SPANS = (
     "fetch.rec_match",
     "fetch.rule_counts",
     "fetch.rule_mask",
+    "fetch.serve_match",
+    "fetch.serve_swap_ready",
     "fetch.tail",
     "fetch.vlevel_bits",
     "fetch.vpair",

@@ -96,6 +96,21 @@ def classify(exc: BaseException) -> str:
     return "fatal"
 
 
+def context_lost(exc: BaseException) -> bool:
+    """True for the fatal errors after which nothing more can run on this
+    process's CUDA context: a sticky CUDA error, an injected abort (the
+    stand-in for a crash) and the watchdog's abandoned-thread cap (a
+    wedged device).  A server's dispatcher stops on them
+    (serve/server.py) instead of answering on a dead context."""
+    from fastapriori_tpu_torch.reliability import watchdog
+
+    if isinstance(exc, (failpoints.InjectedAbort,
+                        watchdog.AbandonedThreadCap)):
+        return True
+    return (isinstance(exc, RuntimeError)
+            and any(s in str(exc) for s in STICKY_CUDA_ERRORS))
+
+
 @dataclasses.dataclass(frozen=True)
 class RetryPolicy:
     """Bounded exponential backoff.  ``max_attempts`` counts the first

@@ -25,11 +25,13 @@ gave up on (retry.py ``exhausted``): an error raised anywhere else, a
 kernel wrapper's launch or allocation included, propagates.  ``rule_scan``
 (device table -> host scan) and the kernel-tier chains
 ``vertical_kernel`` and ``serve_scan`` (stages "cuda", "torch") keep
-their names but are never walked: each would move K2's or K3's work off
-the card to the CPU or to the kernel's plain version, so a failure of
-K1, K2 or K3 on the card stays an error.  ``count_reduce``,
-``exchange``, ``elastic``, ``serving`` and ``serve_mesh`` belong to
-multi-process mining and serving, which this port does not have yet.
+their names but are never walked, on the batch path and in the serving
+tier alike: each would move K2's or K3's work off the card to the CPU or
+to the kernel's plain version, so a failure of K1, K2 or K3 on the card
+stays an error.  The serving tier walks ``serving`` (accept -> shed, an
+overload episode) and ``serve_mesh`` (full -> degraded, a lost host).
+``count_reduce``, ``exchange`` and ``elastic`` belong to multi-process
+mining, which this port does not have yet.
 """
 
 from __future__ import annotations

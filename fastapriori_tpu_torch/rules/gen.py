@@ -87,6 +87,10 @@ class DeviceRuleState:
         self.arrays = []
         self.ready = False
 
+    def device_bytes(self) -> int:
+        """Bytes of the tensors still held (0 after :meth:`release`)."""
+        return sum(int(t.nbytes) for level in self.arrays for t in level)
+
 
 def _raw_rule_count(mats: Dict[int, Tuple[np.ndarray, np.ndarray]]) -> int:
     """Raw (unpruned) rules: every k-itemset emits k."""

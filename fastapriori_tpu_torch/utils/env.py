@@ -13,8 +13,10 @@ The port reads ``FA_MINE_ENGINE``, ``FA_COUNT_REDUCE``,
 (reliability/watchdog.py), and the observability knobs ``FA_TRACE``,
 ``FA_TRACE_EVENTS`` (obs/trace.py), ``FA_FLIGHT_RECORDER_N``
 (obs/flight.py), ``FA_METRICS_DUMP_S`` (obs/metrics.py) and
-``FA_DEVICE_TRACE`` (obs/device_trace.py); a value it does not know is
-an error, never a quiet default.
+``FA_DEVICE_TRACE`` (obs/device_trace.py), and the serving tier's
+``FA_SERVE_PIPELINE_DEPTH`` (serve/server.py), ``FA_SERVE_HOSTS``,
+``FA_HEARTBEAT_MS`` and ``FA_QUORUM_TIMEOUT_S`` (serve/router.py); a
+value it does not know is an error, never a quiet default.
 """
 
 from __future__ import annotations

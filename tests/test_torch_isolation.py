@@ -13,8 +13,9 @@
 The vertical engine's modules (ops/vertical.py, ops/vertical_kernel.py,
 utils/env.py), the device rule engine's (rules/gen.py, ops/contain.py,
 device.py), the reliability core's (reliability/*, io/checkpoint.py,
-io/resume.py) and observability's (obs/*: alone they import neither jax
-nor torch, so not torch.profiler) are imported by name, and a forced vertical mine or a
+io/resume.py), observability's (obs/*: alone they import neither jax
+nor torch, so not torch.profiler) and the serving tier's (serve/*) are
+imported by name, and a forced vertical mine or a
 forced device rule engine without a CUDA device is refused like any
 other run.  fsspec is imported only inside the functions that open a
 remote path: importing the port, and a local run, leave it out.
@@ -56,7 +57,11 @@ def test_import_leaves_jax_out():
         "fastapriori_tpu_torch.io.resume, fastapriori_tpu_torch.io.writer, "
         "fastapriori_tpu_torch.obs, fastapriori_tpu_torch.obs.trace, "
         "fastapriori_tpu_torch.obs.flight, fastapriori_tpu_torch.obs.metrics, "
-        "fastapriori_tpu_torch.obs.device_trace\n"
+        "fastapriori_tpu_torch.obs.device_trace, "
+        "fastapriori_tpu_torch.serve, fastapriori_tpu_torch.serve.state, "
+        "fastapriori_tpu_torch.serve.server, "
+        "fastapriori_tpu_torch.serve.loadgen, "
+        "fastapriori_tpu_torch.serve.router\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'fastapriori_tpu', 'fsspec'))\n"
         "print(','.join(bad))\n"
@@ -120,7 +125,10 @@ def test_no_module_of_the_port_names_jax():
             os.path.join("fastapriori_tpu_torch", "io", "resume.py"),
             *(os.path.join("fastapriori_tpu_torch", "obs", n + ".py")
               for n in ("__init__", "trace", "flight", "metrics",
-                        "device_trace"))} <= names
+                        "device_trace")),
+            *(os.path.join("fastapriori_tpu_torch", "serve", n + ".py")
+              for n in ("__init__", "state", "server", "loadgen",
+                        "router"))} <= names
     for path in files:
         assert FORBIDDEN.isdisjoint(_imported_roots(path)), path
 
@@ -229,6 +237,22 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.delenv("FA_MINE_ENGINE")
     # Asked for explicitly, the CPU is fine.
     assert FastApriori(0.1, device="cpu").ctx.platform == "cpu"
+
+
+def test_serve_without_cuda_exits_2(tmp_path):
+    """``python -m fastapriori_tpu_torch serve`` without a CUDA device and
+    without ``--platform cpu`` exits 2 naming CUDA, and writes nothing."""
+    (tmp_path / "D.dat").write_text("1 2\n2 3\n1 2 3\n")
+    (tmp_path / "U.dat").write_text("1\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "fastapriori_tpu_torch", "serve",
+         str(tmp_path) + "/", str(tmp_path) + "/out-", "--min-support",
+         "0.3"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 2, out.stderr
+    assert "CUDA" in out.stderr
+    assert not (tmp_path / "out-recommends").exists()
 
 
 def test_forced_device_rule_engine_without_cuda_is_refused(

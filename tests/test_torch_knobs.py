@@ -185,7 +185,7 @@ def test_rec_batch_and_no_pallas_write_the_same_bytes(scan_corpus, tmp_path,
 
     def spy(self, baskets):
         for b in real(self, baskets):
-            rows.append(b[2].shape[0])
+            rows.append((b[1], b[2].shape[0]))
             yield b
 
     monkeypatch.setattr(AssociationRules, "micro_batches", spy)
@@ -198,9 +198,14 @@ def test_rec_batch_and_no_pallas_write_the_same_bytes(scan_corpus, tmp_path,
     for name in ("freqItemset", "recommends"):
         got = (tmp_path / "torch" / name).read_bytes()
         assert got and got == (tmp_path / "jax" / name).read_bytes()
-    # The port's scan ran in 64-row micro-batches; the CPU run records
-    # no pallas_disabled (its wrappers run the plain versions anyway).
-    assert rows and set(rows) == {64}
+    # The port's scan ran in micro-batches of 64 baskets, each padded to
+    # the next power of two of its own baskets (at least 32); the CPU run
+    # records no pallas_disabled (its wrappers run the plain versions
+    # anyway).
+    assert len(rows) > 1 and set(rows[:-1]) == {(64, 64)}
+    last_n, last_rows = rows[-1]
+    assert 0 < last_n <= 64
+    assert last_rows == max(1 << (last_n - 1).bit_length(), 32)
     assert "pallas_disabled" not in ledger.summary()
 
 

@@ -367,8 +367,9 @@ def test_fetch_site_census_is_the_ports_sites():
 
 def test_traced_runs_open_exactly_the_census_fetch_spans(tmp_path):
     """The production paths of the port's fetch-site inventory
-    (tests/test_torch_reliability.py), traced: the fetch spans they open
-    are the census."""
+    (tests/test_torch_reliability.py) and a served batch of the serving
+    tier, traced: the fetch spans they open are the census."""
+    from fastapriori_tpu_torch.serve import ServingState
     from test_torch_reliability import FETCH_SITES, _deep_lines, _recommend
 
     d = tmp_path / "in"
@@ -390,6 +391,12 @@ def test_traced_runs_open_exactly_the_census_fetch_spans(tmp_path):
             _recommend(corpus, levels, data, **rec_knobs)
         seen |= {n for _, n, _ in TRACER.span_tree()
                  if n.startswith("fetch.")}
+    TRACER.enable()
+    state = ServingState(levels, data.item_counts, data.freq_items,
+                         data.item_to_rank, device="cpu", engine="device")
+    state.warm()  # fetch.serve_swap_ready
+    state.recommend_batch([["1", "2"], ["3"]])  # fetch.serve_match
+    seen |= {n for _, n, _ in TRACER.span_tree() if n.startswith("fetch.")}
     assert seen == set(FETCH_SITE_SPANS)
 
 
