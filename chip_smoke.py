@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (fastapriori_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N   # phase 12 alone over N cards
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -171,6 +172,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch counts set to 0 just before it and read just after: K2's
    equal the scan dispatches the serving states counted, and K1 and K3
    launch no time in a run that mined nothing.
+12. The one-process device mesh (``mesh_phase``): S transaction
+   shards on the one card, a ``DeviceContext`` whose device list names
+   cuda:0 S times, injected into the CLI's ``_run`` (``_run_serve``):
+   T10 at S = 2 and 4 (auto: the sparse reduction, flat), at S = 8
+   (auto: the sparse reduction over the two-level exchange, 2x4), at 4 =
+   2 txn x 2 cand (dense), with ``--engine fused`` at S = 2, at S = 2 with
+   ``FA_COUNT_SPARSE_CAP`` small enough to overflow (a dense redo),
+   kosarak with ``FA_MINE_ENGINE=vertical`` at S = 2, and ``serve`` on
+   T10's model at S = 2.  Each run: the launch counts set to 0 just
+   before it and read just after, the JAX digests, K1, K2 and K3
+   launched as often as the run's own ``level`` and ``first_match``
+   events (or the serving state's scan dispatches) say, K2 on S shards,
+   the reduction and exchange the JAX package chooses, and a line with
+   the wall, the card, the peak device memory and the reductions'
+   bytes (from the level, tail-fold and fused events).  Then K1 and K2
+   (T10) and K3 (kosarak) at S = 2 through the API: every launch's
+   per-shard inputs recorded, held against the plain version (equal
+   exactly) and timed.
+
+``--cards N`` (N >= 2 visible cards) runs phases 1, 2 and 12 alone,
+with each mesh's shard t on card ``t mod N``: S shards on N separate
+cards, each launch under its own card, with the same checks; it prints
+the mesh summary, the first card's name and power limit and the same
+last line.
 
 Every child process starts first, when ``nvidia-smi`` is on the path:
 the prep child, which writes both corpora and runs the Python ingest of
@@ -775,15 +800,18 @@ def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
 
 
 # The environment variables the CLI reads (cli_path sets them per call).
-CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE", "FA_NO_PALLAS")
+CLI_ENV = ("FA_MINE_ENGINE", "FA_RULE_ENGINE", "FA_NO_PALLAS",
+           "FA_COUNT_REDUCE", "FA_COUNT_SPARSE_CAP", "FA_EXCHANGE_GROUPS")
 
 
 def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
              digests: dict, env=None, extra_args=(), ingest: bool = True,
              injected=None, ledgered=None, allowed=(),
-             verbose: bool = True, serve: bool = False) -> tuple:
-    """Phases 3, 4, 9, 10 and 11: the port's CLI in-process (its ``serve``
-    subcommand with ``serve``), with the
+             verbose: bool = True, serve: bool = False,
+             context=None) -> tuple:
+    """Phases 3, 4, 9, 10, 11 and 12: the port's CLI in-process (its
+    ``serve`` subcommand with ``serve``; with ``context``, the CLI's
+    ``_run`` / ``_run_serve`` on that DeviceContext), with the
     variables of :data:`CLI_ENV` set as ``env`` says (the rest unset) for
     this call only and ``extra_args`` after the zero-flag arguments;
     checks the output digests and, with ``ingest``, that the run took the
@@ -814,9 +842,16 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(captured):
-            rc = cli.main([*(("serve",) if serve else ()), in_dir + "/",
-                           out_dir + "/", "--min-support", min_support,
-                           "--metrics", *extra_args])
+            argv = [in_dir + "/", out_dir + "/", "--min-support",
+                    min_support, "--metrics", *extra_args]
+            if context is None:
+                rc = cli.main([*(("serve",) if serve else ()), *argv])
+            elif serve:
+                rc = cli._run_serve(cli.build_serve_parser().parse_args(argv),
+                                    context=context)
+            else:
+                rc = cli._run(cli.build_parser().parse_args(argv),
+                              context=context)
     finally:
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in kernels.items()}
@@ -2853,6 +2888,250 @@ def serving_phase(in_dir: str, device, card: str,
     return out, by_kernel, serve_k2
 
 
+# Phase 12: the one-process device mesh, S transaction shards on the one
+# card (a DeviceContext whose device list names cuda:0 S times).  Ledger
+# kinds a mesh run may record: the reduction and exchange choices, the
+# tiny-candidate fallback, a union overflow and its cascade walk.
+MESH_ALLOWED = ("count_reduce_engine", "exchange_engine",
+                "count_reduce_fallback", "count_sparse_overflow", "cascade")
+# A union budget T10's reductions outgrow (FA_COUNT_SPARSE_CAP).
+MESH_SMALL_CAP = "64"
+# The cards a mesh's shards spread over (``--cards``; 1: every shard on
+# cuda:0).
+MESH_CARDS = 1
+
+
+def mesh_context(n: int, cand: int = 1):
+    from fastapriori_tpu_torch.device import DeviceContext
+
+    return DeviceContext(devices=[f"cuda:{i % MESH_CARDS}"
+                                  for i in range(n)], cand_devices=cand)
+
+
+def mesh_bytes(fields: dict) -> dict:
+    """The reductions' payloads of a mesh run, summed over its level,
+    tail-fold and fused events, with the largest sparse union and the
+    reductions and exchanges named."""
+    out = {"psum_bytes": 0, "gather_bytes": 0, "intra_bytes": 0,
+           "inter_bytes": 0, "n_union": 0}
+    reduce, exchange = set(), set()
+    for key, v in fields.items():
+        if not key.startswith(("level k=", "tail_fuse", "fused_mine")):
+            continue
+        for b in ("psum_bytes", "gather_bytes", "intra_bytes",
+                  "inter_bytes"):
+            out[b] += int(v.get(b, 0))
+        out["n_union"] = max(out["n_union"], int(v.get("n_union", 0)))
+        if "reduce" in v:
+            reduce.add(v["reduce"])
+        if "exchange" in v:
+            exchange.add(v["exchange"])
+    out["reduce"] = sorted(reduce)
+    out["exchange"] = sorted(exchange)
+    return out
+
+
+def mesh_runs(in_dir: str, k_in: str, card: str) -> tuple:
+    """Phase 12's counted runs (the module docstring): each through the
+    CLI's ``_run`` (``_run_serve``) on a mesh of cuda:0 named S times,
+    the launch counts set to 0 just before and read just after, the JAX
+    digests, the launches the run's own events count, and the
+    reduction the JAX package chooses.  Returns ``({path: record},
+    {path: launches})``."""
+    import torch
+
+    from fastapriori_tpu_torch.reliability import ledger
+
+    t10 = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
+    kos = {"freqItemset": KOSARAK["freq_sha256"],
+           "recommends": KOSARAK["rec_sha256"]}
+    # (path, corpus, support, digests, shards, cand, env, args, serve)
+    runs = [
+        ("t10i4d100k_mesh_s2", in_dir, MIN_SUPPORT, t10, 2, 1, {}, (), False),
+        ("t10i4d100k_mesh_s4", in_dir, MIN_SUPPORT, t10, 4, 1, {}, (), False),
+        ("t10i4d100k_mesh_s8", in_dir, MIN_SUPPORT, t10, 8, 1, {}, (), False),
+        ("t10i4d100k_mesh_4x2", in_dir, MIN_SUPPORT, t10, 4, 2, {}, (),
+         False),
+        ("t10i4d100k_fused_mesh_s2", in_dir, MIN_SUPPORT, t10, 2, 1, {},
+         ("--engine", "fused"), False),
+        ("t10i4d100k_mesh_s2_overflow", in_dir, MIN_SUPPORT, t10, 2, 1,
+         {"FA_COUNT_SPARSE_CAP": MESH_SMALL_CAP}, (), False),
+        ("kosarak_vertical_mesh_s2", k_in, KOSARAK["min_support"], kos, 2, 1,
+         {"FA_MINE_ENGINE": "vertical"}, (), False),
+        ("t10i4d100k_serve_mesh_s2", in_dir, MIN_SUPPORT,
+         {"recommends": REC_SHA256}, 2, 1, {}, (), True),
+    ]
+    records, launches_by = {}, {}
+    for path, d, ms, digests, n, cand, env, args, serve in runs:
+        ctx = mesh_context(n, cand)
+        launches, fields = cli_path(
+            path, d, os.path.join(WORK, "out_" + path), ms, digests, env=env,
+            extra_args=args, ingest=False, verbose=False, serve=serve,
+            allowed=MESH_ALLOWED + (("serve_engine",) if serve else ()),
+            context=ctx)
+        events = ledger.snapshot()
+        kinds = ledger.summary()
+        shards = n // cand
+        if serve:
+            st = require_served(path, fields, T10["n_users"])
+            require_serve_launches(path, launches, st, mined=True)
+            if st["model"].get("scan_shards") != shards:
+                raise SystemExit(f"{path}: the state scanned on "
+                                 f"{st['model'].get('scan_shards')} shards")
+            if launches["level_counts"] <= 0:
+                raise SystemExit(f"{path}: the model build ran no K1")
+        else:
+            vertical = "arena_build" in fields
+            ran = ("vertical_counts" if vertical else "level_counts",
+                   "first_match")
+            require_launches(path, launches, fields,
+                             ran=ran[1:] if "fused" in path else ran)
+            if fields.get("first_match", {}).get("shards") != shards:
+                raise SystemExit(f"{path}: K2 ran on "
+                                 f"{fields.get('first_match')}")
+        if "fused" in path:
+            fused = [v for k, v in fields.items()
+                     if k.startswith("fused_mine")]
+            reduce = fused[0].get("reduce")
+            if fused[-1].get("incomplete") is not False:
+                raise SystemExit(f"{path}: the fused loop did not complete")
+        else:
+            reduce = fields.get("count_reduce", {}).get("engine")
+        want_reduce = "dense" if cand > 1 else "sparse"
+        if reduce != want_reduce:
+            raise SystemExit(f"{path}: count reduction {reduce}, the JAX "
+                             f"package's choice is {want_reduce}")
+        spec = [(e["engine"], e["groups"], e["per_group"]) for e in events
+                if e["kind"] == "exchange_engine"]
+        want_spec = ([("hier", 2, 4)] if n == 8 else
+                     [] if cand > 1 else [("flat", 1, n)])
+        if spec != want_spec:
+            raise SystemExit(f"{path}: exchange {spec}, expected "
+                             f"{want_spec}")
+        overflowed = "count_sparse_overflow" in kinds
+        if path.endswith("_overflow") and not overflowed:
+            raise SystemExit(f"{path}: FA_COUNT_SPARSE_CAP={MESH_SMALL_CAP} "
+                             f"did not overflow a union")
+        b = mesh_bytes(fields)
+        rec = {"shards": shards, "cand": cand, "cli_s": fields["cli_wall_s"],
+               "walls_ms": {k: fields["walls"][k] for k in (
+                   "get freqItemsets", "get recommends", "serve model mount",
+                   "serve") if k in fields["walls"]},
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "overflow": overflowed,
+               "ledger": kinds, **b}
+        log(f"mesh run {path} ({card}): wall {fields['cli_wall_s']:.3f} s, "
+            f"peak device memory {rec['peak_device_bytes']} bytes, "
+            f"reductions {json.dumps(b)}, ledger {json.dumps(kinds)}")
+        records[path] = rec
+        launches_by[path] = launches
+    return records, launches_by
+
+
+def mesh_kernel_measure(in_dir: str, k_in: str) -> dict:
+    """K1 and K2 on T10 (the level engine, the fold off so K1 counts
+    every level, then the device recommend scan) and K3 on kosarak, at
+    S = 2 through the API: every launch recorded with its per-shard
+    inputs, held against the plain version (equal exactly) and timed
+    (CUDA events on the launch's card, 10 calls).  Returns per kernel
+    the per-launch times and shapes."""
+    import torch
+
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.models import apriori, recommender
+    from fastapriori_tpu_torch.models.apriori import FastApriori
+    from fastapriori_tpu_torch.ops.level_kernel import (
+        level_counts,
+        level_counts_plain,
+    )
+    from fastapriori_tpu_torch.ops.match_kernel import (
+        first_match,
+        first_match_plain,
+    )
+    from fastapriori_tpu_torch.ops.vertical_kernel import (
+        vertical_counts,
+        vertical_counts_plain,
+    )
+
+    # kernel -> (module attribute the engine calls, wrapper, plain
+    # version, the shapes of one launch's inputs)
+    kernels = {
+        "level_counts": (apriori, "level_counts", level_counts,
+                         level_counts_plain,
+                         lambda a: [list(a[0].shape), list(a[2].shape)]),
+        "first_match": (recommender, "first_match", first_match,
+                        first_match_plain,
+                        lambda a: [list(a[0].shape), list(a[2].shape)]),
+        "vertical_counts": (apriori, "vertical_level_local",
+                            vertical_counts, vertical_counts_plain,
+                            lambda a: [list(a[0].shape), list(a[3].shape),
+                                       int(a[4].shape[0])]),
+    }
+    calls = {name: [] for name in kernels}
+
+    def recorder(real, into):
+        def recorded(*args):
+            got = real(*args)
+            into.append((args, got))
+            return got
+        return recorded
+
+    for name, (module, attr, real, _, _) in kernels.items():
+        setattr(module, attr, recorder(real, calls[name]))
+    try:
+        ctx = mesh_context(2)
+        miner = FastApriori(config=MinerConfig(
+            min_support=float(MIN_SUPPORT), engine="level",
+            tail_fuse_rows=0), context=ctx)
+        levels, data = miner.run_file_raw(os.path.join(in_dir, "D.dat"))
+        recommender.AssociationRules(
+            data.freq_items, data.item_to_rank, levels, data.item_counts,
+            config=miner.config, context=ctx).run(
+                read_dat(os.path.join(in_dir, "U.dat")), use_device=True)
+        FastApriori(config=MinerConfig(
+            min_support=float(KOSARAK["min_support"]),
+            mine_engine="vertical"), context=mesh_context(2)).run_file_raw(
+                os.path.join(k_in, "D.dat"))
+    finally:
+        for module, attr, real, _, _ in kernels.values():
+            setattr(module, attr, real)
+    out = {}
+    for name, (_, _, real, plain, shapes_of) in kernels.items():
+        if not calls[name]:
+            raise SystemExit(f"{name}: the mesh API runs launched nothing")
+        per, shapes, err = [], [], 0
+        for args, got in calls[name]:
+            err = max(err, require_equal(f"{name} mesh launch", got,
+                                         plain(*args)))
+            with torch.cuda.device(args[0].device):
+                per.append(round(time_ms(lambda a=args: real(*a), 10), 4))
+            shapes.append(shapes_of(args))
+        out[name] = {"launches": len(calls[name]), "max_abs_err": err,
+                     "per_launch_ms": per,
+                     "ms_all_launches": round(sum(per), 4),
+                     "shapes": shapes}
+        log(f"{name} at S=2 per-shard shapes: {len(calls[name])} launches "
+            f"equal to the plain version, {sum(per):.4f} ms in all; "
+            f"{json.dumps(out[name])}")
+    return out
+
+
+def mesh_phase(in_dir: str, k_in: str, card: str) -> tuple:
+    """Phase 12 (the module docstring).  Returns ``(records, launches by
+    kernel and path, per-shard kernel measurements)``."""
+    t0 = time.perf_counter()
+    records, launches_by = mesh_runs(in_dir, k_in, card)
+    measured = mesh_kernel_measure(in_dir, k_in)
+    by_kernel = {kernel: {path: launches[kernel]
+                          for path, launches in launches_by.items()}
+                 for kernel in kernel_launches()}
+    wall = time.perf_counter() - t0
+    log(f"mesh phase ({card}): {wall:.3f} s")
+    log("mesh summary: " + json.dumps(records))
+    return {"wall_s": wall, "runs": records}, by_kernel, measured
+
+
 def require_replayed(name: str, measured: dict, counted: int) -> None:
     """Phase 5's replay of a path must launch a kernel as often as the
     counted CLI run did, or its per-launch times are not the path's."""
@@ -2883,12 +3162,21 @@ def start_children() -> None:
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--cards"
+                 or not args[1].isdigit() or int(args[1]) < 2):
+        print("usage: chip_smoke.py [--cards N], N >= 2", file=sys.stderr)
+        return 2
+    cards = int(args[1]) if args else 1
     try:
         # Where nvidia-smi says a card may be there, the children start
         # first: their start-up then overlaps this process's own import
         # of torch and leaves the build alone.
         if shutil.which("nvidia-smi"):
-            start_children()
+            if cards > 1:
+                CHILDREN["prep"] = Child("prep", PREP)
+            else:
+                start_children()
         import torch
 
         t_start = time.perf_counter()
@@ -2896,13 +3184,56 @@ def main() -> int:
             print("chip_smoke: no CUDA device (torch.cuda.is_available() "
                   "is false)", file=sys.stderr)
             return 1
-        return run(t_start)
+        return run(t_start) if cards == 1 else run_cards(t_start, cards)
     finally:
         Child.stop_all()
 
 
+def run_cards(t_start: float, cards: int) -> int:
+    """``--cards N`` (the module docstring): phases 1, 2 and 12, the
+    mesh's shards spread over N cards."""
+    import torch
+
+    from fastapriori_tpu_torch.ops import build
+
+    global MESH_CARDS
+    if torch.cuda.device_count() < cards:
+        raise SystemExit(f"--cards {cards}: {torch.cuda.device_count()} "
+                         f"cards visible")
+    MESH_CARDS = cards
+    if not CHILDREN:
+        CHILDREN["prep"] = Child("prep", PREP)
+    card = card_line()
+    log(f"card: {card} (x{cards})")
+    t0 = time.perf_counter()
+    report = build.build()
+    log(f"build: {time.perf_counter() - t0:.3f} s {json.dumps(report)}")
+    # From cuda:0, so each wrapper makes its tensors' card current.
+    for i in range(cards):
+        quick_checks(torch.device("cuda", i))
+    log(f"quick checks on {cards} cards: the three kernels equal their "
+        f"plain versions")
+    (_, in_dir, _, _), (_, k_in, _, _) = corpora()
+    log(f"datagen in the prep child (s): "
+        f"{json.dumps(CHILDREN['prep'].reply())}")
+    mesh, mesh_launches, mesh_measured = mesh_phase(in_dir, k_in, card)
+    log(f"mesh per-shard kernels over {cards} cards: "
+        f"{json.dumps(mesh_measured)}")
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
+        f"torch's import")
+    print(json.dumps({"mesh_cards": cards, "mesh": mesh,
+                      "launches_by_path": mesh_launches}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def run(t_start: float) -> int:
-    """Phases 1-11 (the module docstring); returns 0 when all passed."""
+    """Phases 1-12 (the module docstring); returns 0 when all passed."""
     import torch
 
     from fastapriori_tpu_torch.ops import build
@@ -2970,6 +3301,7 @@ def run(t_start: float) -> int:
     observability = observability_phase(in_dir, k_in, card)
     serving, serving_launches, serve_k2 = serving_phase(
         in_dir, device, card, main_launches)
+    mesh, mesh_launches, mesh_measured = mesh_phase(in_dir, k_in, card)
     for name, path, _, min_support in corpora():
         ingest_compare(name, path, min_support, python_ingest[name])
 
@@ -3019,7 +3351,8 @@ def run(t_start: float) -> int:
                 else 0,
                 "kosarak_vertical": vert_launches[name],
                 "kosarak_vertical_device_rules_cli": vrules_launches[name],
-                **serving_launches.get(name, {})}
+                **serving_launches.get(name, {}),
+                **mesh_launches.get(name, {})}
 
     # Top-level numbers: the first path in "measured_by_path".
     kernels = [
@@ -3028,14 +3361,18 @@ def run(t_start: float) -> int:
          "replaces": "fastapriori_tpu/ops/pallas_level.py:57",
          "launches": main_launches["level_counts"], "path": "t10i4d100k",
          "launches_by_path": by_path("level_counts"), **k1,
-         "measured_by_path": {"t10i4d100k": k1}},
+         "measured_by_path": {
+             "t10i4d100k": k1,
+             "t10i4d100k_mesh_s2_api": mesh_measured["level_counts"]}},
         {"name": "first_match", "route": "cuda",
          "source": "fastapriori_tpu_torch/csrc/first_match.cu",
          "replaces": "fastapriori_tpu/ops/pallas_vertical.py:210",
          "launches": main_launches["first_match"], "path": "t10i4d100k",
          "launches_by_path": by_path("first_match"), **k2,
          "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v,
-                              "t10i4d100k_serving_block": serve_k2},
+                              "t10i4d100k_serving_block": serve_k2,
+                              "t10i4d100k_mesh_s2_api":
+                                  mesh_measured["first_match"]},
          "device_built_table": {
              path: {key: m[key] for key in (
                  "ms", "device_ms", "max_abs_err", "table_rows", "k",
@@ -3047,7 +3384,10 @@ def run(t_start: float) -> int:
          "launches": vert_launches["vertical_counts"],
          "path": "kosarak_vertical",
          "launches_by_path": by_path("vertical_counts"), **k3,
-         "measured_by_path": {"kosarak_vertical": k3}},
+         "measured_by_path": {
+             "kosarak_vertical": k3,
+             "kosarak_vertical_mesh_s2_api":
+                 mesh_measured["vertical_counts"]}},
     ]
     log(f"fused compare summary: {json.dumps(compared)}")
     log("rule crossover summary: " + json.dumps(
@@ -3055,6 +3395,7 @@ def run(t_start: float) -> int:
     log("reliability walls: " + json.dumps(reliability))
     log("observability walls: " + json.dumps(observability))
     log("serving walls: " + json.dumps(serving))
+    log("mesh walls: " + json.dumps(mesh))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
         f"torch's import, {time.perf_counter() - T_START:.3f} s from the "
         f"script's start")

@@ -3,7 +3,8 @@ reference C1, Main.scala:15-41).
 
     python -m fastapriori_tpu_torch <input-prefix> <output-prefix> [tmp] \\
         [--min-support S] [--engine auto|fused|level] [--metrics] \\
-        [--platform default|cpu] [--save-counts] [--resume-from PREFIX] \\
+        [--platform default|cpu] [--num-devices S] [--cand-devices C] \\
+        [--save-counts] [--resume-from PREFIX] \\
         [--checkpoint-every-level] [--checkpoint-cadence N] \\
         [--trace PATH] [--profile-dir DIR]
 
@@ -23,6 +24,14 @@ reference C1, Main.scala:15-41).
   on CUDA;
 - ``--platform default`` runs on the CUDA device (an error without one);
   ``--platform cpu`` runs every kernel's plain PyTorch version on the CPU;
+- ``--num-devices S`` mines and recommends on S transaction shards
+  (parallel/mesh.py): S cards on CUDA (more than are visible exits 2;
+  the default is every visible card), S CPU shards with ``--platform
+  cpu`` (default 1); ``--cand-devices C`` splits them into a ``(S/C,
+  C)`` grid whose cand axis shares out each level's prefix rows.  The
+  counts cross the shards through the dense psum, the threshold-sparse
+  exchange or its two-level form, chosen as the JAX package chooses
+  (``FA_COUNT_REDUCE``, ``FA_COUNT_SPARSE_CAP``, ``FA_EXCHANGE_GROUPS``);
 - the mining layout has no flag, as in the JAX package's CLI: the
   environment variable ``FA_MINE_ENGINE`` (``auto``, ``bitmap`` or
   ``vertical``; strictly parsed) picks it, ``auto`` by default; nor has
@@ -54,8 +63,8 @@ its rule table on the device, answer ``--requests`` (default
 ``<input>U.dat``; ``-`` reads stdin) through the micro-batching server
 (closed submission, or ``--rate`` open loop; ``--hosts N`` in-process
 hosts behind the router) and write ``<output>recommends`` with its
-manifest, or the answers to stdout.  Its flags are the JAX CLI's but
-``--num-devices``.  Unlike the JAX CLI, a run in which any batch failed
+manifest, or the answers to stdout.  Its flags are the JAX CLI's, with
+``--num-devices`` as above.  Unlike the JAX CLI, a run in which any batch failed
 (a ``serve_error``) exits 1 and writes no ``recommends``.
 
 Phase walls print as the reference's ``====`` lines, and are ``phase``
@@ -111,6 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="default",
                    help="default = the CUDA device; cpu = plain PyTorch "
                    "versions of every kernel on the CPU")
+    _add_mesh_flags(p, cand=True)
     p.add_argument("--save-counts", action="store_true",
                    help="also write <output>freqItems with [count] suffixes "
                    "(the reference's unused saveFreqItemsetWithCount, "
@@ -213,7 +223,36 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    default="default",
                    help="default = the CUDA device; cpu = plain PyTorch "
                    "versions of every kernel on the CPU")
+    _add_mesh_flags(p, cand=False)
     return p
+
+
+def _add_mesh_flags(p: argparse.ArgumentParser, cand: bool) -> None:
+    """``--num-devices`` (both CLIs) and ``--cand-devices`` (the batch
+    CLI), as in the JAX package's CLI."""
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="transaction shards of the device mesh: CUDA "
+                   "cards (default: every visible card; more than are "
+                   "visible is an error), or CPU shards with --platform "
+                   "cpu (default 1)")
+    if cand:
+        p.add_argument("--cand-devices", type=int, default=1,
+                       help="split the devices into a (txn, cand) grid "
+                       "whose cand axis shares out each level's prefix "
+                       "rows; must divide the device count (default 1)")
+
+
+def _context(args, device: str, context=None):
+    """The run's DeviceContext: the injected one, else the mesh the
+    flags ask for (the default platform without ``--num-devices``:
+    every visible card)."""
+    if context is not None:
+        return context
+    from fastapriori_tpu_torch.device import DeviceContext
+
+    return DeviceContext(None if device == "cuda" else device,
+                         num_devices=args.num_devices,
+                         cand_devices=getattr(args, "cand_devices", 1))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -304,7 +343,7 @@ def _start_metrics_dump(server, path: Optional[str]):
     return finish
 
 
-def _mount_serving(args, config: MinerConfig, device: str, n_hosts: int):
+def _mount_serving(args, config: MinerConfig, ctx, n_hosts: int):
     """The serve CLI's model and its server: the state mined or loaded,
     saved with ``--save-serving``, behind one started RecommendServer or,
     at ``n_hosts`` > 1, a MeshRouter over that many in-process hosts,
@@ -323,11 +362,11 @@ def _mount_serving(args, config: MinerConfig, device: str, n_hosts: int):
 
     if args.from_serving:
         state = ServingState.load(args.from_serving, config=config,
-                                  device=device, engine=args.serve_engine)
+                                  engine=args.serve_engine, context=ctx)
     else:
         state = ServingState.from_mine(args.input + "D.dat", config=config,
                                        engine=args.serve_engine,
-                                       device=device)
+                                       context=ctx)
     if args.save_serving:
         state.save(args.output)
 
@@ -350,8 +389,8 @@ def _mount_serving(args, config: MinerConfig, device: str, n_hosts: int):
         state.save(prefix)
     try:
         states = [state] + [
-            ServingState.load(prefix, config=config, device=device,
-                              engine=args.serve_engine)
+            ServingState.load(prefix, config=config, engine=args.serve_engine,
+                              context=ctx)
             for _ in range(n_hosts - 1)]
     finally:
         if scratch is not None:
@@ -360,7 +399,10 @@ def _mount_serving(args, config: MinerConfig, device: str, n_hosts: int):
                        for i, st in enumerate(states)])
 
 
-def _run_serve(args) -> int:
+def _run_serve(args, context=None) -> int:
+    """The ``serve`` subcommand; ``context``: a DeviceContext to serve on
+    instead of the one the flags ask for (``chip_smoke.py`` injects a
+    mesh of one card named S times)."""
     from fastapriori_tpu_torch.device import resolve_device
     from fastapriori_tpu_torch.io.reader import read_dat, tokenize_line
     from fastapriori_tpu_torch.io.writer import save_recommends, write_manifest
@@ -374,6 +416,7 @@ def _run_serve(args) -> int:
                          "therefore needs an output prefix")
     device = "cpu" if args.platform == "cpu" else "cuda"
     resolve_device(device)  # no CUDA device and no --platform cpu: exit 2
+    ctx = _context(args, device, context)
     flight.reload_from_env()
     trace.maybe_enable(bool(args.trace))
     flight.set_dump_prefix(args.output or args.input)
@@ -383,7 +426,7 @@ def _run_serve(args) -> int:
     if n_hosts < 1:
         raise InputError(f"--hosts must be >= 1, got {n_hosts}")
     t0 = time.perf_counter()
-    server = _mount_serving(args, config, device, n_hosts)
+    server = _mount_serving(args, config, ctx, n_hosts)
     print("==== Total time for serve model mount "
           f"{int((time.perf_counter() - t0) * 1e3)}", file=sys.stderr)
     metrics = MetricsLogger(enabled=args.metrics)
@@ -494,7 +537,10 @@ def _load_resume(prefix: str):
     )
 
 
-def _run(args) -> int:
+def _run(args, context=None) -> int:
+    """The batch run; ``context``: a DeviceContext to run on instead of
+    the one the flags ask for (``chip_smoke.py`` injects a mesh of one
+    card named S times)."""
     from fastapriori_tpu_torch.io.reader import read_dat
     from fastapriori_tpu_torch.models.apriori import FastApriori
     from fastapriori_tpu_torch.obs import device_trace, flight, trace
@@ -509,6 +555,8 @@ def _run(args) -> int:
         checkpoint_prefix=(args.output if args.checkpoint_every_level
                            else None),
         checkpoint_every_levels=max(args.checkpoint_cadence, 1),
+        num_devices=args.num_devices,
+        cand_devices=args.cand_devices,
     )
     device = "cpu" if args.platform == "cpu" else "cuda"
     # Observability: the strict knobs, span recording on --trace or
@@ -517,7 +565,8 @@ def _run(args) -> int:
     device_trace.enabled_by_env()
     trace.maybe_enable(bool(args.trace))
     flight.set_dump_prefix(args.output)
-    miner = FastApriori(config=config, device=device)
+    miner = FastApriori(config=config,
+                        context=_context(args, device, context))
     u_lines = read_dat(args.input + "U.dat")
 
     # --profile-dir captures both phases: K2, the recommend scan's
@@ -583,7 +632,7 @@ def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
     with phase_timer("get recommends", enabled=False):
         recommender = AssociationRules(
             freq_items, item_to_rank, levels, item_counts,
-            config=config, device=device,
+            config=config, context=miner.ctx,
         )
         recommends = recommender.run(u_lines)
         manifest = {}

@@ -1,9 +1,9 @@
 """Miner, recommender and serving knobs (counterpart:
 fastapriori_tpu/config.py).
 
-Only the ``MinerConfig`` fields the batch mine + recommend path and the
-one-process serving tier read are carried over, with the reference
-package's defaults.
+Only the ``MinerConfig`` fields the batch mine + recommend path, the
+one-process device mesh and the one-process serving tier read are
+carried over, with the reference package's defaults.
 """
 
 from __future__ import annotations
@@ -129,14 +129,39 @@ class MinerConfig:
     # does not read it.  FA_VERTICAL_LANE_TILE overrides, strictly
     # parsed.
     vertical_lane_tile: int = 1 << 13
-    # Count reduction across transaction shards: "auto" or "dense" (the
-    # one psum a shard count needs), or "sparse" (the thresholded
-    # exchange).  The port mines on one device, one shard, where auto
-    # and dense run dense and a forced sparse falls back to dense with a
+    # The device mesh (parallel/mesh.py): transaction shards times
+    # candidate blocks.  num_devices None = every visible CUDA card (one
+    # shard on the CPU); cand_devices splits them into a (txn, cand)
+    # grid whose cand axis shares out each level's prefix rows.
+    num_devices: Optional[int] = None
+    cand_devices: int = 1
+    # Count reduction across transaction shards: "auto" (the
+    # threshold-sparse exchange on two or more transaction shards of a
+    # 1-D mesh, else the dense psum), "dense", or "sparse" (forced; on
+    # one shard or a cand mesh it falls back to dense with a
     # `count_reduce_fallback` event and a `count_reduce` cascade walk,
-    # as the JAX package does there.  FA_COUNT_REDUCE overrides,
-    # strictly parsed.
+    # as the JAX package does).  FA_COUNT_REDUCE overrides, strictly
+    # parsed.
     count_reduce: str = "auto"
+    # Sparse exchange: union-compaction slots per reduction (ops/count.py
+    # ``sparse_union_cap``); None = n_candidates / 16 in a pow2 bucket,
+    # floor 1,024.  A union past it redoes that reduction dense and
+    # remembers the grown budget.  FA_COUNT_SPARSE_CAP overrides,
+    # strictly parsed.
+    count_sparse_cap: Optional[int] = None
+    # Below this many candidate slots a reduction stays dense even when
+    # the mine runs sparse.
+    count_sparse_min: int = 4096
+    # Two-level exchange (parallel/hier.py): 0 = auto (the divisor of S
+    # nearest below its square root from S = 8, else flat), 1 = flat,
+    # any other value must divide the transaction shards.
+    # FA_EXCHANGE_GROUPS overrides, strictly parsed.
+    exchange_groups: int = 0
+    # Shards of the device rule join (rules/gen.py
+    # ``resolve_rule_shards``): 0 = auto, 1 = shard 0's device.  The
+    # port has the one-shard join only; a value above 1 (or
+    # FA_RULE_SHARDS above 1) is an InputError.
+    rule_shards: int = 0
     # Host threads for the native ingest and the arena build's reduce
     # pass.  None = one thread per core; FA_INGEST_THREADS overrides,
     # strictly parsed.

@@ -1,13 +1,14 @@
-"""Device placement for the single-GPU path (counterpart: the one-device
-subset of fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — upload,
+"""Device placement (counterpart: the one-process part of
+fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — the mesh of shard
+devices (parallel/mesh.py) with its placements, upload,
 the vertical engine's arena and plane uploads, fetch, the ingest-
 overlapped pair program ``ingest_pair_miner``, its overflow
 ``pair_regather``, the remembered pair budgets, the fused engine's
 memos (``fused_m_cap_hint``, ``fused_failed``, ``auto_level``) with the
 device's memory size for its memory model, and the survivor-count
 gather ``gather_level_counts_start`` / ``finish_level_counts`` with
-``PendingCounts`` and ``_pad_positions``; no
-mesh and no collectives).
+``PendingCounts`` and ``_pad_positions``; the collectives are
+parallel/mesh.py's).
 
 Every device -> host read goes through the reliability core's audited
 fetch (reliability/retry.py ``fetch`` / ``fetch_async``) under the site
@@ -47,6 +48,8 @@ from fastapriori_tpu_torch.ops.count import (
 )
 from fastapriori_tpu_torch.ops.vertical import assemble_arena
 from fastapriori_tpu_torch.ops.vertical_kernel import lane_plane_mask
+from fastapriori_tpu_torch.parallel import mesh
+from fastapriori_tpu_torch.parallel.mesh import Mesh, resolve_devices
 from fastapriori_tpu_torch.reliability import retry
 from fastapriori_tpu_torch.reliability.retry import AsyncFetch
 
@@ -181,13 +184,29 @@ class BlockUploader:
 
 
 class DeviceContext:
-    """One device: host arrays go up with :meth:`upload`, results come
-    back with :meth:`fetch`.  ``sync_check``: run the pipelined ingest's
-    pair dispatch under :meth:`sync_free` (a test of the overlap; off by
-    default)."""
+    """The device mesh of one process (parallel/mesh.py ``Mesh``): host
+    arrays go up with :meth:`upload` (shard 0's device) or the placement
+    methods (:meth:`shard_rows`, :meth:`shard_lanes`, :meth:`place`),
+    results come back with :meth:`fetch`.  ``num_devices`` /
+    ``cand_devices`` / ``devices`` as for parallel/mesh.py
+    ``resolve_devices`` and ``Mesh``: with ``num_devices`` None, one
+    shard on a named ``device``, every visible card when ``device`` is
+    None too.  ``device`` is shard 0's device.
+    ``sync_check``: run the pipelined ingest's pair dispatch under
+    :meth:`sync_free` (a test of the overlap; off by default).
 
-    def __init__(self, device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+    ``exchange_spec``: the two-level exchange topology of the mine's
+    sparse reductions (parallel/hier.py), or None for flat; the engine
+    installs it once per mine (models/apriori.py ``_exchange_spec``) and
+    a cascade walk sets it back to None."""
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None,
+                 num_devices: Optional[int] = None, cand_devices: int = 1,
+                 devices: Optional[Sequence] = None):
+        self.mesh = Mesh(resolve_devices(device, num_devices, devices),
+                         cand_devices)
+        self.device = self.mesh.devices[0]
+        self.exchange_spec: Optional[Tuple[int, int]] = None
         self.sync_check = False
         self._pair_caps: Dict[tuple, int] = {}
         self._fused_hints: Dict[tuple, int] = {}
@@ -198,8 +217,82 @@ class DeviceContext:
     def platform(self) -> str:
         return self.device.type
 
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.n_devices
+
+    @property
+    def txn_shards(self) -> int:
+        return self.mesh.txn_shards
+
+    @property
+    def cand_shards(self) -> int:
+        return self.mesh.cand_shards
+
     def upload(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def place(self, x: np.ndarray, devices: Sequence[torch.device],
+              non_blocking: bool = False) -> List[torch.Tensor]:
+        """``x`` on each of ``devices``, uploaded once per distinct
+        device; ``non_blocking`` as :meth:`upload_async` (through pinned
+        memory, the host does not wait)."""
+        host = torch.from_numpy(np.ascontiguousarray(x))
+        if non_blocking and any(d.type == "cuda" for d in devices):
+            host = host.pin_memory()
+        copies: Dict[torch.device, torch.Tensor] = {}
+        out = []
+        for d in devices:
+            if d not in copies:
+                copies[d] = host.to(d, non_blocking=non_blocking)
+            out.append(copies[d])
+        return out
+
+    def shard_rows(self, x: np.ndarray, axis: int = 0,
+                   txn_only: bool = False) -> List[torch.Tensor]:
+        """Rows (``axis`` 0) or columns (``axis`` -1) of ``x`` split into
+        ``txn_shards`` contiguous blocks: the per-position list of the
+        mesh (position ``t·C + c`` holds block t, one upload per distinct
+        device and block), or with ``txn_only`` the list over the
+        transaction shards of candidate block 0.  The axis must divide
+        evenly."""
+        t_sh = self.txn_shards
+        cols = 1 if txn_only else self.cand_shards
+        n = x.shape[axis]
+        assert n % t_sh == 0, (x.shape, t_sh)
+        per = n // t_sh
+        out = []
+        for t in range(t_sh):
+            sl = [slice(None)] * x.ndim
+            sl[axis] = slice(t * per, (t + 1) * per)
+            out.extend(self.place(x[tuple(sl)],
+                                  [self.mesh.device(t, c)
+                                   for c in range(cols)]))
+        return out
+
+    def shard_lanes(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A device tensor's last axis (the vertical engine's lanes) split
+        into ``txn_shards`` contiguous blocks, each on its shard's
+        device: the per-position list (``[x]`` itself on one shard)."""
+        if self.n_devices == 1:
+            return [x]
+        t_sh = self.txn_shards
+        per = x.shape[-1] // t_sh
+        assert per * t_sh == x.shape[-1], (x.shape, t_sh)
+        out = []
+        for t in range(t_sh):
+            blk = x[..., t * per : (t + 1) * per].contiguous()
+            out.extend(mesh.broadcast(
+                blk, [self.mesh.device(t, c)
+                      for c in range(self.cand_shards)]))
+        return out
+
+    def txn_parts(self, parts: Sequence[torch.Tensor],
+                  c: int = 0) -> List[torch.Tensor]:
+        """Candidate block ``c``'s tensors of a per-position list, in
+        transaction-shard order."""
+        return [parts[t * self.cand_shards + c]
+                for t in range(self.txn_shards)]
 
     def upload_async(self, x: np.ndarray) -> torch.Tensor:
         """Like :meth:`upload`, but on CUDA through pinned memory with a
@@ -345,17 +438,23 @@ class DeviceContext:
 
     def pair_regather(
         self, counts: torch.Tensor, min_count: int, num_items: int, cap: int,
-        site: str = "pair_regather",
-    ) -> Tuple[np.ndarray, np.ndarray, int]:
+        site: str = "pair_regather", extra: Optional[torch.Tensor] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, int, Optional[int]]:
         """The first ``cap`` frequent pairs of a resident count matrix
         (ops/count.py ``local_pair_regather``): host int64 ``(flat_idx,
-        counts, n2)``, one fetch under ``fetch.<site>`` (``pair`` or
-        ``vpair`` for a pair level's first extraction, ``pair_regather``
-        for the overflow path's)."""
+        counts, n2, extra)``, one fetch under ``fetch.<site>`` (``pair``
+        or ``vpair`` for a pair level's first extraction, with
+        ``_sparse`` under the sparse reduction, ``pair_regather`` for
+        the overflow path's); ``extra``, a device scalar riding the same
+        fetch (the sparse union count), comes back as a host int (None
+        without)."""
         idx, cnt, n2 = local_pair_regather(counts, min_count, num_items, cap)
-        out = self.fetch(torch.cat([idx, cnt.long(), n2.long()[None]]),
-                         site)
-        return out[:cap], out[cap : 2 * cap], int(out[2 * cap])
+        parts = [idx, cnt.long(), n2.long()[None]]
+        if extra is not None:
+            parts.append(extra.long().reshape(1))
+        out = self.fetch(torch.cat(parts), site)
+        return (out[:cap], out[cap : 2 * cap], int(out[2 * cap]),
+                int(out[2 * cap + 1]) if extra is not None else None)
 
     @staticmethod
     def fetch_async(x: torch.Tensor, site: str) -> AsyncFetch:

@@ -122,10 +122,15 @@ from fastapriori_tpu_torch.ops.bitmap import (
 from fastapriori_tpu_torch.ops.count import (
     TRI_F_CAP,
     _pair_triangles,
+    dense_psum,
     frequent_pair_mask,
     heavy_pair_correction,
     local_level_gather,
     local_pair_counts,
+    local_sparse_psum,
+    sparse_psum_bytes,
+    sparse_stage_bytes,
+    sparse_union_cap,
     survivor_bits,
 )
 from fastapriori_tpu_torch.ops.fused import (
@@ -138,6 +143,7 @@ from fastapriori_tpu_torch.ops.fused import (
     unpack_tail_result,
 )
 from fastapriori_tpu_torch.obs import trace
+from fastapriori_tpu_torch.parallel import hier, mesh
 from fastapriori_tpu_torch.ops.level_kernel import (
     level_counts,
     level_counts_plain,
@@ -152,7 +158,10 @@ from fastapriori_tpu_torch.ops.vertical import (
     vertical_pair_local,
     weight_bit_planes,
 )
-from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts_plain
+from fastapriori_tpu_torch.ops.vertical_kernel import (
+    lane_plane_mask,
+    vertical_counts_plain,
+)
 from fastapriori_tpu_torch.preprocess import (
     CompressedData,
     ingest_thread_count,
@@ -197,7 +206,8 @@ def fused_bytes(cfg: MinerConfig, t_pad: int, f_pad: int, n_chunks: int,
                 tail_chunked: bool = False):
     """The port's device-byte model of ops/fused.py: ``(fixed, at)`` with
     ``fixed`` the bytes that do not grow with the row budget and ``at(m)``
-    the ones that do, assuming the big intermediates coexist.
+    the ones that do, assuming the big intermediates coexist (``t_pad``:
+    one shard's rows).
 
     - fixed: the bitmap (unpacked int8, or packed with one chunk
       unpacked), the raw weights, one digit's weighted chunk and its
@@ -226,6 +236,19 @@ def fused_bytes(cfg: MinerConfig, t_pad: int, f_pad: int, n_chunks: int,
     return fixed, at
 
 
+def fused_card_bytes(cfg: MinerConfig, ctx: DeviceContext, t_pad: int,
+                     f_pad: int, n_chunks: int,
+                     unpacked_resident: bool = False,
+                     tail_chunked: bool = False):
+    """:func:`fused_bytes` on the busiest device of the mesh: each
+    transaction shard holds its own rows and intermediates, and the
+    shards that share a device add up there."""
+    k = ctx.mesh.txn_shards_per_device()
+    fixed, at = fused_bytes(cfg, t_pad // ctx.txn_shards, f_pad, n_chunks,
+                            unpacked_resident, tail_chunked)
+    return k * fixed, lambda m: k * at(m)
+
+
 def fused_m_cap_memory_limit(
     cfg: MinerConfig,
     ctx: DeviceContext,
@@ -237,7 +260,7 @@ def fused_m_cap_memory_limit(
     tail_chunked: bool = False,
 ) -> int:
     """The largest power-of-two row budget whose fused loop fits the
-    memory budget under :func:`fused_bytes` (the reference's
+    memory budget under :func:`fused_card_bytes` (the reference's
     ``_fused_m_cap_memory_limit`` over the port's own intermediates):
     ``fused_hbm_budget_bytes``, or ``fused_hbm_fraction`` of the device's
     memory.  0 when even the floor budget ``next_pow2(fused_l_max + 2)``
@@ -246,8 +269,8 @@ def fused_m_cap_memory_limit(
     budget = cfg.fused_hbm_budget_bytes
     if budget is None:
         budget = int(cfg.fused_hbm_fraction * ctx.memory_bytes)
-    fixed, at = fused_bytes(cfg, t_pad, f_pad, n_chunks, unpacked_resident,
-                            tail_chunked)
+    fixed, at = fused_card_bytes(cfg, ctx, t_pad, f_pad, n_chunks,
+                                 unpacked_resident, tail_chunked)
     if cap is None:
         cap = cfg.fused_m_cap_max
     m = next_pow2(cfg.fused_l_max + 2)
@@ -321,11 +344,12 @@ def split_weights(
     return w_digits, scales, heavy_b, heavy_w
 
 
-def txn_multiple(config: MinerConfig, n_chunks: int) -> int:
-    """Padding multiple of the pipelined bitmap's transaction axis: whole
-    chunks for the level-3 fold (the reference's ``_txn_multiple``
-    without its TPU tile alignment)."""
-    return max(config.txn_tile, 32) * n_chunks
+def txn_multiple(config: MinerConfig, n_chunks: int, shards: int = 1) -> int:
+    """Padding multiple of the bitmap's transaction axis: ``shards``
+    equal blocks of whole chunks (the level-3 fold and the tail fold
+    count chunk by chunk; the reference's ``_txn_multiple`` times the
+    transaction shards, without its TPU tile alignment)."""
+    return max(config.txn_tile, 32) * n_chunks * shards
 
 
 def empty_compressed(
@@ -426,7 +450,9 @@ class FastApriori:
         if min_support is not None:
             self.config.min_support = min_support
         self.engine = resolve_engine(self.config.engine)
-        self.ctx = context if context is not None else DeviceContext(device)
+        self.ctx = context if context is not None else DeviceContext(
+            device, num_devices=self.config.num_devices,
+            cand_devices=self.config.cand_devices)
         # Degradation events (the ledger) go to this miner's metrics.
         self.metrics = MetricsLogger(
             enabled=self.config.log_metrics).bind_global_ledger()
@@ -529,11 +555,13 @@ class FastApriori:
         return self.mine_levels_raw(data), data
 
     def _can_pipeline_ingest(self) -> bool:
-        """The pipelined capture ingest runs whenever the native library
-        is available and ``ingest_pipeline_blocks > 1``.  The reference's
-        other conditions (one process, one device on each mesh axis, a
-        local path) always hold on the port's one device."""
-        if self.config.ingest_pipeline_blocks <= 1:
+        """The pipelined capture ingest runs on a one-device mesh whenever
+        the native library is available and ``ingest_pipeline_blocks >
+        1`` (the reference's conditions; the port is one process and the
+        caller checked the path is local).  A mesh of more than one shard
+        takes the one-call ingest, as in the reference."""
+        if (self.config.ingest_pipeline_blocks <= 1
+                or self.ctx.n_devices != 1):
             return False
         return native_choice(None, 1 << 62)[0]
 
@@ -899,12 +927,18 @@ class FastApriori:
     def _count_reduce_engine(self) -> Tuple[str, str]:
         """``(engine, requested)`` of the count reduction:
         ``FA_COUNT_REDUCE`` over ``config.count_reduce``, both strictly
-        parsed.  The port mines on one device, one transaction shard,
-        where the JAX package runs dense: auto and dense quietly, a
-        forced sparse with a ``count_reduce_fallback`` event and a
-        ``count_reduce`` cascade walk (reason ``one_txn_shard``).
-        Resolved where the JAX package resolves it: once per level loop
-        and once per fused attempt."""
+        parsed.  Sparse where the JAX package defines it, on two or more
+        transaction shards of a 1-D mesh (auto takes it there, with a
+        ``count_reduce_engine`` ledger event); elsewhere dense: auto and
+        dense quietly, a forced sparse with a ``count_reduce_fallback``
+        event and a ``count_reduce`` cascade walk (reason
+        ``one_txn_shard`` or ``cand_mesh``).  Resolved where the JAX
+        package resolves it: once per level loop and once per fused
+        attempt.  ``FA_COUNT_SPARSE_CAP`` and ``FA_EXCHANGE_GROUPS`` are
+        parsed here too, on every mine, so a typo fails a one-shard run
+        as well."""
+        env_int("FA_COUNT_SPARSE_CAP", 0, minimum=0)
+        env_int("FA_EXCHANGE_GROUPS", -1, minimum=0)
         req = env_choice("FA_COUNT_REDUCE", self._COUNT_REDUCE)
         if req is None:
             req = self.config.count_reduce
@@ -913,13 +947,123 @@ class FastApriori:
                     f"unrecognized MinerConfig.count_reduce value {req!r}: "
                     f"use one of {'/'.join(self._COUNT_REDUCE)}"
                 )
-        if req == "sparse":
+        if req == "dense":
+            return "dense", req
+        reason = None
+        if self.ctx.txn_shards < 2:
             reason = "one_txn_shard"
-            ledger.record("count_reduce_fallback", once_key=reason,
-                          reason=reason)
-            watchdog.downgrade("count_reduce", "sparse", "dense",
-                               reason=reason)
-        return "dense", req
+        elif self.ctx.cand_shards != 1:
+            reason = "cand_mesh"
+        if reason is not None:
+            if req == "sparse":
+                ledger.record("count_reduce_fallback", once_key=reason,
+                              reason=reason)
+                watchdog.downgrade("count_reduce", "sparse", "dense",
+                                   reason=reason)
+            return "dense", req
+        ledger.record("count_reduce_engine", once_key="sparse",
+                      engine="sparse")
+        return "sparse", req
+
+    def _sparse_cap(self, n_valid: int, hint_key=None) -> int:
+        """Union-compaction slots of one sparse reduction (ops/count.py
+        ``sparse_union_cap``) with the ``FA_COUNT_SPARSE_CAP`` /
+        ``count_sparse_cap`` override and, under ``hint_key``, the grown
+        budget an earlier overflow of this profile recorded."""
+        override = (env_int("FA_COUNT_SPARSE_CAP", 0, minimum=0)
+                    or self.config.count_sparse_cap)
+        cap = sparse_union_cap(n_valid, override)
+        if hint_key is not None:
+            hint = self.ctx.pair_cap_hint(hint_key)
+            if hint:
+                cap = min(max(cap, hint), next_pow2(max(n_valid, 8)))
+        return cap
+
+    def _sparse_thresholds(self, data: CompressedData, t_pad: int,
+                           heavy: bool) -> List[int]:
+        """Each transaction shard's local-prune threshold, the weighted
+        pigeonhole ``max(1, ceil(min_count · W_s / W))`` over the shards'
+        weight totals W_s: a candidate below every shard's threshold sums
+        below min_count.  ``heavy``: the weight split is on (the kernels
+        count ``w % 128`` and shard 0 adds the heavy remainder), so shard
+        0's total carries the remainder."""
+        s = self.ctx.txn_shards
+        w = np.zeros(t_pad, dtype=np.int64)
+        w[: data.total_count] = data.weights
+        if heavy:
+            low = w % 128
+            per = low.reshape(s, -1).sum(axis=1)
+            per[0] += int((w - low).sum())
+        else:
+            per = w.reshape(s, -1).sum(axis=1)
+        total = int(per.sum())
+        if total <= 0:
+            return [1] * s
+        thr = -(-(int(data.min_count) * per) // total)
+        return [int(x) for x in np.maximum(1, thr)]
+
+    def _exchange_spec(self):
+        """The two-level topology of this mine's sparse reductions
+        (parallel/hier.py ``resolve_active_spec``: ``FA_EXCHANGE_GROUPS``
+        over ``config.exchange_groups``), named on the ledger
+        (``exchange_engine``)."""
+        spec = hier.resolve_active_spec(self.ctx.txn_shards, self.config)
+        ledger.record(
+            "exchange_engine", once_key=f"spec:{spec}",
+            engine="hier" if spec is not None else "flat",
+            groups=spec[0] if spec is not None else 1,
+            per_group=spec[1] if spec is not None else self.ctx.txn_shards,
+        )
+        return spec
+
+    def _reduce_setup(self, data: CompressedData, t_pad: int,
+                      heavy: bool) -> dict:
+        """The level loop's count reduction, resolved once per mine before
+        level 2: ``{"engine", "thr"}`` (a dict the loop updates when a
+        cascade walk changes it), the exchange topology installed on the
+        context, and one ``count_reduce`` metrics event."""
+        count_reduce, requested = self._count_reduce_engine()
+        self.ctx.exchange_spec = (
+            self._exchange_spec() if count_reduce == "sparse" else None)
+        self.metrics.emit("count_reduce", engine=count_reduce,
+                          requested=requested)
+        return {"engine": count_reduce,
+                "thr": (self._sparse_thresholds(data, t_pad, heavy)
+                        if count_reduce == "sparse" else None)}
+
+    def _reduce_info(self, n_valid: int, sp_cap: Optional[int]) -> dict:
+        """The payload fields of one reduction over ``n_valid`` candidate
+        slots (the JAX package's ``_reduce_info``): dense, the 4·n psum;
+        sparse, ops/count.py's models, with the exchange's tiers."""
+        if sp_cap is None:
+            return {"reduce": "dense", "psum_bytes": 4 * n_valid,
+                    "gather_bytes": 0}
+        spec = self.ctx.exchange_spec
+        s = self.ctx.txn_shards
+        gather_b, psum_b = sparse_psum_bytes(n_valid, sp_cap, s, spec)
+        intra_b, inter_b = sparse_stage_bytes(n_valid, sp_cap, s, spec)
+        info = {"reduce": "sparse", "psum_bytes": psum_b,
+                "gather_bytes": gather_b,
+                "exchange": "hier" if spec is not None else "flat",
+                "intra_bytes": intra_b, "inter_bytes": inter_b}
+        if spec is not None:
+            info["exchange_groups"] = spec[0]
+        return info
+
+    def _sparse_walk(self, exc: Exception, site: str, red: dict,
+                     **fields) -> None:
+        """A transient that outlasted a sparse reduction's audited fetch:
+        walk ``exchange`` hier -> flat (when two-level) and
+        ``count_reduce`` sparse -> dense.  The caller recounts dense."""
+        if self.ctx.exchange_spec is not None:
+            watchdog.downgrade("exchange", "hier", "flat",
+                               reason="transient_exhausted", site=site,
+                               **fields)
+            self.ctx.exchange_spec = None
+        watchdog.downgrade("count_reduce", "sparse", "dense",
+                           reason="transient_exhausted", site=site,
+                           error=f"{type(exc).__name__}: {exc}"[:200],
+                           **fields)
 
     def _vertical_chunk(self, c_cap: int) -> int:
         """Candidates per step of K3's plain version: ``FA_VERTICAL_CHUNK``
@@ -964,13 +1108,23 @@ class FastApriori:
         ``vertical_min_items`` frequent items and a density (see
         :func:`density_from_tables`) of at most ``vertical_density_max``.
         Data without the basket CSR stays bitmap under auto; a forced
-        vertical then raises InputError."""
+        vertical then raises InputError.  A cand mesh stays bitmap too (the
+        vertical engine shards lanes over a 1-D mesh only): quietly under
+        auto, with a ``mine_engine_fallback`` event and a cascade walk
+        when forced, as in the JAX package."""
         req = self._requested_mine_engine()
         cfg = self.config
         density = density_from_tables(
             data.n_raw, data.num_items, float(np.sum(data.item_counts))
         )
         if req == "bitmap":
+            return "bitmap", req, density
+        if self.ctx.cand_shards != 1:
+            if req == "vertical":
+                ledger.record("mine_engine_fallback", once_key="cand_mesh",
+                              reason="cand_mesh")
+                watchdog.downgrade("mine_engine", "vertical", "bitmap",
+                                   reason="cand_mesh")
             return "bitmap", req, density
         if not has_csr(data):
             if req == "vertical":
@@ -988,24 +1142,91 @@ class FastApriori:
         return "bitmap", req, density
 
     def _pair_level(self, counts, min_count: int, f: int, cap_key: tuple,
-                    site: str):
+                    site: str, census: Optional[torch.Tensor] = None,
+                    census_cap: int = 0):
         """Level 2 from a resident [f_pad, f_pad] pair count matrix
         without the pair program: the first ``pair_cap`` survivors in one
         fetch under ``fetch.<site>``; more survivors re-extract at the
         next power of two (``fetch.pair_regather``), and the grown budget
         is remembered.  Returns host ``(flat_idx, counts, n2,
-        dispatches)``."""
+        dispatches)``; with ``census`` (the sparse reduction's union
+        count, riding the same fetch) a fifth value, its host int, and
+        nothing is re-extracted when it passes ``census_cap`` (the
+        counts are unusable then)."""
         ctx = self.ctx
         cap = max(self.config.pair_cap, ctx.pair_cap_hint(cap_key) or 0)
-        idx, cnt, n2 = ctx.pair_regather(counts, min_count, f, cap, site)
+        idx, cnt, n2, extra = ctx.pair_regather(counts, min_count, f, cap,
+                                                site, extra=census)
         dispatches = 1
+        if census is not None and extra > census_cap:
+            return idx, cnt, n2, dispatches, extra
         if n2 > cap:
             self._degraded("pair_cap_overflow", n2=n2, cap=cap)
             cap = next_pow2(n2)
-            idx, cnt, _ = ctx.pair_regather(counts, min_count, f, cap)
+            idx, cnt, _, _ = ctx.pair_regather(counts, min_count, f, cap)
             ctx.record_pair_cap(cap_key, cap)
             dispatches = 2
-        return idx, cnt, n2, dispatches
+        if census is None:
+            return idx, cnt, n2, dispatches
+        return idx, cnt, n2, dispatches, extra
+
+    def _pair_level_mesh(self, parts, min_count: int, f: int, f_pad: int,
+                         t_pad: int, red: dict, vertical: bool):
+        """Level 2 over the transaction shards' partial pair counts: the
+        count reduction (sparse over the upper triangle of real items
+        above ``count_sparse_min`` slots under a sparse mine, else the
+        dense psum), then :meth:`_pair_level`.  A union past its budget
+        redoes the level dense (``count_sparse_overflow``, the grown
+        budget remembered); a transient that outlasted the sparse fetch's
+        retries walks the exchange and the reduction for the rest of the
+        mine and redoes it dense.  Returns ``(flat_idx, counts, n2,
+        dispatches, reduce info)``."""
+        cfg = self.config
+        site = "vpair" if vertical else "pair"  # the ledger's site name
+        cap_key = ("vpair_cap" if vertical else "pair_cap", t_pad, f,
+                   min_count)
+        n_cand = f_pad * f_pad
+        wasted = None
+        if red["engine"] == "sparse" and n_cand >= cfg.count_sparse_min:
+            spk = ("sparse_" + site, t_pad, f, min_count)
+            sp_cap = self._sparse_cap(n_cand, hint_key=spk)
+            iu = torch.arange(f_pad, device=parts[0].device)
+            valid = (iu[None, :] > iu[:, None]) & (iu[None, :] < f)
+            try:
+                counts, nu = local_sparse_psum(parts, red["thr"], sp_cap,
+                                               valid, self.ctx.exchange_spec)
+                idx, cnt, n2, disp, nu_h = self._pair_level(
+                    counts, min_count, f, cap_key,
+                    "vpair_sparse" if vertical else "pair_sparse",
+                    census=nu, census_cap=sp_cap)
+            except Exception as exc:
+                if not retry.exhausted(exc):
+                    raise
+                self._sparse_walk(exc, site, red)
+                red.update(engine="dense", thr=None)
+            else:
+                info = self._reduce_info(n_cand, sp_cap)
+                info["n_union"] = nu_h
+                if nu_h <= sp_cap:
+                    return idx, cnt, n2, disp, info
+                # The compaction truncated: the counts are a subset of
+                # the union's.  Redo dense; the sparse bytes were spent.
+                ledger.record("count_sparse_overflow", site=site,
+                              n_union=nu_h, cap=sp_cap)
+                self.ctx.record_pair_cap(spk, next_pow2(nu_h))
+                wasted = info
+        idx, cnt, n2, disp = self._pair_level(
+            dense_psum(parts), min_count, f, cap_key,
+            "vpair" if vertical else "pair")
+        info = self._reduce_info(n_cand, None)
+        if wasted is not None:
+            info.update(fallback="sparse_overflow",
+                        n_union=wasted["n_union"],
+                        psum_bytes=info["psum_bytes"]
+                        + wasted["psum_bytes"],
+                        gather_bytes=wasted["gather_bytes"])
+            disp += 1
+        return idx, cnt, n2, disp, info
 
     @staticmethod
     def _pair_fetch(pair_pre: dict):
@@ -1107,8 +1328,11 @@ class FastApriori:
         ctx = self.ctx
         f = data.num_items
         t0 = data.total_count
-        n_chunks = max(1, -(-t0 // cfg.fused_txn_chunk))
-        t_pad = pad_axis(t0, max(cfg.txn_tile, 32) * n_chunks)
+        # Each transaction shard's rows split into n_chunks equal chunks.
+        per_dev = -(-t0 // ctx.txn_shards)
+        n_chunks = max(1, -(-per_dev // cfg.fused_txn_chunk))
+        t_pad = pad_axis(t0, max(cfg.txn_tile, 32) * n_chunks
+                         * ctx.txn_shards)
         n_digits = weight_digit_count(int(data.weights.max()) if t0 else 1)
         # float32 products on the CPU while every partial sum < 2^24.
         fast_f32 = ctx.platform == "cpu" and 127 * t_pad < 2**24
@@ -1136,7 +1360,10 @@ class FastApriori:
                 cfg.item_tile)
             w_np = np.zeros(t_pad, dtype=np.int32)
             w_np[:t0] = data.weights
-            packed, w = ctx.upload(packed_np), ctx.upload(w_np)
+            # Rows over the transaction shards (a cand mesh's blocks
+            # would repeat the same program: candidate block 0 runs).
+            packed = ctx.shard_rows(packed_np, txn_only=True)
+            w = ctx.shard_rows(w_np, txn_only=True)
             m.update(shape=[t_pad, f_pad], digits=n_digits,
                      upload_bytes=packed_np.nbytes + w_np.nbytes)
         m_cap = ctx.fused_m_cap_hint(profile)
@@ -1152,11 +1379,10 @@ class FastApriori:
             if m_cap is None:  # auto chose the level engine
                 return None, None
         m_cap = max(m_cap, next_pow2(cfg.fused_l_max + 2))
-        self._count_reduce_engine()
         return self._fused_attempt_loop(
-            profile, packed, w, data.min_count, m_cap, m_cap_max,
+            profile, data, packed, w, m_cap, m_cap_max, t_pad, f_pad,
             n_digits, n_chunks, fast_f32, packed_input=True,
-            model=fused_bytes(cfg, t_pad, f_pad, n_chunks))
+            model=fused_card_bytes(cfg, ctx, t_pad, f_pad, n_chunks))
 
     def _size_fused_budget(self, profile, n2: int, tri: int, m_cap_max: int,
                            auto: bool) -> Optional[int]:
@@ -1184,46 +1410,103 @@ class FastApriori:
             self.ctx.record_auto_level(profile)
         return ok
 
-    def _fused_attempt_loop(self, profile, bitmap, w, min_count: int,
-                            m_cap: int, m_cap_max: int, n_digits: int,
-                            n_chunks: int, fast_f32: bool,
-                            packed_input: bool, model):
+    def _fused_reduce_setup(self, data: CompressedData, t_pad: int,
+                            f_pad: int):
+        """The fused attempt's count reduction (the JAX package's
+        ``_fused_count_reduce_setup``): the engine, dense below
+        ``count_sparse_min`` level-2 slots (a ``count_reduce_fallback``
+        event), the exchange topology, the per-shard thresholds and the
+        union budgets' hint key."""
+        count_reduce, _ = self._count_reduce_engine()
+        if (count_reduce == "sparse"
+                and f_pad * f_pad < self.config.count_sparse_min):
+            ledger.record("count_reduce_fallback", once_key="tiny_fused",
+                          reason="tiny_candidate_set", site="fused")
+            count_reduce = "dense"
+        self.ctx.exchange_spec = (
+            self._exchange_spec() if count_reduce == "sparse" else None)
+        thr = (self._sparse_thresholds(data, t_pad, heavy=False)
+               if count_reduce == "sparse" else None)
+        return count_reduce, thr, ("sparse_fused", t_pad, f_pad,
+                                   int(data.min_count))
+
+    def _fused_attempt_loop(self, profile, data: CompressedData, bitmap, w,
+                            m_cap: int, m_cap_max: int, t_pad: int,
+                            f_pad: int, n_digits: int, n_chunks: int,
+                            fast_f32: bool, packed_input: bool, model):
         """The fused engine's attempts, shared by both input forms: an
         overflowing row budget jumps to the overflowing level's true
         need (at least twice the budget) until the ceiling; the l_max
-        bound stops at once.  Returns ``(levels, None)`` or ``(None,
-        salvaged complete levels or None)``."""
+        bound stops at once; a sparse union past its budget reruns the
+        same budget dense (a ``count_sparse_overflow`` event, a cascade
+        walk and the grown budget remembered).  ``bitmap`` / ``w``: a
+        tensor or the per-shard lists.  Returns ``(levels, None)`` or
+        ``(None, salvaged complete levels or None)``."""
         cfg = self.config
         ctx = self.ctx
         l_max = cfg.fused_l_max
-        t_pad, f_pad = bitmap.shape[0], (
-            bitmap.shape[1] * 8 if packed_input else bitmap.shape[1])
+        min_count = data.min_count
+        reduce, thr, hint_key = self._fused_reduce_setup(data, t_pad, f_pad)
         fixed, at = model
         rows = None
         m_cap_run = 0
         while m_cap <= m_cap_max:
+            caps = ((self._sparse_cap(f_pad * f_pad, hint_key),
+                     self._sparse_cap(m_cap * f_pad, hint_key))
+                    if reduce == "sparse" else None)
             with self.metrics.timed("fused_mine", m_cap=m_cap,
-                                    reduce="dense") as met:
-                fn = make_fused_miner(m_cap, l_max, n_digits, n_chunks,
-                                      fast_f32, packed_input=packed_input)
-                out = ctx.fetch(fn(bitmap, w, min_count,
+                                    reduce=reduce) as met:
+                fn = make_fused_miner(
+                    m_cap, l_max, n_digits, n_chunks, fast_f32,
+                    packed_input=packed_input, sparse_caps=caps,
+                    groups=ctx.exchange_spec if caps else None)
+                out = ctx.fetch(fn(bitmap, w, min_count, sparse_thr=thr,
                                    region=ctx.sync_free), "fused")
-                (rows, cols, counts, n_lvl, incomplete, overflow, _,
-                 _) = unpack_fused_result(out, l_max)
-                m_cap_run = m_cap
-                # Level 2's Gram product, then per loop iteration the two
-                # candidate products and the membership + count products.
-                n_iters = max(int(np.count_nonzero(n_lvl)), 1)
-                met.update(
-                    incomplete=incomplete, overflow=overflow,
-                    levels=int(np.count_nonzero(n_lvl)),
-                    packed_input=packed_input, n_chunks=n_chunks,
-                    macs=n_digits * t_pad * f_pad * f_pad + (n_iters - 1) * (
-                        2 * m_cap * m_cap * f_pad
-                        + (1 + n_digits) * t_pad * m_cap * f_pad),
-                    model_bytes=fixed + at(m_cap),
-                )
+                (a_rows, a_cols, a_counts, n_lvl, incomplete, overflow,
+                 sparse_ovf, sparse_nu) = unpack_fused_result(out, l_max)
+                if sparse_ovf:
+                    met.update(sparse_overflow=True, n_union=sparse_nu)
+                else:
+                    rows, cols, counts = a_rows, a_cols, a_counts
+                    m_cap_run = m_cap
+                    # Level 2's Gram product, then per loop iteration the
+                    # two candidate products and the membership + count
+                    # products; the reductions' payloads likewise.
+                    n_iters = max(int(np.count_nonzero(n_lvl)), 1)
+                    i2 = self._reduce_info(f_pad * f_pad,
+                                           caps[0] if caps else None)
+                    il = self._reduce_info(m_cap * f_pad,
+                                           caps[1] if caps else None)
+                    met.update(
+                        incomplete=incomplete, overflow=overflow,
+                        levels=int(np.count_nonzero(n_lvl)),
+                        packed_input=packed_input, n_chunks=n_chunks,
+                        macs=n_digits * t_pad * f_pad * f_pad
+                        + (n_iters - 1) * (
+                            2 * m_cap * m_cap * f_pad
+                            + (1 + n_digits) * t_pad * m_cap * f_pad),
+                        model_bytes=fixed + at(m_cap),
+                    )
+                    if ctx.txn_shards > 1:
+                        met.update(
+                            psum_bytes=i2["psum_bytes"]
+                            + (n_iters - 1) * il["psum_bytes"],
+                            gather_bytes=i2["gather_bytes"]
+                            + (n_iters - 1) * il["gather_bytes"])
+                        if caps:
+                            met.update(n_union=sparse_nu,
+                                       exchange=i2["exchange"])
                 self._device_peak(met)
+            if sparse_ovf:
+                ledger.record("count_sparse_overflow", site="fused",
+                              m_cap=m_cap, caps=list(caps),
+                              n_union=sparse_nu)
+                watchdog.downgrade("count_reduce", "sparse", "dense",
+                                   reason="union_overflow", site="fused")
+                if sparse_nu > 0:
+                    ctx.record_pair_cap(hint_key, next_pow2(sparse_nu))
+                reduce = "dense"
+                continue  # the same budget, dense
             if not incomplete:
                 ctx.record_fused_m_cap(profile, m_cap)
                 return decode_level_matrices(rows, cols, counts, n_lvl), None
@@ -1281,12 +1564,11 @@ class FastApriori:
         # level engine's digits.
         w_np = np.zeros(t_pad, dtype=np.int32)
         w_np[: data.total_count] = data.weights
-        self._count_reduce_engine()
         lv, partial = self._fused_attempt_loop(
-            profile, bitmap, ctx.upload(w_np), data.min_count, m_cap,
-            m_cap_max, n_digits, n_chunks, fast_f32, packed_input=False,
-            model=fused_bytes(cfg, t_pad, f_pad, n_chunks,
-                              unpacked_resident=True))
+            profile, data, bitmap, ctx.upload(w_np), m_cap, m_cap_max,
+            t_pad, f_pad, n_digits, n_chunks, fast_f32, packed_input=False,
+            model=fused_card_bytes(cfg, ctx, t_pad, f_pad, n_chunks,
+                                   unpacked_resident=True))
         return lv, partial, False
 
     def _mine_levels(
@@ -1317,25 +1599,37 @@ class FastApriori:
             resume = self._take_resume(data)
         if preupload is not None:
             bitmap, w_digits, scales, n_chunks, t_pad, f_pad, heavy = preupload
+            table, weights = [bitmap], [w_digits]
         else:
             with self.metrics.timed("bitmap_build") as m:
-                # Whole transaction chunks, as the pipelined ingest pads
-                # (the tail fold counts chunk by chunk).
-                n_chunks = max(1, -(-data.total_count // cfg.level_txn_chunk))
+                # Each transaction shard's rows in whole chunks, as the
+                # pipelined ingest pads (the tail fold counts chunk by
+                # chunk).
+                per_dev = -(-data.total_count // ctx.txn_shards)
+                n_chunks = max(1, -(-per_dev // cfg.level_txn_chunk))
                 bitmap_np = build_bitmap_csr(
                     data.basket_indices, data.basket_offsets, f,
-                    txn_multiple(cfg, n_chunks), cfg.item_tile,
+                    txn_multiple(cfg, n_chunks, ctx.txn_shards),
+                    cfg.item_tile,
                 )
                 t_pad, f_pad = bitmap_np.shape
                 w_digits_np, scales, heavy_b, heavy_w = split_weights(
                     data.weights, t_pad, data.basket_indices,
                     data.basket_offsets, f, cfg.item_tile,
                 )
-                bitmap = ctx.upload(bitmap_np)
-                w_digits = ctx.upload(w_digits_np)
+                # Rows and their weight digits over the transaction
+                # shards; the heavy remainder stays whole on shard 0, the
+                # only shard that adds it.
+                table = ctx.shard_rows(bitmap_np)
+                weights = ctx.shard_rows(w_digits_np, axis=-1)
+                bitmap, w_digits = table[0], weights[0]
+                if ctx.n_devices > 1:
+                    m.update(shards=ctx.txn_shards,
+                             cand_shards=ctx.cand_shards)
                 heavy = self._upload_heavy(heavy_b, heavy_w)
                 m.update(shape=[t_pad, f_pad], digits=len(scales),
                          heavy_rows=self._heavy_stats(heavy_b, heavy_w)[0])
+        red = self._reduce_setup(data, t_pad, heavy is not None)
 
         need_n2 = False
         if (not resume and try_fused and self.engine in ("fused", "auto")
@@ -1359,8 +1653,8 @@ class FastApriori:
             levels: Levels = list(resume)
             cur = levels[-1][0]
             self.metrics.emit("level_resume", from_k=int(cur.shape[1]) + 1)
-            return self._level_loop(data, levels, bitmap, w_digits, scales,
-                                    heavy, n_chunks=n_chunks)
+            return self._level_loop(data, levels, table, weights, scales,
+                                    heavy, n_chunks=n_chunks, red=red)
 
         with self.metrics.timed("level", k=2) as m:
             if pair_pre is not None:
@@ -1370,7 +1664,7 @@ class FastApriori:
                 if n2 > cap:
                     self._degraded("pair_cap_overflow", n2=n2, cap=cap)
                     cap = next_pow2(n2)
-                    idx, cnt, _ = ctx.pair_regather(
+                    idx, cnt, _, _ = ctx.pair_regather(
                         pair_pre["counts_dev"], min_count, f, cap
                     )
                     ctx.record_pair_cap(pair_pre["cap_key"], cap)
@@ -1382,6 +1676,21 @@ class FastApriori:
                     # arrival to its packed output; the fetch has passed.
                     m.update(pair_device_ms=round(
                         start.elapsed_time(end), 3))
+            elif ctx.n_devices > 1:
+                # Each transaction shard's Gram product, shard 0 adding
+                # the heavy remainder, then the count reduction.
+                parts = [
+                    local_pair_counts(b, wd, scales,
+                                      fast_f32=data.n_raw < 2**24)
+                    for b, wd in zip(ctx.txn_parts(table),
+                                     ctx.txn_parts(weights))]
+                if heavy is not None:
+                    parts[0] = parts[0] + heavy_pair_correction(*heavy)
+                idx, cnt, n2, dispatches, rinfo = self._pair_level_mesh(
+                    parts, min_count, f, f_pad, t_pad, red, vertical=False)
+                del parts
+                m.update(**rinfo)
+                tri = None
             else:
                 # Exact in float32 while every count < 2^24; counts are
                 # bounded by the raw transaction total.
@@ -1451,8 +1760,8 @@ class FastApriori:
                     ctx.record_pair_cap(l3c_key, next_pow2(n3))
                 self._degraded("pair_l3_overflow", n2=n2_now, p3=p3, n3=n3,
                                cap3=cap3)
-        return self._level_loop(data, levels, bitmap, w_digits, scales,
-                                heavy, n_chunks=n_chunks)
+        return self._level_loop(data, levels, table, weights, scales,
+                                heavy, n_chunks=n_chunks, red=red)
 
     def _mine_vertical(self, data: CompressedData) -> Levels:
         """Vertical (Eclat-style) mining: the tid-lane arena and weight
@@ -1466,9 +1775,11 @@ class FastApriori:
         resume = self._take_resume(data)
         n_threads = ingest_thread_count(cfg.ingest_threads)
         with self.metrics.timed("arena_build") as m:
+            # Lanes split evenly over the transaction shards: lane block s
+            # holds the transactions of bitmap row shard s.
             arena_np, f_pad, t_pad = build_tid_arena_csr(
-                data.basket_indices, data.basket_offsets, f, 32,
-                cfg.item_tile, n_threads=n_threads,
+                data.basket_indices, data.basket_offsets, f,
+                32 * ctx.txn_shards, cfg.item_tile, n_threads=n_threads,
             )
             planes_np, scales = weight_bit_planes(
                 np.asarray(data.weights, dtype=np.int64), t_pad
@@ -1483,6 +1794,15 @@ class FastApriori:
             )
             arena, upload_bytes = ctx.upload_tid_arena(arena_np, buckets)
             w_planes = ctx.upload_lane_planes(planes_np)
+            # Each shard's lane block on its device (the arena itself on
+            # one shard); K3's lane plane mask per block.
+            arenas = ctx.shard_lanes(arena)
+            planes = ctx.shard_lanes(w_planes)
+            if ctx.n_devices > 1:
+                del arena, w_planes
+                for p in planes:
+                    lane_plane_mask(p)
+                m.update(shards=ctx.txn_shards)
             m.update(
                 shape=[f_pad + 1, t_pad // 32],
                 planes=len(scales),
@@ -1491,24 +1811,27 @@ class FastApriori:
                 upload_bytes=upload_bytes + planes_np.nbytes,
                 threads=n_threads,
             )
+        red = self._reduce_setup(data, t_pad, heavy=False)
         if resume:
             self.metrics.emit("level_resume",
                               from_k=int(resume[-1][0].shape[1]) + 1)
-            return self._level_loop(data, resume, arena, w_planes, scales,
-                                    vertical=True)
+            return self._level_loop(data, resume, arenas, planes, scales,
+                                    vertical=True, red=red)
 
         with self.metrics.timed("level", k=2) as m:
-            n_chunks = max(1, -(-t_pad // PAIR_TXN_CHUNK))
+            n_chunks = max(1, -(-(t_pad // ctx.txn_shards)
+                                // PAIR_TXN_CHUNK))
             # Exact in float32 while every count < 2^24 (the bitmap
             # engine's gate); k >= 3 counts are integer popcounts.
-            counts = vertical_pair_local(
-                arena, w_planes, scales, n_chunks,
-                fast_f32=data.n_raw < 2**24,
-            )
-            idx, cnt, n2, dispatches = self._pair_level(
-                counts, data.min_count, f,
-                ("vpair_cap", t_pad, f, data.min_count), "vpair")
-            del counts
+            parts = [
+                vertical_pair_local(a, p, scales, n_chunks,
+                                    fast_f32=data.n_raw < 2**24)
+                for a, p in zip(ctx.txn_parts(arenas), ctx.txn_parts(planes))]
+            idx, cnt, n2, dispatches, rinfo = self._pair_level_mesh(
+                parts, data.min_count, f, f_pad, t_pad, red, vertical=True)
+            if ctx.txn_shards > 1:
+                m.update(**rinfo)
+            del parts
             idx, cnt = idx[:n2], cnt[:n2]
             cur = np.stack([idx // f_pad, idx % f_pad], axis=1).astype(
                 np.int32)
@@ -1517,8 +1840,8 @@ class FastApriori:
                      engine="vertical", chunks=n_chunks)
         levels = [(cur, cnt.astype(np.int64))]
         self._checkpoint_levels(levels, data)
-        return self._level_loop(data, levels, arena, w_planes, scales,
-                                vertical=True)
+        return self._level_loop(data, levels, arenas, planes, scales,
+                                vertical=True, red=red)
 
     def _level_loop(
         self,
@@ -1530,6 +1853,7 @@ class FastApriori:
         heavy: Optional[tuple] = None,
         vertical: bool = False,
         n_chunks: int = 1,
+        red: Optional[dict] = None,
     ) -> Levels:
         """The levels after the last one in ``levels`` (the pair level,
         level 3 when the pair program counted it, the last salvaged one
@@ -1552,11 +1876,12 @@ class FastApriori:
         with 2x row headroom and flat slot caps), checkpointed after
         each; a segment that overflows at its first level, or that the
         memory model refuses, walks the cascade to per-level counting
-        until the lattice shrinks under the failed seed."""
+        until the lattice shrinks under the failed seed.
+
+        ``table`` and ``weights`` are the mesh's per-position lists (one
+        tensor each on one device); ``red`` is the mine's count reduction
+        (:meth:`_reduce_setup`), shared with the levels and folds."""
         cfg = self.config
-        count_reduce, requested = self._count_reduce_engine()
-        self.metrics.emit("count_reduce", engine=count_reduce,
-                          requested=requested)
         pending_map: Dict[int, list] = {}
         drained: list = []  # [(per-level segment sizes, PendingCounts)]
         pending_bytes = [0]
@@ -1578,9 +1903,11 @@ class FastApriori:
             # The fold saves per-level launches and host round trips,
             # which the CPU does not pay.
             tail_rows = 0 if self.ctx.platform == "cpu" else 65536
-        tail_ok = tail_rows > 0 and not vertical
+        # The folds run over the transaction shards of a 1-D mesh.
+        one_d = self.ctx.cand_shards == 1
+        tail_ok = tail_rows > 0 and not vertical and one_d
         fused_ckpt = (self.engine == "fused" and bool(cfg.checkpoint_prefix)
-                      and not vertical)
+                      and not vertical and one_d)
         cur = levels[-1][0]
         k = cur.shape[1] + 1
         prev_rows = None  # the previous level's rows (shrink evidence)
@@ -1611,7 +1938,7 @@ class FastApriori:
                                        if defer else None),
                         l_max=cfg.checkpoint_every_levels if fused_ckpt
                         else None,
-                        segment=fused_ckpt)
+                        segment=fused_ckpt, red=red)
                 except Exception as exc:
                     # A transient at the fold's fetch that outlasted its
                     # retries: per-level counting, with its own budgets.
@@ -1652,7 +1979,7 @@ class FastApriori:
             with self.metrics.timed("level", k=k) as m:
                 nxt, nxt_counts, stats = self._count_level(
                     table, weights, scales, cur, data.min_count, heavy,
-                    vertical=vertical, defer=defer,
+                    vertical=vertical, defer=defer, red=red,
                 )
                 m.update(frequent=int(nxt.shape[0]), **stats)
                 if k == 3:
@@ -1755,7 +2082,8 @@ class FastApriori:
     def _mine_tail(self, data: CompressedData, bitmap, w_digits, scales,
                    cur: np.ndarray, n_chunks: int, heavy: Optional[tuple],
                    pending_state: Optional[tuple] = None,
-                   l_max: Optional[int] = None, segment: bool = False):
+                   l_max: Optional[int] = None, segment: bool = False,
+                   red: Optional[dict] = None):
         """The shallow-tail fold: every remaining level from the seed
         level ``cur`` in one device loop (ops/fused.py ``tail_mine``).
         Returns ``(complete tail levels, finished, ran)``; ``ran`` False
@@ -1767,11 +2095,18 @@ class FastApriori:
         the mine leaves no resolve dispatch.  ``segment`` (with ``l_max``
         the checkpoint cadence): the fused engine's checkpoint segment,
         seeded mid-lattice where levels may grow: 2x row headroom, flat
-        slot caps, an uncompacted prefix budget."""
+        slot caps, an uncompacted prefix budget.
+
+        ``bitmap`` / ``w_digits``: the level loop's per-position lists
+        (a 1-D mesh: one per transaction shard).  Under a sparse mine
+        (``red``) the fold's per-iteration reduction runs sparse above
+        ``count_sparse_min`` slots; a union past its budget ends the fold
+        at that level (the level engine resumes), records
+        ``count_sparse_overflow`` and remembers the grown budget."""
         cfg = self.config
         ctx = self.ctx
         n0, k0 = cur.shape
-        t_pad, f_pad = bitmap.shape
+        t_pad, f_pad = bitmap[0].shape[0] * ctx.txn_shards, bitmap[0].shape[1]
         if l_max is None:
             l_max = cfg.tail_fuse_l_max
         # No 2x headroom outside a segment: in a shrinking tail the seed
@@ -1796,9 +2131,20 @@ class FastApriori:
         # The [t_c, p_cap] membership is narrower than the level
         # engine's: fewer, larger chunks while it stays <= 768 MiB.
         tail_chunks = n_chunks
+        per_dev = t_pad // ctx.txn_shards
         while (tail_chunks % 2 == 0
-               and (t_pad // (tail_chunks // 2)) * p_cap * 4 <= (768 << 20)):
+               and (per_dev // (tail_chunks // 2)) * p_cap * 4
+               <= (768 << 20)):
             tail_chunks //= 2
+        sp_cap = None
+        sp_key = ("sparse_tail", t_pad, f_pad, int(data.min_count))
+        if red is not None and red["engine"] == "sparse":
+            if p_cap * f_pad >= cfg.count_sparse_min:
+                sp_cap = self._sparse_cap(p_cap * f_pad, hint_key=sp_key)
+            else:
+                ledger.record("count_reduce_fallback", once_key="tiny_tail",
+                              reason="tiny_candidate_set", site="tail",
+                              p_cap=p_cap)
         seed = np.zeros((m_cap, k0), np.int32)
         seed[:n0] = cur
         resolve_flat = []
@@ -1814,11 +2160,14 @@ class FastApriori:
                                 checkpoint_segment=segment) as met:
             fn = make_tail_miner(scales, k0, m_cap, p_cap, l_max,
                                  tail_chunks, heavy is not None,
-                                 flat_caps=segment)
-            args = (bitmap, w_digits, ctx.upload(seed), n0, data.min_count,
-                    *(heavy or ()))
+                                 flat_caps=segment, sparse_cap=sp_cap,
+                                 groups=ctx.exchange_spec if sp_cap else None)
+            args = (ctx.txn_parts(bitmap), ctx.txn_parts(w_digits),
+                    ctx.upload(seed), n0, data.min_count, *(heavy or ()))
+            thr = red["thr"] if sp_cap is not None else None
             if resolve_flat:
-                out_dev, handle = fn(*args, region=ctx.sync_free, resolve=(
+                out_dev, handle = fn(*args, sparse_thr=thr,
+                                     region=ctx.sync_free, resolve=(
                     [(c, p) for _, c, p in resolve_flat],
                     data.n_raw < 2**24))
                 drained.append(
@@ -1829,18 +2178,32 @@ class FastApriori:
                                                resolve_flat}),
                            resolve_folded=True)
             else:
-                out_dev = fn(*args, region=ctx.sync_free)
+                out_dev = fn(*args, sparse_thr=thr, region=ctx.sync_free)
             out = ctx.fetch(out_dev, "tail")
-            rows, cols, counts, n_lvl, incomplete, _ = unpack_tail_result(
+            rows, cols, counts, n_lvl, incomplete, snu = unpack_tail_result(
                 out, m_cap, l_max, flat=segment)
+            if sp_cap is not None and snu > sp_cap:
+                # The union overflowed at some level: that level carries
+                # the sentinel, so the level engine resumes before it.
+                ledger.record("count_sparse_overflow", site="tail",
+                              n_union=int(snu), cap=sp_cap)
+                watchdog.downgrade("count_reduce", "sparse", "dense",
+                                   reason="union_overflow", site="tail")
+                ctx.record_pair_cap(sp_key, next_pow2(int(snu)))
             n_iters = max(int(np.count_nonzero(n_lvl)), 1)
+            info = self._reduce_info(p_cap * f_pad, sp_cap)
             met.update(
                 levels=int(np.count_nonzero(n_lvl)),
-                incomplete=incomplete, reduce="dense",
+                incomplete=incomplete, reduce=info["reduce"],
                 macs=n_iters * (2 * m_cap * m_cap * f_pad
                                 + (1 + len(scales)) * t_pad * p_cap * f_pad),
                 upload_bytes=seed.nbytes,
             )
+            if ctx.txn_shards > 1:
+                met.update(**{k: n_iters * v if k.endswith("_bytes") else v
+                              for k, v in info.items() if k != "reduce"})
+                if sp_cap is not None:
+                    met.update(n_union=int(snu))
             self._device_peak(met)
             lvls = decode_level_matrices(
                 rows, cols, counts, n_lvl,
@@ -1859,11 +2222,13 @@ class FastApriori:
         heavy: Optional[tuple],
         vertical: bool = False,
         defer: bool = False,
+        red: Optional[dict] = None,
     ) -> Tuple[np.ndarray, object, dict]:
         """C7 + C8 for one level: candidates on the host, counts through
         K1 (``table`` the bitmap, ``weights`` its weight digits) or,
         with ``vertical``, through K3 (``table`` the tid-lane arena,
         ``weights`` its weight bit-planes), survivors at ``min_count``.
+        ``table`` and ``weights`` are the mesh's per-position lists.
 
         Every chunk is issued (pinned uploads, no host wait) before the
         level's one host read: the survivor bitmask, packed on the
@@ -1874,6 +2239,15 @@ class FastApriori:
         (``fetch.level_counts``).  Returns the next level's lex-sorted
         matrix, its counts and per-level stats.
 
+        On a mesh of more than one device each chunk runs K1 or K3 once
+        per shard (:meth:`_count_chunk`) and the counts cross the
+        shards through the mine's reduction (``red``); a sparse level's
+        union censuses ride the bitmask fetch (``fetch.level_bits_sparse``
+        / ``fetch.vlevel_bits_sparse``).  A union past its budget, or a
+        transient that outlasted that fetch's retries (after walking the
+        exchange and the reduction), recounts the level dense; the
+        level's stats add the wasted launches and bytes.
+
         ``FA_NO_PALLAS`` on CUDA (device.py ``plain_kernels``) counts
         with K1's or K3's plain version on the card instead, and the
         level's stats say ``plain_kernels``.  A vertical level's stats
@@ -1882,7 +2256,7 @@ class FastApriori:
         which is what K3 and its plain version count)."""
         ctx = self.ctx
         s = level.shape[1]
-        f_pad = table.shape[0] - 1 if vertical else table.shape[1]
+        f_pad = table[0].shape[0] - 1 if vertical else table[0].shape[1]
         plain = ctx.plain_kernels()
         x_idx, ys = concat_blocks(gen_candidates_stream(level))
         stats = {"candidates": int(x_idx.size), "launches": 0, "p_cap": 0}
@@ -1890,48 +2264,79 @@ class FastApriori:
             stats["plain_kernels"] = True
         if vertical:
             stats.update(engine="vertical", vops=0, member_bytes_saved=0)
-            lane_tile = self._vertical_lane_tile()
-            c_bound = max(self.config.level_cand_cap, f_pad)
         empty = (np.empty((0, s + 1), dtype=np.int32),
                  np.empty(0, dtype=np.int64), stats)
         if x_idx.size == 0:
             return empty
-        hb, hw = heavy if heavy is not None else (None, None)
         parts = []
+        nus: list = []  # (union census tensor, cap) per sparse reduction
         for prefix_cols, cand_idx, _ in level_chunks(
             level, x_idx, ys, f_pad, self.config
         ):
-            if vertical:
-                # The JAX package's candidate budget of the launch, which
-                # the plain version's chunk must divide.
-                c_cap = min(max(next_pow2(cand_idx.size), f_pad), c_bound)
-                count = vertical_counts_plain if plain else vertical_level_local
-                got = count(
-                    table, weights, scales, ctx.upload_async(prefix_cols),
-                    ctx.upload_async(cand_idx.astype(np.int32)),
-                    self._vertical_chunk(c_cap), lane_tile,
-                )
-                stats["launches"] += 1
-                nl = table.shape[1]
-                stats["vops"] += vertical_level_word_ops(
-                    1, prefix_cols.shape[0], s, int(cand_idx.size),
-                    len(scales), nl)
-                stats["member_bytes_saved"] += vertical_member_bytes(
-                    1, prefix_cols.shape[0], nl)
-            else:
-                got = local_level_gather(
-                    table, weights, scales, ctx.upload_async(prefix_cols),
-                    s, ctx.upload_async(cand_idx), heavy_b=hb, heavy_w=hw,
-                    count_fn=level_counts_plain if plain else level_counts,
-                )
-                stats["launches"] += len(scales)
+            got = self._count_chunk(
+                table, weights, scales, prefix_cols, cand_idx, f_pad,
+                min_count, heavy, vertical, plain, red, stats, nus)
             parts.append(got)
             stats["p_cap"] = max(stats["p_cap"], prefix_cols.shape[0])
         counts_dev = torch.cat(parts) if len(parts) > 1 else parts[0]
+        payload = survivor_bits(counts_dev, min_count)
         t0 = time.perf_counter()
-        bits = ctx.fetch_async(survivor_bits(counts_dev, min_count),
-                               "vlevel_bits" if vertical else "level_bits")
-        keep = np.unpackbits(bits.result(), count=x_idx.size).astype(bool)
+        recount = None
+        try:
+            if nus:
+                # The union censuses ride the bitmask: 4 little-endian
+                # bytes per sparse reduction.
+                payload = torch.cat([payload, torch.stack(
+                    [nu for nu, _ in nus]).to(torch.int32).view(torch.uint8)])
+                bits = ctx.fetch_async(
+                    payload,
+                    "vlevel_bits_sparse" if vertical else "level_bits_sparse")
+            else:
+                bits = ctx.fetch_async(
+                    payload, "vlevel_bits" if vertical else "level_bits")
+            got_bits = bits.result()
+        except Exception as exc:
+            if not nus or not retry.exhausted(exc):
+                raise
+            self._sparse_walk(exc, "vlevel" if vertical else "level", red,
+                              k=s + 1)
+            recount = "transient_exhausted"
+        else:
+            if nus:
+                census = np.frombuffer(
+                    got_bits[-4 * len(nus):].tobytes(), dtype="<i4")
+                got_bits = got_bits[: -4 * len(nus)]
+                stats["n_union"] = int(census.max())
+                over = [int(v) for v, (_, cap) in zip(census, nus)
+                        if v > cap]
+                if over:
+                    recount = "union_overflow"
+                    max_nu = max(over)
+                    ledger.record("count_sparse_overflow",
+                                  site="vlevel" if vertical else "level",
+                                  k=s + 1, n_union=max_nu)
+                    watchdog.downgrade(
+                        "count_reduce", "sparse", "dense",
+                        reason="union_overflow",
+                        site="vlevel" if vertical else "level", k=s + 1)
+                    ctx.record_pair_cap(self._sparse_level_key(
+                        table, f_pad, min_count, vertical), next_pow2(max_nu))
+        if recount is not None:
+            del counts_dev, parts
+            nxt_d, cnts_d, stats_d = self._count_level(
+                table, weights, scales, level, min_count, heavy,
+                vertical=vertical, defer=defer,
+                red={"engine": "dense", "thr": None})
+            # The sparse attempt's launches and bytes were spent too.
+            for key in ("launches", "vops", "member_bytes_saved",
+                        "psum_bytes", "gather_bytes"):
+                if key in stats:
+                    stats_d[key] = stats_d.get(key, 0) + stats[key]
+            if recount == "union_overflow":
+                stats_d["sparse_overflow"] = stats["n_union"]
+            stats_d["recount"] = recount
+            return nxt_d, cnts_d, stats_d
+        keep = np.unpackbits(got_bits, count=x_idx.size).astype(bool)
         stats["fetch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
         if not keep.any():
             return empty
@@ -1945,3 +2350,114 @@ class FastApriori:
             return nxt, [(counts_dev, np.flatnonzero(keep))], stats
         counts = ctx.fetch(counts_dev, "level_counts")[keep]
         return nxt, counts.astype(np.int64), stats
+
+    def _sparse_level_key(self, table, f_pad: int, min_count: int,
+                          vertical: bool) -> tuple:
+        """The grown-budget hint key of a level's sparse reductions."""
+        t_pad = (table[0].shape[1] * 32 if vertical
+                 else table[0].shape[0]) * self.ctx.txn_shards
+        return ("sparse_vlevel" if vertical else "sparse_level", t_pad,
+                f_pad, int(min_count))
+
+    def _count_chunk(self, table, weights, scales,
+                     prefix_cols: np.ndarray, cand_idx: np.ndarray,
+                     f_pad: int, min_count: int, heavy: Optional[tuple],
+                     vertical: bool, plain: bool, red: Optional[dict],
+                     stats: dict, nus: list) -> torch.Tensor:
+        """One :func:`level_chunks` launch over the mesh: the prefix rows
+        split into ``cand_shards`` contiguous blocks (candidate block c
+        takes rows ``[c·p_sh, (c+1)·p_sh)`` and their candidates, at
+        local flat positions); for each block K1 (or K3) runs once per
+        transaction shard over that shard's rows (lanes), shard 0 adding
+        the heavy remainder; each block's per-shard counts, padded with
+        zeros to ``c_cap / C`` slots (``c_cap`` the JAX package's
+        candidate budget of the launch; more when a block holds more
+        candidates), cross the shards through the
+        dense psum or, above ``count_sparse_min`` slots of a sparse mine,
+        the threshold-sparse exchange (its union census appended to
+        ``nus``); the blocks' counts concatenate in cand order on shard
+        0's device.  ``stats`` gains the launches and the reduction's
+        payload fields.  On one device: one launch, nothing padded, the
+        counts as they come."""
+        ctx = self.ctx
+        cfg = self.config
+        s = prefix_cols.shape[1]
+        n_c = int(cand_idx.size)
+        c_shards = ctx.cand_shards
+        c_cap = min(max(next_pow2(n_c), f_pad),
+                    max(cfg.level_cand_cap, f_pad))
+        sp_cap = None
+        if red is not None and red["engine"] == "sparse":
+            if c_cap >= cfg.count_sparse_min:
+                sp_cap = self._sparse_cap(c_cap, hint_key=self._sparse_level_key(
+                    table, f_pad, min_count, vertical))
+            else:
+                ledger.record("count_reduce_fallback", once_key="tiny_level",
+                              reason="tiny_candidate_set",
+                              site="vlevel" if vertical else "level",
+                              k=s + 1, c_cap=c_cap)
+        p_cap = prefix_cols.shape[0]
+        p_sh = -(-p_cap // c_shards)
+        zcol = f_pad - 1
+        rows = cand_idx // f_pad
+        ys = cand_idx % f_pad
+        bounds = np.searchsorted(rows, np.arange(c_shards + 1) * p_sh)
+        one = ctx.n_devices == 1
+        c_blk = n_c if one else pad_axis(
+            max(-(-c_cap // c_shards), int(np.diff(bounds).max())), 8)
+        info = self._reduce_info(c_blk, sp_cap)
+        if vertical:
+            count = vertical_counts_plain if plain else vertical_level_local
+            lane_tile = self._vertical_lane_tile()
+            chunk = self._vertical_chunk(c_cap)
+        else:
+            count = level_counts_plain if plain else level_counts
+        outs = []
+        for c in range(c_shards):
+            lo = c * p_sh
+            pc = np.full((p_sh, s), zcol, dtype=np.int32)
+            real = prefix_cols[lo : lo + p_sh]
+            pc[: real.shape[0]] = real
+            a, b = int(bounds[c]), int(bounds[c + 1])
+            ci = (rows[a:b] - lo) * f_pad + ys[a:b]
+            devs = ctx.mesh.txn_devices(c)
+            pcs = ctx.place(pc, devs, non_blocking=True)
+            cis = ctx.place(ci.astype(np.int32) if vertical else ci, devs,
+                            non_blocking=True)
+            local = []
+            for t in range(ctx.txn_shards):
+                i = t * c_shards + c
+                if vertical:
+                    got = count(table[i], weights[i], scales, pcs[t], cis[t],
+                                chunk, lane_tile)
+                    nl = table[i].shape[1]
+                    stats["launches"] += 1
+                    stats["vops"] += vertical_level_word_ops(
+                        1, p_sh, s, b - a, len(scales), nl)
+                    stats["member_bytes_saved"] += vertical_member_bytes(
+                        1, p_sh, nl)
+                else:
+                    hb = hw = None
+                    if heavy is not None and t == 0:
+                        hb, hw = (mesh.broadcast(x, devs[:1])[0]
+                                  for x in heavy)
+                    got = local_level_gather(
+                        table[i], weights[i], scales, pcs[t], s, cis[t],
+                        heavy_b=hb, heavy_w=hw, count_fn=count)
+                    stats["launches"] += len(scales)
+                local.append(got if one else torch.cat(
+                    [got, got.new_zeros(c_blk - (b - a))]))
+            if sp_cap is not None:
+                summed, nu = local_sparse_psum(local, red["thr"], sp_cap,
+                                               groups=ctx.exchange_spec)
+                nus.append((nu, sp_cap))
+            else:
+                summed = dense_psum(local)
+            outs.append(summed[: b - a])
+        if not one:
+            for key, val in info.items():
+                if key.endswith("_bytes"):
+                    stats[key] = stats.get(key, 0) + c_shards * val
+                else:
+                    stats[key] = val
+        return mesh.tiled_all_gather(outs)

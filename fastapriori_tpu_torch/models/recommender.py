@@ -27,6 +27,13 @@ package's ``serve_scan`` and ``ServeScanHandle``) and cut the baskets
 with :meth:`AssociationRules.micro_batches`: one K2 launch per
 micro-batch over whichever form is on the device, each block padded
 only to the next power of two of its own baskets.
+
+On a mesh of S transaction shards (device.py ``DeviceContext``) each
+block is padded to a multiple of ``max(txn_tile, 32)·S`` rows and split
+over the shards, as the JAX package shards its basket rows; the table is
+replicated, one copy per distinct device (the device-built table is
+built on shard 0's device, then copied), and each shard runs K2 over its
+rows; the consequents concatenate in shard order on shard 0's device.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from fastapriori_tpu_torch.ops.match_kernel import (
     first_match,
     first_match_plain,
 )
+from fastapriori_tpu_torch.parallel import mesh
 from fastapriori_tpu_torch.preprocess import dedup_user_baskets
 from fastapriori_tpu_torch.rules.gen import (
     DeviceRuleState,
@@ -97,8 +105,10 @@ class ServeScanHandle:
     the mounted table and selects each basket's consequent (-1: no
     match) on the device; both results are device tensors and the
     caller owns the audited fetch.  Both table forms select the
-    consequent on the device, so ``decode`` is always None and
-    ``row_multiple`` 1 (one device: no row sharding).  ``resident``:
+    consequent on the device, so ``decode`` is always None.  On a mesh
+    ``shards`` is the transaction shard count (one K2 launch each per
+    block) and ``row_multiple`` the rows a block's height is a multiple
+    of (1 on one shard).  ``resident``:
     the table was built on the device from the device rule engine's
     state (else the host-built table was uploaded); ``table_bytes``: the
     device bytes of the mounted table, ``table_rows`` its rows;
@@ -110,14 +120,15 @@ class ServeScanHandle:
         "decode", "row_multiple", "kernel",
     )
 
-    def __init__(self, scan, *, resident, table_bytes, table_rows, kernel):
+    def __init__(self, scan, *, resident, table_bytes, table_rows, kernel,
+                 shards=1, row_multiple=1):
         self.scan = scan
         self.resident = resident
-        self.shards = 1
+        self.shards = shards
         self.table_bytes = table_bytes
         self.table_rows = table_rows
         self.decode = None
-        self.row_multiple = 1
+        self.row_multiple = row_multiple
         self.kernel = kernel
 
 
@@ -125,8 +136,10 @@ class AssociationRules:
     """``AssociationRules(freq_items, item_to_rank, levels, item_counts)
     .run(user_lines)`` returns ``[(original row index, recommended item
     string or "0"), ...]``.  ``levels``/``item_counts`` are the miner's
-    matrix-form result (models/apriori.py).  ``device`` as for
-    :class:`~fastapriori_tpu_torch.models.apriori.FastApriori`."""
+    matrix-form result (models/apriori.py).  ``device`` and ``context``
+    as for :class:`~fastapriori_tpu_torch.models.apriori.FastApriori`
+    (the mesh from ``config.num_devices`` / ``cand_devices`` when no
+    context is given)."""
 
     def __init__(
         self,
@@ -136,19 +149,25 @@ class AssociationRules:
         item_counts,
         config: Optional[MinerConfig] = None,
         device=None,
+        context: Optional[DeviceContext] = None,
     ):
         self.freq_items = list(freq_items)
         self.item_to_rank = dict(item_to_rank)
         self.config = config or MinerConfig()
-        self.ctx = DeviceContext(device)
+        self.ctx = context if context is not None else DeviceContext(
+            device, num_devices=self.config.num_devices,
+            cand_devices=self.config.cand_devices)
         self.metrics = MetricsLogger(enabled=self.config.log_metrics)
         self._levels = levels
         self._item_counts = item_counts
         # Sorted rule arrays (ant [R, k_max] 0-padded, lens, cons, conf),
         # built once per instance like the reference's single genRules.
         self._rule_arrays: Optional[tuple] = None
-        # Device copy of the padded rule table, uploaded on first use.
-        self._table_dev: Optional[tuple] = None
+        # Device copies of the padded rule table (one per transaction
+        # shard, uploaded once per distinct device), on first use.
+        self._table_dev: Optional[list] = None
+        # The device-built table's copies on the other shards' devices.
+        self._scan_copies: Optional[list] = None
         # The device rule engine's resident state, until the scan table
         # is built from it (or the host scan is chosen), and that table:
         # (ant, size, consequent, build ms).
@@ -283,23 +302,33 @@ class AssociationRules:
     def table(self) -> tuple:
         """The padded rule table on the device, uploaded once per
         instance: ``(ant, size, consequent)`` (ops/contain.py
-        ``rule_table``)."""
+        ``rule_table``) on shard 0's device (:meth:`table_copies`: one
+        per transaction shard)."""
+        return self.table_copies()[0]
+
+    def table_copies(self) -> list:
+        """The padded rule table of each transaction shard, uploaded once
+        per distinct device."""
         if self._table_dev is None:
             ant0, lens, cons, _ = self.rule_arrays()
             f = len(self.freq_items)
             f_pad = pad_axis(f + 1, self.config.item_tile)
             host = rule_table(ant0, lens, cons, f, f_pad,
                               self.config.rule_chunk)
-            self._table_dev = tuple(self.ctx.upload(x) for x in host)
-            self.table_upload_bytes += sum(int(x.nbytes) for x in host)
+            devs = self.ctx.mesh.txn_devices()
+            per = [self.ctx.place(x, devs) for x in host]
+            self._table_dev = list(zip(*per))
+            self.table_upload_bytes += len(set(devs)) * sum(
+                int(x.nbytes) for x in host)
         return self._table_dev
 
     def scan_table(self) -> tuple:
         """The priority-sorted table built on the device from the device
         rule engine's state (ops/contain.py ``rule_scan_build``), once
         per instance, which then releases the state: ``(ant, size,
-        consequent, build_ms)``, ``build_ms`` the wall until the table
-        is on the device.  Row padding is the JAX package's at one
+        consequent, build_ms)`` on shard 0's device (a copy on each other
+        shard's device beside it), ``build_ms`` the wall until the table
+        is on every device.  Row padding is the JAX package's at one
         shard: chunks of about 1/256 of the rules (at least
         ``rule_chunk``, at most the pow2 rule count or 128, at most
         65,536), a pow2 number of them."""
@@ -322,10 +351,21 @@ class AssociationRules:
             )
             state.release()
             self._scan_state = None
+            # Replicated to the other shards' devices.
+            self._scan_copies = list(zip(*(mesh.broadcast(
+                x, self.ctx.mesh.txn_devices()) for x in table)))
             if self.ctx.platform == "cuda":
-                torch.cuda.current_stream(self.ctx.device).synchronize()
+                for d in self.ctx.mesh.distinct_devices():
+                    torch.cuda.current_stream(d).synchronize()
             self._scan_table = (*table, (time.perf_counter() - t0) * 1e3)
         return self._scan_table
+
+    def row_multiple(self) -> int:
+        """What a scan block's rows are a multiple of: ``max(txn_tile,
+        32)·S`` on S > 1 transaction shards (the JAX package's basket
+        padding), else 1."""
+        s = self.ctx.txn_shards
+        return max(self.config.txn_tile, 32) * s if s > 1 else 1
 
     def micro_batches(self, baskets: List[np.ndarray],
                       rows_bound: Optional[int] = None):
@@ -334,13 +374,17 @@ class AssociationRules:
         (default :meth:`rec_batch_rows`), each padded only to the next
         power of two of its own baskets, at least
         :data:`MIN_BLOCK_ROWS`: K2 gives a padding row (length 0) no
-        work, but the upload and K2's packing pass cover it.  Pure numpy
-        (the serving tier's pack thread runs it)."""
+        work, but the upload and K2's packing pass cover it; on S > 1
+        shards a block's rows are then padded to :meth:`row_multiple`.
+        Pure numpy (the serving tier's pack thread runs it)."""
         f = len(self.freq_items)
         bound = self.rec_batch_rows() if rows_bound is None else rows_bound
+        multiple = self.row_multiple()
         for b0 in range(0, len(baskets), bound):
             block = baskets[b0 : b0 + bound]
-            rows = max(min(next_pow2(len(block)), bound), MIN_BLOCK_ROWS)
+            rows = pad_axis(
+                max(min(next_pow2(len(block)), bound), MIN_BLOCK_ROWS),
+                multiple)
             bm = build_bitmap(block, f, rows, self.config.item_tile)
             blen = np.zeros(rows, dtype=np.int32)
             blen[: len(block)] = [len(b) for b in block]
@@ -369,21 +413,35 @@ class AssociationRules:
         match = self._match_fn({} if stats is None else stats)
         resident = self._scan_state is not None or self._scan_table is not None
         if resident:
-            ant, size, consequent, _ = self.scan_table()
+            self.scan_table()
+            tables = self._scan_copies
         else:
-            ant, size, consequent = self.table()
+            tables = self.table_copies()
+        ant, size, consequent = tables[0]
+        devs = ctx.mesh.txn_devices()
 
         def scan(bm: np.ndarray, blen: np.ndarray):
-            return strided_match_scan(
-                ctx.upload_async(bm), ctx.upload_async(blen), ant, size,
-                consequent, match_fn=match,
-            )
+            # Each shard's rows against its table copy, uploaded through
+            # pinned memory (the host does not wait); the results in
+            # shard order on shard 0's device.
+            per = bm.shape[0] // len(devs)
+            best, cons = [], []
+            for t, (dev, (a, sz, cq)) in enumerate(zip(devs, tables)):
+                rows = slice(t * per, (t + 1) * per)
+                (bm_t,) = ctx.place(bm[rows], [dev], non_blocking=True)
+                (blen_t,) = ctx.place(blen[rows], [dev], non_blocking=True)
+                b, c = strided_match_scan(bm_t, blen_t, a, sz, cq,
+                                          match_fn=match)
+                best.append(b)
+                cons.append(c)
+            return mesh.tiled_all_gather(best), mesh.tiled_all_gather(cons)
 
         return ServeScanHandle(
             scan, resident=resident,
             table_bytes=int(ant.nbytes + size.nbytes + consequent.nbytes),
             table_rows=int(ant.shape[0]),
             kernel=ctx.platform == "cuda" and match is first_match,
+            shards=len(devs), row_multiple=self.row_multiple(),
         )
 
     def _device_first_match(self, baskets: List[np.ndarray],
@@ -396,14 +454,21 @@ class AssociationRules:
         first_build = self._scan_state is not None
         h = self.serve_scan(stats)
         fetches = []
+        upload_bytes = 0
         for b0, n, bm, blen in self.micro_batches(baskets):
             _, cons = h.scan(bm, blen)
+            # Each shard's rows cross once (the baskets are sharded, not
+            # replicated).
+            upload_bytes += bm.nbytes + blen.nbytes
             fetches.append((b0, n, self.ctx.fetch_async(cons, "rec_match")))
         recs = np.full(len(baskets), -1, dtype=np.int64)
         for b0, n, fetch in fetches:
             recs[b0 : b0 + n] = fetch.result()[:n]
         stats.update(rules=self.n_rules, table_rows=h.table_rows,
-                     launches=len(fetches), resident_table=h.resident)
+                     launches=len(fetches) * h.shards,
+                     resident_table=h.resident)
+        if h.shards > 1:
+            stats.update(shards=h.shards, upload_bytes=upload_bytes)
         if first_build:
             stats["table_build_ms"] = round(self._scan_table[3], 3)
         return recs.tolist()

@@ -50,10 +50,12 @@ FETCH_SITE_SPANS = (
     "fetch.counts_resolve",
     "fetch.fused",
     "fetch.level_bits",
+    "fetch.level_bits_sparse",
     "fetch.level_counts",
     "fetch.pair",
     "fetch.pair_pre",
     "fetch.pair_regather",
+    "fetch.pair_sparse",
     "fetch.rec_match",
     "fetch.rule_counts",
     "fetch.rule_mask",
@@ -61,7 +63,9 @@ FETCH_SITE_SPANS = (
     "fetch.serve_swap_ready",
     "fetch.tail",
     "fetch.vlevel_bits",
+    "fetch.vlevel_bits_sparse",
     "fetch.vpair",
+    "fetch.vpair_sparse",
 )
 
 

@@ -3,7 +3,10 @@
 ``heavy_level_correction``, ``frequent_pair_mask``, the level gather's
 survivor bitmask (:func:`survivor_bits`),
 ``pair_threshold_pack``, ``l3_threshold_pack``, ``local_pair_regather``
-and ``local_level_gather`` at ``axis_name=None``; reference C6/C8).
+and ``local_level_gather`` per shard; the count reductions across
+transaction shards: ``_psum_if`` (:func:`dense_psum`),
+``local_sparse_psum``, ``sparse_union_cap`` and the payload models
+``sparse_psum_bytes`` / ``sparse_stage_bytes``; reference C6/C8).
 
 - Pair counts (C6): ``C2[f, g] = Σ_t w_t B[t, f] B[t, g]``, the Gram
   matrix Bᵀ(w ⊙ B).  The reference package leaves it to XLA outside any
@@ -251,17 +254,137 @@ def _survivors(counts: torch.Tensor, mask: torch.Tensor, cap: int):
             mask.sum(dtype=torch.int32))
 
 
-def survivor_bits(counts: torch.Tensor, min_count: int) -> torch.Tensor:
-    """The survivor mask ``counts >= min_count`` of a 1-D count tensor,
-    bit-packed on the device in ``np.packbits``' order (big-endian within
-    each byte, zero-padded to whole bytes): what crosses to the host per
-    level when the counts themselves stay on the device."""
-    m = (counts >= min_count).to(torch.int32)
+def pack_bits_msb(mask: torch.Tensor) -> torch.Tensor:
+    """A 1-D bool mask bit-packed in ``np.packbits``' order (big-endian
+    within each byte, zero-padded to whole bytes), uint8."""
+    m = mask.to(torch.int32)
     pad = (-m.numel()) % 8
     if pad:
         m = torch.cat([m, m.new_zeros(pad)])
     w = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=m.device)
     return (m.view(-1, 8) * w).sum(dim=1, dtype=torch.int32).to(torch.uint8)
+
+
+def unpack_bits_msb(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[n // 8]`` -> bool ``[n]``, the inverse of
+    :func:`pack_bits_msb`."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, None] >> shifts) & 1).reshape(-1).to(torch.bool)
+
+
+def survivor_bits(counts: torch.Tensor, min_count: int) -> torch.Tensor:
+    """The survivor mask ``counts >= min_count`` of a 1-D count tensor,
+    bit-packed on the device (:func:`pack_bits_msb`): what crosses to the
+    host per level when the counts themselves stay on the device."""
+    return pack_bits_msb(counts >= min_count)
+
+
+# ---------------------------------------------------------------------------
+# The count reductions across transaction shards (the JAX module's
+# ``_psum_if`` and ``local_sparse_psum``), over the per-shard tensors
+# through parallel/mesh.py's collectives.
+
+
+def sparse_union_cap(n_valid: int, override: Optional[int] = None) -> int:
+    """Union-compaction slot budget of :func:`local_sparse_psum`:
+    ``n_valid / 16`` in a pow2 bucket, floor 1,024, never above the
+    candidate count's own bucket; ``override`` (``count_sparse_cap`` /
+    ``FA_COUNT_SPARSE_CAP``) is bucketed and clamped the same way."""
+    from fastapriori_tpu_torch.ops.bitmap import next_pow2
+
+    ceiling = next_pow2(max(n_valid, 8))
+    if override is not None and override > 0:
+        return min(next_pow2(override), ceiling)
+    return min(next_pow2(max(n_valid // 16, 1024)), ceiling)
+
+
+def dense_psum(parts: Sequence[torch.Tensor], groups=None) -> torch.Tensor:
+    """The dense reduction: the per-shard partial counts summed onto
+    shard 0 (the tensor itself on one shard)."""
+    from fastapriori_tpu_torch.parallel import mesh
+
+    return mesh.psum(parts, groups)
+
+
+def local_sparse_psum(
+    parts: Sequence[torch.Tensor],  # per-shard int32 partial counts
+    thrs: Sequence[int],  # each shard's local-prune threshold
+    cap: int,  # union-compaction slot budget
+    valid: Optional[torch.Tensor] = None,  # bool candidate mask
+    groups=None,  # (groups, per_group) two-level grid, or None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threshold-sparse replacement for the dense psum (the JAX
+    module's ``local_sparse_psum``; *Sparse Allreduce*, arxiv
+    1312.3020), in three steps:
+
+    1. local prune: shard s keeps the candidates whose local count
+       reaches ``thrs[s]``, its weighted-pigeonhole threshold
+       ``max(1, ceil(min_count · W_s / W))``: a candidate below every
+       shard's threshold sums below min_count, so the union of the
+       survivor sets holds every frequent candidate;
+    2. the union: the survivor masks, bit-packed, OR-ed across the
+       shards (parallel/mesh.py ``union_packed``, two-level with
+       ``groups``);
+    3. the compact psum: each shard's own counts at the first ``cap``
+       union positions, summed across the shards (``psum``) and
+       scattered back onto zeros, so the result has the input's shape,
+       exact at every union position and 0 elsewhere.
+
+    Returns ``(counts, n_union)`` on shard 0's device (``n_union`` an
+    int32 scalar tensor: the host reads it with the level's fetch);
+    ``n_union > cap`` means the compaction truncated and the counts are
+    unusable.  Nothing here waits for the device."""
+    from fastapriori_tpu_torch.parallel import mesh
+
+    flats = [p.reshape(-1) for p in parts]
+    n = flats[0].numel()
+    assert n % 8 == 0, n
+    packed = []
+    for fl, thr in zip(flats, thrs):
+        keep = fl >= int(thr)
+        if valid is not None:
+            keep &= valid.reshape(-1).to(fl.device, non_blocking=True)
+        packed.append(pack_bits_msb(keep))
+    union = unpack_bits_msb(mesh.union_packed(packed, groups))
+    n_union = union.sum(dtype=torch.int32)
+    upos = torch.nonzero_static(union, size=cap, fill_value=0)[:, 0]
+    slot_ok = torch.arange(cap, device=union.device) < n_union
+    comps = [
+        torch.where(ok, fl.index_select(0, up), 0)
+        for fl, up, ok in zip(
+            flats, mesh.broadcast(upos, [f.device for f in flats]),
+            mesh.broadcast(slot_ok, [f.device for f in flats]))
+    ]
+    summed = mesh.psum(comps, groups)
+    # Overflow fill slots point at position 0 with a 0 contribution, so a
+    # real union member at position 0 keeps its exact sum.
+    counts = torch.zeros_like(flats[0]).index_add_(
+        0, upos, torch.where(slot_ok, summed, 0))
+    return counts.reshape(parts[0].shape), n_union
+
+
+def sparse_psum_bytes(n_valid: int, cap: int, n_shards: int,
+                      groups=None) -> Tuple[int, int]:
+    """``(gather_bytes, psum_bytes)`` of one :func:`local_sparse_psum`
+    (the JAX package's payload model): the mask gather lands S·n/8 bytes
+    per shard, ``(per_group + groups)·n/8`` under the two-level
+    exchange; the compact psum moves 4·cap (+4 for the union census)."""
+    if groups is not None:
+        g, per = groups
+        return (g + per) * (n_valid // 8), 4 * cap + 4
+    return n_shards * (n_valid // 8), 4 * cap + 4
+
+
+def sparse_stage_bytes(n_valid: int, cap: int, n_shards: int,
+                       groups=None) -> Tuple[int, int]:
+    """Per-shard ``(intra_bytes, inter_bytes)`` of the payload
+    :func:`sparse_psum_bytes` totals: flat, all of it on the one tier;
+    two-level, ``per_group`` mask payloads intra, ``groups`` aggregates
+    plus the compact psum inter."""
+    from fastapriori_tpu_torch.parallel.hier import union_stage_bytes
+
+    intra, inter = union_stage_bytes(n_valid // 8, n_shards, groups)
+    return intra, inter + 4 * cap + 4
 
 
 def prefix_onehot(prefix_cols: torch.Tensor, f_pad: int) -> torch.Tensor:

@@ -1,7 +1,19 @@
 """Whole-loop mining on the device (counterpart: fastapriori_tpu/ops/fused.py
-at ``mesh=None`` with the dense reduction; reference C6+C7+C8+C9,
-FastApriori.scala:88-241, without a host round trip per level for the
-candidates).
+``make_fused_miner`` / ``make_tail_miner`` over the transaction shards,
+with the dense or the threshold-sparse count reduction; reference
+C6+C7+C8+C9, FastApriori.scala:88-241, without a host round trip per
+level for the candidates).
+
+The bitmap (and its weights) arrive as the list of per-shard row blocks,
+in transaction-shard order (one block on one shard).  Each shard counts
+its own rows; the per-level ``[m, F]`` (and level 2's ``[F, F]``) partial
+counts cross the shards through ops/count.py ``dense_psum`` or, with
+``sparse_caps`` / ``sparse_cap``, ``local_sparse_psum`` restricted to the
+level's candidates (a union past the budget marks the result unusable:
+the fused loop stops with its sparse-overflow flag, the tail fold with
+its sentinel, and the host reruns dense).  The candidate products run
+once, on shard 0's device, and the set matrix goes to the other shards'
+devices through parallel/mesh.py ``broadcast``.
 
 Each level k is mined from the frequent (k-1)-set matrix ``S ∈
 {0,1}^{m_cap×F}`` (one row per frequent set, zero rows past the level's
@@ -46,8 +58,11 @@ from fastapriori_tpu_torch.ops.bitmap import unpack_bitmap
 from fastapriori_tpu_torch.ops.count import (
     TRI_F_CAP,
     _pair_triangles,
+    dense_psum,
     heavy_level_correction,
+    local_sparse_psum,
 )
+from fastapriori_tpu_torch.parallel import mesh
 
 Region = Callable[[], contextlib.AbstractContextManager]
 
@@ -170,9 +185,24 @@ def _chunks(bitmap, w, n_chunks: int, packed_input: bool):
                w[c * t_c : (c + 1) * t_c])
 
 
+def _as_parts(x) -> list:
+    """A per-shard list (a lone tensor is one shard's)."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _reducer(cap: Optional[int], thrs, groups):
+    """The per-level count reduction over per-shard partial counts:
+    ``reduce(parts, valid) -> (counts on shard 0, n_union or None)``,
+    dense without ``cap``."""
+    if cap is None:
+        return lambda parts, valid: (dense_psum(parts), None)
+    return lambda parts, valid: local_sparse_psum(
+        parts, thrs, cap, valid=valid, groups=groups)
+
+
 def fused_mine(
-    bitmap: torch.Tensor,  # [T, F // 8] uint8, or [T, F] int8 unpacked
-    w: torch.Tensor,  # [T] int32 raw weights
+    bitmap,  # per-shard [T_s, F // 8] uint8, or [T_s, F] int8 unpacked
+    w,  # per-shard [T_s] int32 raw weights
     min_count: int,
     *,
     m_cap: int,
@@ -182,31 +212,51 @@ def fused_mine(
     fast_f32: bool = False,
     packed_input: bool = True,
     region: Optional[Region] = None,
+    sparse_caps: Optional[Tuple[int, int]] = None,
+    sparse_thr: Optional[Sequence[int]] = None,
+    groups: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """The whole level loop from level 2 (the reference's
-    ``_fused_mine_local`` at one device with the dense reduction).
-    Returns the reference's packed int32 ``[3·l_max + 1, m_cap]``: rows,
-    cols and counts per level (level k at slot k - 2), then a meta row
-    with the true survivor count per level, the incomplete flag at slot
-    ``l_max`` (overflow, or the l_max bound stopped a live loop) and the
-    overflow flag at ``l_max + 1`` (0 at ``l_max + 2``, the reference's
-    sparse census).  ``region``: a context manager factory entered around
-    each level's device work (device.py ``sync_free``)."""
+    ``_fused_mine_local``).  ``bitmap`` and ``w`` are per-shard lists (a
+    lone tensor is one shard); ``n_chunks`` chunks each shard's rows.
+    Returns the reference's packed int32 ``[3·l_max + 1, m_cap]`` on
+    shard 0's device: rows, cols and counts per level (level k at slot k
+    - 2), then a meta row with the true survivor count per level, the
+    incomplete flag at slot ``l_max`` (overflow, or the l_max bound
+    stopped a live loop), the overflow flags at ``l_max + 1`` (bit 0 the
+    row budget, bit 1 the sparse union) and the largest union census at
+    ``l_max + 2`` (0 under the dense reduction).  ``sparse_caps = (pair
+    cap, level cap)`` with ``sparse_thr`` (one threshold per shard) runs
+    both reductions sparse.  ``region``: a context manager factory
+    entered around each level's device work (device.py
+    ``sync_free``)."""
     assert m_cap > l_max + 1, (m_cap, l_max)
     region = region or contextlib.nullcontext
-    dev = bitmap.device
-    f = bitmap.shape[1] * 8 if packed_input else bitmap.shape[1]
-    assert bitmap.shape[0] % n_chunks == 0, (bitmap.shape[0], n_chunks)
+    bitmaps, ws = _as_parts(bitmap), _as_parts(w)
+    devs = [b.device for b in bitmaps]
+    dev = devs[0]
+    f = bitmaps[0].shape[1] * 8 if packed_input else bitmaps[0].shape[1]
+    for b in bitmaps:
+        assert b.shape[0] % n_chunks == 0, (b.shape[0], n_chunks)
     col_ids = torch.arange(f, device=dev)
     slots = torch.arange(m_cap, device=dev)
     out = torch.zeros((3 * l_max + 1, m_cap), dtype=torch.int32, device=dev)
     meta = out[3 * l_max]
+    cap2, capk = sparse_caps if sparse_caps is not None else (None, None)
+    reduce2 = _reducer(cap2, sparse_thr, groups)
+    reducek = _reducer(capk, sparse_thr, groups)
 
     def scan_counts(project, out_dim):
-        acc = torch.zeros((out_dim, f), dtype=torch.int32, device=dev)
-        for b, wk in _chunks(bitmap, w, n_chunks, packed_input):
-            acc += weighted_counts(project(b), b, wk, n_digits, fast_f32)
-        return acc
+        # Each shard's partial counts over its own row chunks.
+        parts = []
+        for sh, (bm, wv) in enumerate(zip(bitmaps, ws)):
+            acc = torch.zeros((out_dim, f), dtype=torch.int32,
+                              device=bm.device)
+            for b, wk in _chunks(bm, wv, n_chunks, packed_input):
+                acc += weighted_counts(project(sh, b), b, wk, n_digits,
+                                       fast_f32)
+            parts.append(acc)
+        return parts
 
     def store(idx, rows, cols, counts, n, valid):
         out[idx] = rows
@@ -215,10 +265,18 @@ def fused_mine(
             0, rows * f + cols) * valid
         meta[idx] = n
 
+    def read(n, nu):
+        """The host's one small read per level: the survivor count and,
+        under the sparse reduction, the union census."""
+        x = n if nu is None else torch.stack([n, nu])
+        got = DeviceContext.fetch_async(x, "fused").result()
+        return (int(got), 0) if nu is None else (int(got[0]), int(got[1]))
+
     with region():
         # Level 2: the weighted Gram product.
-        pair = scan_counts(lambda b: b.t(), f)
-        mask = (pair >= min_count) & (col_ids[None, :] > col_ids[:, None])
+        upper2 = col_ids[None, :] > col_ids[:, None]
+        pair, nu = reduce2(scan_counts(lambda sh, b: b.t(), f), upper2)
+        mask = (pair >= min_count) & upper2
         n = mask.sum(dtype=torch.int32)
         rc = torch.nonzero_static(mask, size=m_cap, fill_value=0)
         valid = slots < n
@@ -226,20 +284,23 @@ def fused_mine(
             valid[:, None].to(torch.int8)
         store(0, rc[:, 0], rc[:, 1], pair, n, valid)
         del pair, mask
-    m = int(DeviceContext.fetch_async(n, "fused").result())
+    m, snu = read(n, nu)
+    sparse_ovf = cap2 is not None and snu > cap2
     overflow = m > m_cap
     k = 3
-    while not overflow and m >= k and k <= l_max + 1:
+    while not overflow and not sparse_ovf and m >= k and k <= l_max + 1:
         with region():
             cand = gen_candidates_matmul(
                 s, k, col_ids, (slots < m)[:, None], f32=fast_f32)
+            s_sh = mesh.broadcast(s, devs)
 
-            def contains_prefix(b, s=s, k=k):
-                return (exact_mm(s, b, fast_f32) == k - 1).view(torch.int8)
+            def contains_prefix(sh, b, k=k):
+                return (exact_mm(s_sh[sh], b, fast_f32) == k - 1).view(
+                    torch.int8)
 
-            counts = scan_counts(contains_prefix, m_cap)
+            counts, nu = reducek(scan_counts(contains_prefix, m_cap), cand)
             surv = cand & (counts >= min_count)
-            del cand
+            del cand, s_sh
             n = surv.sum(dtype=torch.int32)
             rc = torch.nonzero_static(surv, size=m_cap, fill_value=0)
             del surv
@@ -248,12 +309,16 @@ def fused_mine(
             s = extend_rows(s, rows, cols, valid)
             store(k - 2, rows, cols, counts, n, valid)
             del counts
-        m = int(DeviceContext.fetch_async(n, "fused").result())
+        m, lvl_nu = read(n, nu)
+        snu = max(snu, lvl_nu)
+        sparse_ovf = capk is not None and lvl_nu > capk
         overflow = m > m_cap
         k += 1
     incomplete = overflow or (m >= k and k > l_max + 1)
     meta[l_max] = int(incomplete)
-    meta[l_max + 1] = int(overflow)
+    meta[l_max + 1] = int(overflow) + 2 * int(sparse_ovf)
+    if m_cap > l_max + 2:
+        meta[l_max + 2] = snu
     return out
 
 
@@ -264,36 +329,46 @@ def make_fused_miner(
     n_chunks: int = 1,
     fast_f32: bool = False,
     packed_input: bool = True,
+    sparse_caps: Optional[Tuple[int, int]] = None,
+    groups: Optional[Tuple[int, int]] = None,
 ):
     """The fused miner at one static configuration (the reference's
-    ``make_fused_miner`` at ``mesh=None``): ``fn(bitmap, w, min_count,
+    ``make_fused_miner``): ``fn(bitmap, w, min_count, sparse_thr=None,
     region=None)`` -> the packed ``[3·l_max + 1, m_cap]`` int32 result
     (:func:`fused_mine`).  ``packed_input=False`` takes the resident
-    unpacked int8 bitmap."""
+    unpacked int8 bitmap.  ``sparse_caps`` (pair cap, level cap) runs
+    both count reductions through the threshold-sparse exchange, over
+    ``groups`` when given; the call then passes ``sparse_thr``."""
     assert m_cap > l_max + 1, (m_cap, l_max)
 
-    def run(bitmap, w, min_count, region=None):
+    def run(bitmap, w, min_count, sparse_thr=None, region=None):
         return fused_mine(
             bitmap, w, int(min_count), m_cap=m_cap, l_max=l_max,
             n_digits=n_digits, n_chunks=n_chunks, fast_f32=fast_f32,
-            packed_input=packed_input, region=region)
+            packed_input=packed_input, region=region,
+            sparse_caps=sparse_caps, sparse_thr=sparse_thr, groups=groups)
 
     return run
 
 
 def make_pair_counter(n_digits: int, n_chunks: int = 1,
                       fast_f32: bool = False):
-    """The fused engine's sizing pre-pass over the packed bitmap:
+    """The fused engine's sizing pre-pass over the packed bitmap (per-shard
+    lists, the pair counts summed by the dense psum):
     ``fn(packed, w, min_count) -> (n2, tri)`` int32 device scalars, the
     frequent-pair count and the level-3 candidate census (-1 when F_pad
     exceeds ``TRI_F_CAP``)."""
 
     def run(packed, w, min_count):
-        f = packed.shape[1] * 8
-        dev = packed.device
-        pair = torch.zeros((f, f), dtype=torch.int32, device=dev)
-        for b, wk in _chunks(packed, w, n_chunks, True):
-            pair += weighted_counts(b.t(), b, wk, n_digits, fast_f32)
+        parts = []
+        for pk, wv in zip(_as_parts(packed), _as_parts(w)):
+            acc = torch.zeros((pk.shape[1] * 8,) * 2, dtype=torch.int32,
+                              device=pk.device)
+            for b, wk in _chunks(pk, wv, n_chunks, True):
+                acc += weighted_counts(b.t(), b, wk, n_digits, fast_f32)
+            parts.append(acc)
+        pair = dense_psum(parts)
+        f, dev = pair.shape[0], pair.device
         col = torch.arange(f, device=dev)
         # Padded item columns count 0, so min_count >= 1 keeps them out.
         mask = (pair >= int(min_count)) & (col[None, :] > col[:, None])
@@ -306,8 +381,8 @@ def make_pair_counter(n_digits: int, n_chunks: int = 1,
 
 
 def tail_mine(
-    bitmap: torch.Tensor,  # [T, F] int8, the level engine's bitmap
-    w_digits: torch.Tensor,  # [D, T] int8 base-128 weight digits
+    bitmap,  # per-shard [T_s, F] int8, the level engine's bitmap
+    w_digits,  # per-shard [D, T_s] int8 base-128 weight digits
     seed_cols: torch.Tensor,  # [m_cap, k0] int, the seed level padded
     n0: int,  # real seed rows
     min_count: int,
@@ -324,21 +399,29 @@ def tail_mine(
     cand_row_chunks: int = 1,
     region: Optional[Region] = None,
     resolve: Optional[tuple] = None,
+    sparse_cap: Optional[int] = None,
+    sparse_thr: Optional[Sequence[int]] = None,
+    groups: Optional[Tuple[int, int]] = None,
 ):
-    """The shallow-tail fold (the reference's ``_tail_mine_local`` at one
-    device with the dense reduction): the levels after ``k0`` from the
-    seed level, in one device loop.  Against :func:`fused_mine`: seeded
-    from an index table, only the ``p_cap`` prefix rows that have a
-    candidate go through the counting products (prefix compaction),
-    counts use the level engine's weight digits and heavy-row correction,
-    slot i keeps ``slot_caps[i]`` rows, and a level whose prefixes exceed
-    ``p_cap`` or survivors its slot cap stores the sentinel ``m_cap + 1``
-    as its count and stops the loop (the host resumes the level engine
-    from the last complete level).
+    """The shallow-tail fold (the reference's ``_tail_mine_local``): the
+    levels after ``k0`` from the seed level, in one device loop.
+    Against :func:`fused_mine`: seeded from an index table, only the
+    ``p_cap`` prefix rows that have a candidate go through the counting
+    products (prefix compaction), counts use the level engine's weight
+    digits and heavy-row correction (shard 0 adds it: the heavy arrays
+    are whole, not sharded), slot i keeps ``slot_caps[i]`` rows, and a
+    level whose prefixes exceed ``p_cap``, survivors its slot cap, or
+    sparse union ``sparse_cap`` stores the sentinel ``m_cap + 1`` as its
+    count and stops the loop (the host resumes the level engine from the
+    last complete level).  ``bitmap`` and ``w_digits`` are per-shard
+    lists (a lone tensor is one shard); each shard's ``[p_cap, F]``
+    partial counts cross through the dense psum or, with ``sparse_cap``
+    and ``sparse_thr``, the threshold-sparse exchange restricted to the
+    iteration's candidates.
 
     Returns the reference's 1-D int32 layout: per slot i ``rows[:cap_i] |
     cols[:cap_i] | counts[:cap_i]``, then ``n_per_level[l_max] |
-    incomplete | 0`` (:func:`unpack_tail_result`).
+    incomplete | largest union census`` (:func:`unpack_tail_result`).
 
     ``resolve = (pending, u24)``: the level loop's deferred survivor
     counts (``[(counts_dev, flat positions)]``) are gathered inside the
@@ -348,10 +431,12 @@ def tail_mine(
     ``fetch.counts_resolve``."""
     assert m_cap > l_max + 1, (m_cap, l_max)
     region = region or contextlib.nullcontext
-    dev = bitmap.device
-    t, f = bitmap.shape
-    assert t % n_chunks == 0, (t, n_chunks)
-    t_c = t // n_chunks
+    bitmaps, wds = _as_parts(bitmap), _as_parts(w_digits)
+    devs = [b.device for b in bitmaps]
+    dev = devs[0]
+    f = bitmaps[0].shape[1]
+    for b in bitmaps:
+        assert b.shape[0] % n_chunks == 0, (b.shape[0], n_chunks)
     col_ids = torch.arange(f, device=dev)
     slots = torch.arange(m_cap, device=dev)
     p_slots = torch.arange(p_cap, device=dev)
@@ -359,6 +444,7 @@ def tail_mine(
     base = int(offs[-1])
     out = torch.zeros(base + l_max + 2, dtype=torch.int32, device=dev)
     n_out = out[base : base + l_max]
+    reduce = _reducer(sparse_cap, sparse_thr, groups)
     handle = (DeviceContext.gather_level_counts_start(
         resolve[0], resolve[1], "counts_resolve")
               if resolve is not None else None)
@@ -367,7 +453,7 @@ def tail_mine(
         s = torch.zeros((m_cap, f), dtype=torch.int8, device=dev)
         s.scatter_(1, seed_cols.long(), 1)
         s *= (slots < n0)[:, None].to(torch.int8)
-    m, k, stop = n0, k0 + 1, False
+    m, k, stop, snu = n0, k0 + 1, False, 0
     while not stop and m >= k and k <= k0 + l_max:
         idx = k - k0 - 1
         cap = slot_caps[idx]
@@ -380,20 +466,27 @@ def tail_mine(
             pr = torch.nonzero_static(has, size=p_cap, fill_value=0)[:, 0]
             valid_p = p_slots < n_pref
             s_p = s.index_select(0, pr) * valid_p[:, None].to(torch.int8)
-            counts_p = torch.zeros((p_cap, f), dtype=torch.int32,
-                                   device=dev)
-            for c in range(n_chunks):
-                b = bitmap[c * t_c : (c + 1) * t_c]
-                common_t = (exact_mm(s_p, b) == k - 1).view(torch.int8)
-                counts_p += weighted_digit_counts(
-                    common_t, b, [d[c * t_c : (c + 1) * t_c]
-                                  for d in w_digits], scales)
-            if heavy_b is not None:
-                counts_p += heavy_level_correction(s_p, k - 1, heavy_b,
-                                                   heavy_w)
-            surv = (cand.index_select(0, pr) & (counts_p >= min_count)
-                    & valid_p[:, None])
+            parts = []
+            for sh, (bm, wd, s_ps) in enumerate(
+                    zip(bitmaps, wds, mesh.broadcast(s_p, devs))):
+                t_c = bm.shape[0] // n_chunks
+                acc = torch.zeros((p_cap, f), dtype=torch.int32,
+                                  device=bm.device)
+                for c in range(n_chunks):
+                    b = bm[c * t_c : (c + 1) * t_c]
+                    common_t = (exact_mm(s_ps, b) == k - 1).view(torch.int8)
+                    acc += weighted_digit_counts(
+                        common_t, b, [d[c * t_c : (c + 1) * t_c]
+                                      for d in wd], scales)
+                if heavy_b is not None and sh == 0:
+                    acc += heavy_level_correction(s_ps, k - 1, heavy_b,
+                                                  heavy_w)
+                parts.append(acc)
+            cand_p = cand.index_select(0, pr) & valid_p[:, None]
             del cand
+            counts_p, nu = reduce(parts, cand_p)
+            del parts
+            surv = cand_p & (counts_p >= min_count)
             n = surv.sum(dtype=torch.int32)
             rc = torch.nonzero_static(surv, size=m_cap, fill_value=0)
             valid = slots < n
@@ -403,17 +496,23 @@ def tail_mine(
                 0, rows_p * f + cols) * valid
             s = extend_rows(s, rows, cols, valid)
             bad = (n_pref > p_cap) | (n > cap)
+            if nu is not None:
+                bad = bad | (nu > sparse_cap)
             o = int(offs[idx])
             out[o : o + cap] = rows[:cap]
             out[o + cap : o + 2 * cap] = cols[:cap]
             out[o + 2 * cap : o + 3 * cap] = level_counts[:cap]
             n_out[idx] = torch.where(bad, m_cap + 1, n)
-            flags = torch.stack([n, bad.to(torch.int32)])
-        m, bad_h = (int(x) for x in
-                    DeviceContext.fetch_async(flags, "tail").result())
-        stop = bool(bad_h)
+            flags = torch.stack([n, bad.to(torch.int32)]
+                                + ([nu] if nu is not None else []))
+        got = [int(x) for x in
+               DeviceContext.fetch_async(flags, "tail").result()]
+        m, stop = got[0], bool(got[1])
+        if len(got) > 2:
+            snu = max(snu, got[2])
         k += 1
     out[base + l_max] = int(stop or (m >= k and k > k0 + l_max))
+    out[base + l_max + 1] = snu
     return out if handle is None else (out, handle)
 
 
@@ -448,27 +547,32 @@ def make_tail_miner(
     n_chunks: int,
     has_heavy: bool,
     flat_caps: bool = False,
+    sparse_cap: Optional[int] = None,
+    groups: Optional[Tuple[int, int]] = None,
 ):
     """The tail fold at one static configuration (the reference's
-    ``make_tail_miner`` at ``mesh=None``): ``fn(bitmap, w_digits,
-    seed_cols, n0, min_count[, heavy_b, heavy_w], region=None,
+    ``make_tail_miner``): ``fn(bitmap, w_digits, seed_cols, n0,
+    min_count[, heavy_b, heavy_w], sparse_thr=None, region=None,
     resolve=None)`` -> the 1-D int32 result of :func:`tail_mine`, or
     ``(result, PendingCounts)`` with ``resolve`` (the pending-count
     gather folded into the program: the reference's
     ``tail_miner_with_resolve``).  ``flat_caps``: the checkpoint
-    segment's slot caps (:func:`tail_slot_caps`)."""
+    segment's slot caps (:func:`tail_slot_caps`); ``sparse_cap``: the
+    per-iteration reduction through the threshold-sparse exchange (over
+    ``groups`` when given; the call then passes ``sparse_thr``)."""
     assert m_cap > l_max + 1, (m_cap, l_max)
     caps = tail_slot_caps(m_cap, l_max, flat=flat_caps)
     row_chunks = tail_cand_row_chunks(m_cap)
 
     def run(bitmap, w_digits, seed_cols, n0, min_count, *heavy,
-            region=None, resolve=None):
+            sparse_thr=None, region=None, resolve=None):
         hb, hw = heavy if has_heavy else (None, None)
         return tail_mine(
             bitmap, w_digits, seed_cols, int(n0), int(min_count), hb, hw,
             scales=tuple(scales), k0=k0, m_cap=m_cap, p_cap=p_cap,
             l_max=l_max, n_chunks=n_chunks, slot_caps=caps,
-            cand_row_chunks=row_chunks, region=region, resolve=resolve)
+            cand_row_chunks=row_chunks, region=region, resolve=resolve,
+            sparse_cap=sparse_cap, sparse_thr=sparse_thr, groups=groups)
 
     return run
 
@@ -478,8 +582,8 @@ def unpack_tail_result(packed: np.ndarray, m_cap: int, l_max: int,
     """Split the tail fold's 1-D result into ``(rows_list, cols_list,
     counts_list, n_per_level, incomplete, census)``: per-slot arrays
     sized by :func:`tail_slot_caps` (``flat`` as built; decode them with
-    ``max_rows`` = the slot caps); the census is 0 (no sparse reduction
-    at one device)."""
+    ``max_rows`` = the slot caps); the census is the largest sparse union
+    (0 under the dense reduction)."""
     rows, cols, counts = [], [], []
     off = 0
     for c in tail_slot_caps(m_cap, l_max, flat=flat):
@@ -496,7 +600,8 @@ def unpack_tail_result(packed: np.ndarray, m_cap: int, l_max: int,
 def unpack_fused_result(packed: np.ndarray, l_max: int):
     """Split the fused miner's ``[3·l_max + 1, m_cap]`` result into
     ``(rows, cols, counts, n_per_level, incomplete, overflow,
-    sparse_overflow, census)`` (the last two are 0 at one device)."""
+    sparse_overflow, census)`` (the last two are 0 under the dense
+    reduction)."""
     meta = packed[3 * l_max]
     return (
         packed[:l_max],

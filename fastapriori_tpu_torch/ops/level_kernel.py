@@ -115,23 +115,28 @@ def level_counts(
         return level_counts_plain(bitmap, wb, s_mat, k1)
     if bitmap.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu, not {bitmap.device}")
-    t, f = bitmap.shape
-    m = s_mat.shape[0]
-    check_limits(t, f, m)
-    bitmap, wb, s_mat = (x.contiguous() for x in (bitmap, wb, s_mat))
-    out = torch.zeros((m, f), dtype=torch.int32, device=bitmap.device)
-    if t == 0 or f == 0 or m == 0:
-        return out
-    lib = _lib()
-    # Packed B and WB, each prefix row's word list, the tile work list
-    # and the work counter (csrc/level_counts.cu `Scratch`).
-    scratch = torch.empty(lib.fa_level_counts_scratch(t, f, m, int(k1)),
-                          dtype=torch.uint8, device=bitmap.device)
-    stream = torch.cuda.current_stream(bitmap.device).cuda_stream
-    err = lib.fa_level_counts(
-        bitmap.data_ptr(), wb.data_ptr(), s_mat.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), t, f, m, int(k1), stream,
-    )
+    # The library reads the current card (its SM count, its attributes)
+    # and launches there: make that the tensors' card, which a mesh
+    # shard need not share with the caller.
+    with torch.cuda.device(bitmap.device):
+        t, f = bitmap.shape
+        m = s_mat.shape[0]
+        check_limits(t, f, m)
+        bitmap, wb, s_mat = (x.contiguous() for x in (bitmap, wb, s_mat))
+        out = torch.zeros((m, f), dtype=torch.int32, device=bitmap.device)
+        if t == 0 or f == 0 or m == 0:
+            return out
+        lib = _lib()
+        # Packed B and WB, each prefix row's word list, the tile work
+        # list and the work counter (csrc/level_counts.cu `Scratch`).
+        scratch = torch.empty(
+            lib.fa_level_counts_scratch(t, f, m, int(k1)),
+            dtype=torch.uint8, device=bitmap.device)
+        stream = torch.cuda.current_stream(bitmap.device).cuda_stream
+        err = lib.fa_level_counts(
+            bitmap.data_ptr(), wb.data_ptr(), s_mat.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), t, f, m, int(k1), stream,
+        )
     if err != 0:
         raise RuntimeError(f"level_counts kernel launch failed: CUDA error "
                            f"{err}")

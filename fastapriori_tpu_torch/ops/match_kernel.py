@@ -194,24 +194,28 @@ def first_match(
         return first_match_plain(baskets, basket_len, ant, size, cons)
     if baskets.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda or cpu, not {baskets.device}")
-    if mb == 0 or r == 0:
-        return torch.full((mb,), NO_MATCH, dtype=torch.int32,
-                          device=baskets.device)
-    baskets, basket_len, ant, size, cons = (
-        x.contiguous() for x in (baskets, basket_len, ant, size, cons)
-    )
-    blocks = _wave_blocks(baskets.device, f, k)
-    groups, per_range, _ = work_plan(mb, r, blocks)
-    # The packed baskets, then the 8-byte work counter.
-    scratch = torch.empty(groups * GROUP * -(-f // 32) + 2,
-                          dtype=torch.int32, device=baskets.device)
-    best = torch.empty(mb, dtype=torch.int32, device=baskets.device)
-    stream = torch.cuda.current_stream(baskets.device).cuda_stream
-    err = _kernel_fns()[0](
-        baskets.data_ptr(), basket_len.data_ptr(), ant.data_ptr(),
-        size.data_ptr(), cons.data_ptr(), scratch.data_ptr(),
-        best.data_ptr(), mb, f, r, k, groups, per_range, blocks, stream,
-    )
+    # The library reads the current card and launches there: make that
+    # the tensors' card, which a mesh shard need not share with the
+    # caller.
+    with torch.cuda.device(baskets.device):
+        if mb == 0 or r == 0:
+            return torch.full((mb,), NO_MATCH, dtype=torch.int32,
+                              device=baskets.device)
+        baskets, basket_len, ant, size, cons = (
+            x.contiguous() for x in (baskets, basket_len, ant, size, cons)
+        )
+        blocks = _wave_blocks(baskets.device, f, k)
+        groups, per_range, _ = work_plan(mb, r, blocks)
+        # The packed baskets, then the 8-byte work counter.
+        scratch = torch.empty(groups * GROUP * -(-f // 32) + 2,
+                              dtype=torch.int32, device=baskets.device)
+        best = torch.empty(mb, dtype=torch.int32, device=baskets.device)
+        stream = torch.cuda.current_stream(baskets.device).cuda_stream
+        err = _kernel_fns()[0](
+            baskets.data_ptr(), basket_len.data_ptr(), ant.data_ptr(),
+            size.data_ptr(), cons.data_ptr(), scratch.data_ptr(),
+            best.data_ptr(), mb, f, r, k, groups, per_range, blocks, stream,
+        )
     if err != 0:
         raise RuntimeError(f"first_match kernel launch failed: CUDA error "
                            f"{err}")

@@ -179,24 +179,29 @@ def _check_contract(arena, prefix_cols, cand_idx) -> None:
 
 
 # (weak reference to the planes tensor, its version, its lane mask) of the
-# last lane_plane_mask call.
-_last_mask: list = [None, None, None]
+# last lane_plane_mask calls, one per planes tensor: a mesh's shards each
+# hold their own lane block of the planes.
+_MASKS_KEPT = 16
+_last_masks: list = []
 
 
 def lane_plane_mask(w_planes: torch.Tensor) -> torch.Tensor:
     """int32 [NL]: bit ``b`` set where plane ``b`` is non-zero in that
     lane, the planes the kernel reads for a non-zero intersection word
-    there (a zero plane word adds nothing).  Cached for the last planes
-    tensor seen (and its in-place version), so the vertical engine derives
-    it once per upload (device.py ``upload_lane_planes``)."""
-    ref, version, mask = _last_mask
-    if ref is not None and ref() is w_planes and version == w_planes._version:
-        return mask
+    there (a zero plane word adds nothing).  Cached for each of the last
+    few planes tensors seen (one per transaction shard) and their in-place
+    versions, so the vertical engine derives it once per upload (device.py
+    ``upload_lane_planes``)."""
+    for ref, version, mask in _last_masks:
+        if ref() is w_planes and version == w_planes._version:
+            return mask
     bits = torch.arange(w_planes.shape[0], dtype=torch.int32,
                         device=w_planes.device)
     mask = ((w_planes != 0).to(torch.int32) << bits[:, None]).sum(
         dim=0, dtype=torch.int32)
-    _last_mask[:] = [weakref.ref(w_planes), w_planes._version, mask]
+    _last_masks[:] = [e for e in _last_masks if e[0]() is not None][
+        -(_MASKS_KEPT - 1):] + [(weakref.ref(w_planes), w_planes._version,
+                                 mask)]
     return mask
 
 
@@ -229,28 +234,33 @@ def vertical_counts(
                                      cand_idx, cand_chunk, lane_tile)
     if arena.device.type != "cuda":
         raise ValueError(f"K3 runs on cuda or cpu, not {arena.device}")
-    f_pad = arena.shape[0] - 1
-    nl = arena.shape[1]
-    p, k = prefix_cols.shape
-    c = cand_idx.shape[0]
-    arena, w_planes, prefix_cols, cand_idx = (
-        x.contiguous() for x in (arena, w_planes, prefix_cols, cand_idx)
-    )
-    out = torch.zeros(c, dtype=torch.int32, device=arena.device)
-    if c == 0 or nl == 0:
-        return out
-    if p == 0:
-        raise ValueError("cand_idx holds candidates but prefix_cols no row")
-    mask = lane_plane_mask(w_planes)
-    # The work counter (8 bytes) and the run starts [P + 1], written by
-    # the kernel's first pass.
-    scratch = torch.empty(p + 3, dtype=torch.int32, device=arena.device)
-    stream = torch.cuda.current_stream(arena.device).cuda_stream
-    err = _kernel_fn()(
-        arena.data_ptr(), w_planes.data_ptr(), mask.data_ptr(),
-        prefix_cols.data_ptr(), cand_idx.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), f_pad, nl, w_planes.shape[0], p, k, c, stream,
-    )
+    # The library reads the current card and launches there: make that
+    # the tensors' card, which a mesh shard need not share with the
+    # caller.
+    with torch.cuda.device(arena.device):
+        f_pad = arena.shape[0] - 1
+        nl = arena.shape[1]
+        p, k = prefix_cols.shape
+        c = cand_idx.shape[0]
+        arena, w_planes, prefix_cols, cand_idx = (
+            x.contiguous() for x in (arena, w_planes, prefix_cols, cand_idx)
+        )
+        out = torch.zeros(c, dtype=torch.int32, device=arena.device)
+        if c == 0 or nl == 0:
+            return out
+        if p == 0:
+            raise ValueError(
+                "cand_idx holds candidates but prefix_cols no row")
+        mask = lane_plane_mask(w_planes)
+        # The work counter (8 bytes) and the run starts [P + 1], written
+        # by the kernel's first pass.
+        scratch = torch.empty(p + 3, dtype=torch.int32, device=arena.device)
+        stream = torch.cuda.current_stream(arena.device).cuda_stream
+        err = _kernel_fn()(
+            arena.data_ptr(), w_planes.data_ptr(), mask.data_ptr(),
+            prefix_cols.data_ptr(), cand_idx.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), f_pad, nl, w_planes.shape[0], p, k, c, stream,
+        )
     if err != 0:
         raise RuntimeError(f"vertical_counts kernel launch failed: CUDA "
                            f"error {err}")

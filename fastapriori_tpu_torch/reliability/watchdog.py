@@ -30,8 +30,12 @@ tier alike: each would move K2's or K3's work off the card to the CPU or
 to the kernel's plain version, so a failure of K1, K2 or K3 on the card
 stays an error.  The serving tier walks ``serving`` (accept -> shed, an
 overload episode) and ``serve_mesh`` (full -> degraded, a lost host).
-``count_reduce``, ``exchange`` and ``elastic`` belong to multi-process
-mining, which this port does not have yet.
+On a mesh of more than one transaction shard the level engine also walks
+``exchange`` (hier -> flat) and ``count_reduce`` (sparse -> dense), again
+only when a sparse reduction's audited fetch used up its retries (the
+level, or the pair phase, is then counted dense); a union past its
+budget walks ``count_reduce`` for that reduction.  ``elastic`` belongs
+to multi-process mining, which this port does not have yet.
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ from fastapriori_tpu_torch.obs import trace
 from fastapriori_tpu_torch.ops.bitmap import next_pow2
 from fastapriori_tpu_torch.ops.contain import rule_key_bits, rule_level_kernel
 from fastapriori_tpu_torch.reliability import ledger, retry, watchdog
-from fastapriori_tpu_torch.utils.env import env_choice
+from fastapriori_tpu_torch.utils.env import env_choice, env_int
 from fastapriori_tpu_torch.utils.order import consequent_key
 
 RuleArrays = Tuple[np.ndarray, np.ndarray, np.ndarray]  # ant [N,w], cons, conf
@@ -101,13 +101,46 @@ def _max_count(mats: Dict[int, Tuple[np.ndarray, np.ndarray]]) -> int:
     return max((int(c.max()) for _, c in mats.values() if c.size), default=0)
 
 
+def resolve_rule_shards(context, config) -> Tuple[int, Optional[str]]:
+    """Shards of the device rule join (counterpart: the JAX package's
+    ``resolve_rule_shards``): ``FA_RULE_SHARDS`` (strictly parsed) over
+    ``config.rule_shards``, 0 = auto.  The port has the one-shard join
+    only: every choice is 1 (the join on shard 0's device, the scan table
+    then copied to the other shards), with the reason
+    ``sharded_join_not_ported`` where the JAX package's auto would shard
+    (a 1-D mesh of more than one transaction shard); an explicit value
+    above 1 is an InputError.  Returns ``(shards, reason or None)``."""
+    req = env_int("FA_RULE_SHARDS", 0, minimum=0)
+    src = "FA_RULE_SHARDS"
+    if req == 0:
+        src = "MinerConfig.rule_shards"
+        req = int(getattr(config, "rule_shards", 0) or 0) if config else 0
+        if req < 0:
+            raise InputError(
+                f"MinerConfig.rule_shards={req} is out of range: use 0 "
+                "(auto) or 1 (the join on shard 0's device)")
+    if req > 1:
+        raise InputError(
+            f"{src}={req}: the sharded rule join is not ported yet "
+            "(ROADMAP Queue 1, multi-GPU); use 0 (auto) or 1, which run "
+            "the join on shard 0's device")
+    if (req == 0 and context is not None and context.txn_shards > 1
+            and context.cand_shards == 1):
+        return 1, "sharded_join_not_ported"
+    return 1, None
+
+
 def _pick_rule_engine(mats, context, config, metrics=None) -> str:
     """"host" or "device", from ``FA_RULE_ENGINE`` over
     ``config.rule_engine``: the device engine needs a context and counts
     below 2^24, and under "auto" also a raw rule count of at least
     ``config.rule_device_min_rules`` and a device that is not the CPU.
     A forced device engine that falls back, and every device choice, is
-    a metrics event (``rule_gen_fallback``, ``rule_gen_engine``)."""
+    a metrics event (``rule_gen_fallback``, ``rule_gen_engine``; on a
+    mesh of more than one transaction shard the latter adds the join's
+    ``shards`` and ``reason`` from :func:`resolve_rule_shards`, which
+    parses its knobs on every run)."""
+    shards, shard_reason = resolve_rule_shards(context, config)
     engine = rule_engine_from_env()
     if engine is None:
         engine = config.rule_engine if config is not None else "auto"
@@ -139,8 +172,11 @@ def _pick_rule_engine(mats, context, config, metrics=None) -> str:
         if raw < floor or context.platform == "cpu":
             return "host"
     if metrics is not None:
+        # On a mesh the event names the join's shards and why.
+        extra = ({"shards": shards, "reason": shard_reason}
+                 if shard_reason else {})
         metrics.emit("rule_gen_engine", engine="device", requested=engine,
-                     raw_rules=raw)
+                     raw_rules=raw, **extra)
     return "device"
 
 

@@ -1,8 +1,8 @@
 """MeshRouter: one request stream across several serving hosts
 (counterpart: fastapriori_tpu/serve/router.py ``MeshRouter``,
 ``LocalHost`` and ``hosts_from_env``; ``spill_order`` and
-``resolve_spec`` are this module's copies of fastapriori_tpu/parallel/
-hier.py's).
+``resolve_spec`` come from parallel/hier.py, the port's copy of the JAX
+package's).
 
 The router presents the single server's surface (submit, wait_for,
 stats, metrics, swap) over a list of hosts, each a whole admission queue
@@ -34,15 +34,18 @@ subprocess host behind a file protocol with heartbeats), its worker
 
 from __future__ import annotations
 
-import math
 import threading
 import time
 from collections import deque
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 from fastapriori_tpu_torch.errors import InputError
 from fastapriori_tpu_torch.obs import metrics as obs_metrics
 from fastapriori_tpu_torch.obs.metrics import MetricsRegistry
+from fastapriori_tpu_torch.parallel.hier import (  # noqa: F401
+    resolve_spec,
+    spill_order,
+)
 from fastapriori_tpu_torch.reliability import ledger, watchdog
 from fastapriori_tpu_torch.serve.server import RecommendServer, ServeRequest
 from fastapriori_tpu_torch.serve.state import ServingState
@@ -76,62 +79,6 @@ def quorum_timeout_s() -> float:
     """``FA_QUORUM_TIMEOUT_S``: the bound on a mesh swap's wait, in
     seconds (strict; default 30), the JAX package's consensus bound."""
     return env_float("FA_QUORUM_TIMEOUT_S", 30.0, minimum=0.1)
-
-
-def _auto_group_count(n_shards: int, n_procs: int = 1) -> int:
-    """The group count of an automatic ``(groups, per_group)`` grid: the
-    process count when it divides the hosts, else the divisor of
-    ``n_shards`` nearest below its square root; 1 (flat) when a grid
-    cannot beat the flat ring (fewer than 8 hosts, or a prime count)."""
-    if n_shards < 8 and not (1 < n_procs < n_shards):
-        return 1
-    if 1 < n_procs < n_shards and n_shards % n_procs == 0:
-        return n_procs
-    best = 1
-    for g in range(int(math.isqrt(n_shards)), 1, -1):
-        if n_shards % g == 0:
-            best = g
-            break
-    if best == 1 or best + n_shards // best >= n_shards:
-        return 1
-    return best
-
-
-def resolve_spec(n_shards: int, requested: int,
-                 n_procs: int = 1) -> Optional[Tuple[int, int]]:
-    """The ``(groups, per_group)`` grid of ``n_shards`` hosts:
-    ``requested`` 0 = automatic, 1 or ``n_shards`` = flat (None), else
-    a divisor of ``n_shards`` (an InputError otherwise)."""
-    if requested < 0:
-        raise InputError(
-            f"exchange_groups must be >= 0 (0 = auto, 1 = flat), got "
-            f"{requested}")
-    if requested == 0:
-        requested = _auto_group_count(n_shards, n_procs)
-    if requested in (1, n_shards):
-        return None
-    if n_shards % requested != 0:
-        raise InputError(
-            f"exchange_groups={requested} does not divide the "
-            f"{n_shards} hosts: use a divisor, 1 (flat) or 0 (auto)")
-    return (requested, n_shards // requested)
-
-
-def spill_order(primary: int, n_hosts: int, groups: int = 0) -> list:
-    """The hosts a request tries, primary first: the primary's group of
-    the :func:`resolve_spec` grid in ring order, then the other hosts in
-    ring order (the plain ring when there is no grid)."""
-    if not 0 <= primary < n_hosts:
-        raise InputError(
-            f"spill_order: primary {primary} outside 0..{n_hosts - 1}")
-    spec = resolve_spec(n_hosts, groups)
-    ring = [(primary + k) % n_hosts for k in range(n_hosts)]
-    if spec is None:
-        return ring
-    _g, per = spec
-    pod = primary // per
-    return ([h for h in ring if h // per == pod]
-            + [h for h in ring if h // per != pod])
 
 
 class LocalHost:

@@ -114,7 +114,9 @@ class ServingState:
     Construction is cheap; rule generation, the table's mount and K2's
     first launch run in :meth:`warm` (or at the first batch).  A model
     refresh builds a new instance, hot-swaps it in through the server
-    and :meth:`release`\\ s this one.  ``device`` as for
+    and :meth:`release`\\ s this one.  ``device`` and ``context`` (a
+    DeviceContext to serve on: a mesh of S transaction shards splits each
+    block's rows over its shards, one K2 launch each) as for
     :class:`~fastapriori_tpu_torch.models.apriori.FastApriori`."""
 
     def __init__(
@@ -127,6 +129,7 @@ class ServingState:
         device=None,
         engine: str = "auto",
         source: str = "build",
+        context=None,
     ):
         if engine not in ("auto", "device", "host"):
             raise InputError(
@@ -153,6 +156,7 @@ class ServingState:
         self._rec = AssociationRules(
             self.freq_items, self.item_to_rank, self.levels,
             self.item_counts, config=self.config, device=device,
+            context=context,
         )
         self._engine_req = engine
         self._engine: Optional[str] = None  # resolved at warm()
@@ -160,8 +164,9 @@ class ServingState:
         self._batch_rows_override: Optional[int] = None
         self._released = False
         self.warm_ms = 0.0
-        # Per instance: K2 launches (the warm probe's included) and the
-        # rows they covered; the server's stats() reads them.
+        # Per instance: K2 launches (the warm probe's included; one per
+        # transaction shard per block) and the rows they covered; the
+        # server's stats() reads them.
         self.scan_dispatches = 0
         self.scan_rows = 0
         # The recommender's table upload bytes when warm() mounted the
@@ -192,18 +197,18 @@ class ServingState:
         engine: str = "auto",
         source: str = "mine",
         device=None,
+        context=None,
     ) -> "ServingState":
         """Mine ``d_path`` and wrap the result (the ``serve`` CLI's model
-        build)."""
+        build), serving on the miner's context."""
         from fastapriori_tpu_torch.models.apriori import FastApriori
 
         config = config or MinerConfig()
-        miner = FastApriori(config=config, device=device)
+        miner = FastApriori(config=config, device=device, context=context)
         levels, data = miner.run_file_raw(d_path)
         return cls(
             levels, data.item_counts, data.freq_items, data.item_to_rank,
-            config=config, device=miner.ctx.device, engine=engine,
-            source=source,
+            config=config, engine=engine, source=source, context=miner.ctx,
         )
 
     def save(self, prefix: str) -> str:
@@ -236,6 +241,7 @@ class ServingState:
         config: Optional[MinerConfig] = None,
         device=None,
         engine: str = "auto",
+        context=None,
     ) -> "ServingState":
         """Warm restart from ``<prefix>serving.npz`` (validated against
         the manifest: a truncated or corrupt artifact is an InputError
@@ -272,7 +278,8 @@ class ServingState:
                 "it with ServingState.save"
             ) from None
         state = cls(levels, item_counts, freq_items, config=config,
-                    device=device, engine=engine, source="restart")
+                    device=device, engine=engine, source="restart",
+                    context=context)
         if state.signature != stored_sig:
             raise InputError(
                 f"serving checkpoint {path!r} signature mismatch "
@@ -398,7 +405,7 @@ class ServingState:
             return True
         block = self._pack_blocks([np.zeros(1, dtype=np.int32)])[0]
         _, cons = self._handle.scan(block[2], block[3])
-        self.scan_dispatches += 1
+        self.scan_dispatches += self._handle.shards
         self.scan_rows += block[2].shape[0]
         self._rec.ctx.fetch(cons, "serve_swap_ready")
         return True
@@ -423,7 +430,7 @@ class ServingState:
                 _, cons = h.scan(bm, blen)
                 fetches.append((b0, n, ctx.fetch_async(cons, "serve_match"),
                                 (bm, blen)))
-                self.scan_dispatches += 1
+                self.scan_dispatches += h.shards
                 self.scan_rows += bm.shape[0]
         return fetches
 
@@ -532,6 +539,7 @@ class ServingState:
             rec._scan_state.release()
             rec._scan_state = None
         rec._scan_table = None
+        rec._scan_copies = None
         rec._table_dev = None
 
     def release(self) -> None:

@@ -2,7 +2,9 @@
 ``env_flag``, ``env_choice``, ``env_int`` and ``env_float``).
 
 The port reads ``FA_MINE_ENGINE``, ``FA_COUNT_REDUCE``,
-``FA_VERTICAL_CHUNK`` and ``FA_VERTICAL_LANE_TILE`` (models/apriori.py),
+``FA_COUNT_SPARSE_CAP``, ``FA_VERTICAL_CHUNK`` and
+``FA_VERTICAL_LANE_TILE`` (models/apriori.py), ``FA_EXCHANGE_GROUPS``
+(parallel/hier.py), ``FA_RULE_SHARDS`` (rules/gen.py),
 ``FA_NO_PALLAS`` (device.py ``plain_kernels``), ``FA_REC_BATCH``
 (models/recommender.py), ``FA_INGEST_THREADS`` (preprocess.py
 ``ingest_thread_count``), ``FA_RULE_ENGINE`` (rules/gen.py

@@ -485,9 +485,11 @@ def _recommend(corpus, levels, data, **knobs):
     return rec.run(read_dat(corpus + "U.dat"), use_device=True)
 
 
-# Each one-device fetch site of the JAX package's inventory
+# Each one-process fetch site of the JAX package's inventory
 # (tests/test_reliability.py FETCH_SITE_INVENTORY) with the port's
 # production path that reaches it: (miner knobs, recommend knobs or None).
+_SPARSE = {"ingest_pipeline_blocks": 1, "num_devices": 2,
+           "count_sparse_cap": 1 << 20, "count_sparse_min": 8}
 FETCH_SITES = {
     "pair": ({"engine": "level", "ingest_pipeline_blocks": 1}, None),
     "pair_pre": ({"engine": "level"}, None),
@@ -506,6 +508,12 @@ FETCH_SITES = {
     "rec_match": ({"engine": "level"}, {}),
     "vpair": ({"mine_engine": "vertical"}, None),
     "vlevel_bits": ({"mine_engine": "vertical"}, None),
+    # Two CPU shards, the sparse reduction at every level and a union
+    # budget no union can pass.
+    "pair_sparse": ({**_SPARSE, "engine": "level"}, None),
+    "level_bits_sparse": ({**_SPARSE, "engine": "level"}, None),
+    "vpair_sparse": ({**_SPARSE, "mine_engine": "vertical"}, None),
+    "vlevel_bits_sparse": ({**_SPARSE, "mine_engine": "vertical"}, None),
 }
 
 
