@@ -207,6 +207,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from rank 0, nothing written by rank 1, and a line per rank with its
    wall and peak device memory; the phase's wall.
 
+14. The quorum domain (``quorum_phase``, reliability/quorum.py): two
+   ranks of the CLI on cuda:0 in four processes started before phase 12
+   (one pair for the killed world): (a) a ``--distributed`` gloo world,
+   T10 with zero flags: each rank's closing ``quorum`` event names the
+   torch transport and the rendezvous ``run.start``, ``mine.end``,
+   ``rules.start`` and ``run.end``, launches equal to each rank's
+   events, the JAX digests from rank 0, nothing from rank 1; (b) the
+   same world with a file domain (``FA_QUORUM_DIR``) and
+   ``--checkpoint-every-level``: rank 0's checkpoint meta fence at least
+   1 and equal to its ``MANIFEST.json`` fence; then rank 1 killed at a
+   middle checkpointed level (``level.5`` when it is one): rank 0 exits
+   3 naming rank 1 within 3 x ``FA_QUORUM_TIMEOUT_S`` (5 s); then
+   ``--resume-from`` rank 0's checkpoint at world 2 (the domain's
+   per-run files cleared, its FENCE kept): the JAX digests,
+   ``level_resume`` after the killed level on both ranks, K1 only for
+   the levels after it, the manifest at the next fence; (c) a file
+   domain of two one-process ranks: T10 ``--engine fused`` with
+   ``fetch.fused:oom*3`` on rank 1 (rank 1 walks engine fused -> level,
+   rank 0's ledger holds ``quorum_adopt`` naming rank 1), and kosarak
+   with ``FA_MINE_ENGINE=vertical`` and ``fetch.vlevel_bits:oom*3`` on
+   rank 1, held 1.5 s at ``level.2``, rank 0 held 3 s at ``level.3``
+   (rank 0 launches K3 at level 3, then takes the
+   ``mine_engine`` clamp at a level boundary; K3 and then K1 launch on
+   both ranks); both ranks write the JAX digests; (d) T10 with
+   ``FA_EPOCH_RETRY_MAX=1``, rank 1 killed at ``level.5``, rank 0 held
+   4 s at ``level.6``, past a 2 s bound: rank 0 finishes alone at mesh epoch
+   1 with the JAX digests and a ``mesh_epoch_reseed`` flight note; with
+   ``FA_EPOCH_RETRY_MAX=0`` the same kill ends rank 0 with exit 3.  One
+   line per case: each rank's exit code, wall, peak device memory,
+   launches, mesh epoch and fence.
+
 ``--cards N`` (N >= 2 visible cards) runs phases 1, 2, 12 and 13 alone,
 with each mesh's shard t on card ``t mod N`` and phase 13's rank r on
 card r over NCCL, with the same checks; it prints the mesh and world
@@ -217,7 +248,8 @@ Every child process starts first, when ``nvidia-smi`` is on the path:
 the prep child, which writes both corpora and runs the Python ingest of
 each (phase 4's compare) while this process builds the kernels, the
 cold runs of phases 6 and 8, one kill worker that serves phase 9's
-three killed runs, and phase 13's two rank workers.  All but the first
+three killed runs, and phase 13's two rank workers; phase 14's four
+start just before phase 12.  All but the first
 wait for their arguments on stdin, so
 the seconds a process takes to start overlap the parent's work.  All
 are stopped when the script ends.  Each log line starts with the
@@ -3410,6 +3442,416 @@ def world_phase(in_dir: str, k_in: str, card: str, cards: int = 1) -> tuple:
     return {"wall_s": wall, "backend": backend, "runs": records}, launches_by
 
 
+# Phase 14's rank processes (:func:`quorum_phase`): per request the
+# port's CLI with the request's environment (null unsets a variable;
+# FA_FAILPOINTS re-read), its stderr to the request's log file, then one
+# REPLY line with the exit code, wall, launches, peak device memory and
+# the flight recorder's note kinds; an os._exit (a lost world) replies
+# first.
+QUORUM_WORKER = """
+import contextlib, json, os, sys, time
+import torch
+from fastapriori_tpu_torch import cli
+from fastapriori_tpu_torch.obs import flight
+from fastapriori_tpu_torch.ops.level_kernel import level_counts
+from fastapriori_tpu_torch.ops.match_kernel import first_match
+from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts
+from fastapriori_tpu_torch.reliability import failpoints, ledger
+kernels = {"level_counts": level_counts, "first_match": first_match,
+           "vertical_counts": vertical_counts}
+torch.zeros(1, device="cuda:0")
+state = {}
+def reply(rc):
+    print("REPLY " + json.dumps({
+        "rc": rc, "wall_s": time.perf_counter() - state["t0"],
+        "t_end": time.time(),
+        "launches": {n: fn.launches for n, fn in kernels.items()},
+        "peak": torch.cuda.max_memory_allocated(0),
+        "notes": [e["kind"] for e in flight.snapshot()]}),
+        file=sys.__stdout__, flush=True)
+real_exit = os._exit
+def exit_after_reply(code):
+    sys.stderr.flush()
+    reply(code)
+    real_exit(code)
+os._exit = exit_after_reply
+for line in sys.stdin:
+    req = json.loads(line)
+    saved = dict(os.environ)
+    for key, value in req["env"].items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+    failpoints.reload_from_env()
+    ledger.reset()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(0)
+    state["t0"] = time.perf_counter()
+    with open(req["log"], "w") as err:
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(err):
+            rc = cli.main(req["argv"])
+    reply(rc)
+    failpoints.disarm_all()
+    os.environ.clear()
+    os.environ.update(saved)
+"""
+
+QUORUM_WORKERS = ("quorum rank 0", "quorum rank 1", "quorum kill rank 0",
+                  "quorum kill rank 1")
+
+
+def start_quorum_workers() -> None:
+    """Phase 14's rank processes: a pair for every case but the killed
+    world, whose rank 0 ends with ``os._exit``, and that case's pair."""
+    for name in QUORUM_WORKERS:
+        CHILDREN[name] = Child(name, QUORUM_WORKER)
+
+
+# Every phase-14 run: the CLI's knobs unset, a quorum bound of 5 s, a
+# 100 ms heartbeat, retries without backoff.
+QUORUM_ENV = {**{key: None for key in CLI_ENV}, "FA_FAILPOINTS": None,
+              "FA_QUORUM_DIR": None, "FA_QUORUM_RANK": None,
+              "FA_QUORUM_PROCS": None, "FA_EPOCH_RETRY_MAX": None,
+              "MASTER_ADDR": None, "MASTER_PORT": None, "RANK": None,
+              "WORLD_SIZE": None, "LOCAL_RANK": None,
+              "LOCAL_WORLD_SIZE": None, "FA_QUORUM_TIMEOUT_S": "5",
+              "FA_HEARTBEAT_MS": "100", "FA_RETRY_BACKOFF_MS": "0"}
+
+
+def quorum_pair(case: str, in_dir: str, min_support: str, args=(),
+                env=None, rank_env=None, world: bool = False,
+                qdir=True, workers=("quorum rank 0", "quorum rank 1"),
+                outs=None, resume_from=None) -> list:
+    """One phase-14 run: two ranks of the CLI in ``workers``, a file
+    domain under ``WORK/q14/<case>.q`` (``qdir``; a path reuses one), a
+    gloo world on cuda:0 (``world``) or both.  Returns per rank ``{"rc",
+    "wall_s", "t_end", "launches", "peak", "notes", "stderr", "fields",
+    "walls", "out"}`` (``t_end``: the rank's end on the host's clock)."""
+    base = os.path.join(WORK, "q14")
+    if qdir is True:
+        qdir = os.path.join(base, case + ".q")
+        shutil.rmtree(qdir, ignore_errors=True)
+    port = str(free_port())
+    if outs is None:
+        outs = [os.path.join(base, f"{case}_rank{r}") for r in range(2)]
+        for out in outs:
+            shutil.rmtree(out, ignore_errors=True)
+            os.makedirs(out)
+    for r, name in enumerate(workers):
+        env_r = dict(QUORUM_ENV, **(env or {}))
+        if qdir:
+            env_r.update(FA_QUORUM_DIR=qdir, FA_QUORUM_RANK=str(r),
+                         FA_QUORUM_PROCS="2")
+        if world:
+            env_r.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                         RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                         LOCAL_WORLD_SIZE="2")
+        env_r.update((rank_env or {}).get(r, {}))
+        argv = [in_dir + "/", outs[r] + "/", "--min-support", min_support,
+                "--metrics", *(("--distributed",) if world else ()), *args]
+        if resume_from:
+            argv += ["--resume-from", resume_from + "/"]
+        CHILDREN[name].send({"env": env_r, "argv": argv,
+                             "log": os.path.join(base,
+                                                 f"{case}_rank{r}.err")})
+    ranks = []
+    for r, name in enumerate(workers):
+        rep = CHILDREN[name].reply(timeout=120)
+        with open(os.path.join(base, f"{case}_rank{r}.err")) as f:
+            rep["stderr"] = f.read()
+        rep["walls"], rep["fields"] = phase_metrics("\n".join(
+            ln for ln in rep["stderr"].splitlines()
+            if not ln.startswith("{") or ln.startswith('{"event"')))
+        rep["out"] = outs[r]
+        ranks.append(rep)
+    return ranks
+
+
+def degraded_events(rep: dict, kind: str) -> list:
+    """A rank's ledger events of ``kind`` (its ``degraded`` metrics
+    lines)."""
+    out = []
+    for line in rep["stderr"].splitlines():
+        if line.startswith('{"event": "degraded"'):
+            ev = json.loads(line)
+            if ev.get("kind") == kind:
+                out.append(ev)
+    return out
+
+
+def quorum_event(case: str, rep: dict) -> dict:
+    """The run's closing ``quorum`` metrics event (one per rank)."""
+    evs = [json.loads(ln) for ln in rep["stderr"].splitlines()
+           if ln.startswith('{"event": "quorum"')]
+    if len(evs) != 1:
+        raise SystemExit(f"{case}: {len(evs)} quorum events")
+    return evs[0]
+
+
+def mixed_launches(fields: dict) -> dict:
+    """K1, K3 and K2 launches as the run's events count them, each
+    level event by its own engine (a vertical mine clamped to the bitmap
+    layout counts both)."""
+    k1 = k3 = 0
+    for key, v in fields.items():
+        if key.startswith("level k=") and not v.get("plain_kernels"):
+            if v.get("engine") == "vertical":
+                k3 += v.get("launches", 0)
+            else:
+                k1 += v.get("launches", 0)
+    fm = fields.get("first_match", {})
+    return {"level_counts": k1, "vertical_counts": k3,
+            "first_match": fm.get("launches", 0) if fm.get("device") else 0}
+
+
+def require_clamped_launches(name: str, got: dict, fields: dict,
+                             failed_level: bool) -> None:
+    """A vertical mine that went on in the bitmap layout: K3 and then K1
+    launched, each as often as the run's level events say; with
+    ``failed_level`` the level whose fetch gave up launched K3 before
+    it did, and its event ended without its launches."""
+    want = mixed_launches(fields)
+    exact = got == want if not failed_level else (
+        got["level_counts"] == want["level_counts"]
+        and got["first_match"] == want["first_match"]
+        and got["vertical_counts"] > want["vertical_counts"])
+    if not exact or got["vertical_counts"] < 1 or got["level_counts"] < 1:
+        raise SystemExit(f"{name}: launches {got}, events {want}")
+    log(f"{name}: launches {got}, events {want}")
+
+
+def quorum_line(case: str, ranks: list, card: str, extra: str = "") -> dict:
+    """One line per case: each rank's wall, peak device memory, launches
+    and exit code, with the mesh epoch and fence its quorum event gave."""
+    rec = {"ranks": []}
+    parts = []
+    for r, rep in enumerate(ranks):
+        q = [json.loads(ln) for ln in rep["stderr"].splitlines()
+             if ln.startswith('{"event": "quorum"')]
+        q = q[0] if q else {}
+        row = {"rc": rep["rc"], "wall_s": round(rep["wall_s"], 3),
+               "peak_device_bytes": rep["peak"],
+               "launches": rep["launches"],
+               "mesh_epoch": q.get("mesh_epoch"), "fence": q.get("fence")}
+        rec["ranks"].append(row)
+        parts.append(f"rank {r}: rc {row['rc']}, wall {row['wall_s']:.3f} s, "
+                     f"peak device memory {row['peak_device_bytes']} bytes, "
+                     f"launches {row['launches']}, mesh epoch "
+                     f"{row['mesh_epoch']}, fence {row['fence']}")
+    log(f"quorum {case} ({card}): " + "; ".join(parts) + extra)
+    return rec
+
+
+def quorum_phase(in_dir: str, k_in: str, card: str,
+                 main_fields: dict) -> tuple:
+    """Phase 14 (the module docstring): the quorum domain, two ranks on
+    cuda:0.  Returns ``({case: record}, {kernel: {case_rank: launches}})``."""
+    t10 = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
+    kos = {"freqItemset": KOSARAK["freq_sha256"],
+           "recommends": KOSARAK["rec_sha256"]}
+    t0 = time.perf_counter()
+    records, launches_by = {}, {k: {} for k in kernel_launches()}
+
+    def note(case, ranks):
+        for r, rep in enumerate(ranks):
+            for k, n in rep["launches"].items():
+                launches_by[k][f"{case}_rank{r}"] = n
+
+    def ok(case, ranks, digests=None, writers=(0,)):
+        for r, rep in enumerate(ranks):
+            if rep["rc"] != 0:
+                raise SystemExit(f"{case} rank {r}: exit {rep['rc']}: "
+                                 f"{rep['stderr'][-3000:]}")
+        for r in writers:
+            check_digests(f"{case} rank {r}", ranks[r]["out"], digests)
+
+    # (a) A world over the torch transport, zero flags.
+    case = "a_world_torch"
+    ranks = quorum_pair(case, in_dir, MIN_SUPPORT, world=True, qdir=False)
+    ok(case, ranks, t10)
+    for r, rep in enumerate(ranks):
+        q = quorum_event(case, rep)
+        sites = [e["site"] for e in q["epoch_trail"]]
+        if q["transport"] != "torch" or sites != [
+                "run.start", "mine.end", "rules.start", "run.end"]:
+            raise SystemExit(f"{case} rank {r}: quorum event {q}")
+        require_launches(f"{case} rank {r}", rep["launches"], rep["fields"],
+                         ran=("level_counts", "first_match"))
+    if os.listdir(ranks[1]["out"]):
+        raise SystemExit(f"{case}: rank 1 wrote {os.listdir(ranks[1]['out'])}")
+    note(case, ranks)
+    records[case] = quorum_line(case, ranks, card,
+                                "; epoch trail run.start, mine.end, "
+                                "rules.start, run.end on both ranks")
+
+    # (b) The same world fenced: a file domain and per-level checkpoints,
+    # then rank 1 killed at a middle checkpointed level, then a resume at
+    # world 2 from rank 0's checkpoint.
+    import numpy as np
+
+    case = "b_world_fenced"
+    ck = ("--checkpoint-every-level",)
+    ranks = quorum_pair(case, in_dir, MIN_SUPPORT, ck, world=True)
+    ok(case, ranks, t10)
+    out0 = ranks[0]["out"] + "/"
+    with np.load(out0 + "checkpoint.npz") as z:
+        meta_fence = int(z["meta"][4])
+    with open(out0 + "MANIFEST.json") as f:
+        man_fence = json.load(f).get("fence")
+    if meta_fence < 1 or meta_fence != man_fence:
+        raise SystemExit(f"{case}: checkpoint fence {meta_fence}, manifest "
+                         f"fence {man_fence}")
+    for r, rep in enumerate(ranks):
+        require_launches(f"{case} rank {r}", rep["launches"], rep["fields"],
+                         ran=("level_counts", "first_match"))
+    ks = checkpoint_ks(ranks[0]["fields"])
+    k_kill = 5 if 5 in ks[1:-1] else ks[len(ks) // 2]
+    note(case, ranks)
+    records[case] = quorum_line(case, ranks, card,
+                                f"; checkpoint meta fence {meta_fence} = "
+                                f"manifest fence {man_fence}, levels {ks}")
+
+    case = "b_world_kill"
+    qk = os.path.join(WORK, "q14", case + ".q")
+    shutil.rmtree(qk, ignore_errors=True)
+    ranks = quorum_pair(case, in_dir, MIN_SUPPORT, ck, world=True, qdir=qk,
+                        workers=QUORUM_WORKERS[2:],
+                        rank_env={1: {"FA_FAILPOINTS":
+                                      f"level.{k_kill}:abort"}})
+    r0, r1 = ranks
+    lag = r0["t_end"] - r1["t_end"]
+    if r1["rc"] != 1 or f"level.{k_kill}" not in r1["stderr"]:
+        raise SystemExit(f"{case} rank 1: exit {r1['rc']}: "
+                         f"{r1['stderr'][-2000:]}")
+    if (r0["rc"] != 3 or "quorum peer rank 1 lost" not in r0["stderr"]
+            or lag > 3 * 5):
+        raise SystemExit(f"{case} rank 0: exit {r0['rc']} {lag:.3f} s after "
+                         f"rank 1: {r0['stderr'][-2000:]}")
+    killed0 = r0["out"]
+    with np.load(killed0 + "/checkpoint.npz") as z:
+        got_ks = [2 + i for i in range(int(z["meta"][0]))]
+        kill_fence = int(z["meta"][4])
+    if got_ks[-1] != k_kill or kill_fence < 1:
+        raise SystemExit(f"{case}: checkpoint levels {got_ks}, fence "
+                         f"{kill_fence}")
+    note(case, ranks)
+    records[case] = quorum_line(
+        case, ranks, card, f"; rank 1 aborted at level.{k_kill}, rank 0 "
+        f"exit 3 naming rank 1 {lag:.3f} s later (bound 15 s)")
+
+    case = "b_world_resume"
+    for name in os.listdir(qk):
+        if name != "FENCE":
+            os.unlink(os.path.join(qk, name))
+    ranks = quorum_pair(case, in_dir, MIN_SUPPORT, world=True, qdir=qk,
+                        resume_from=killed0)
+    ok(case, ranks, t10)
+    for r, rep in enumerate(ranks):
+        require_resumed(f"{case} rank {r}", rep["fields"], rep["launches"],
+                        k_kill, ran=("first_match",))
+    with open(ranks[0]["out"] + "/MANIFEST.json") as f:
+        res_fence = json.load(f).get("fence")
+    if res_fence != kill_fence + 1:
+        raise SystemExit(f"{case}: resumed manifest fence {res_fence}, "
+                         f"checkpoint fence {kill_fence}")
+    note(case, ranks)
+    records[case] = quorum_line(case, ranks, card,
+                                f"; level_resume from k = {k_kill + 1}, "
+                                f"manifest fence {res_fence}")
+
+    # (c) A file domain of two one-process ranks, lockstep degradation.
+    case = "c_file_fused_lockstep"
+    ranks = quorum_pair(case, in_dir, MIN_SUPPORT, ("--engine", "fused"),
+                        rank_env={1: {"FA_FAILPOINTS": "fetch.fused:oom*3"}})
+    ok(case, ranks, t10, writers=(0, 1))
+    adopt = [e for e in degraded_events(ranks[0], "quorum_adopt")
+             if e["chain"] == "engine"]
+    walked = [e for e in degraded_events(ranks[1], "cascade")
+              if e["chain"] == "engine"
+              and e["reason"] == "transient_exhausted"]
+    if not adopt or adopt[0]["rank"] != 1 or not walked:
+        raise SystemExit(f"{case}: rank 0 adoptions {adopt}, rank 1 walks "
+                         f"{walked}")
+    for r, rep in enumerate(ranks):
+        require_launches(f"{case} rank {r}", rep["launches"], rep["fields"],
+                         ran=("first_match",) if r == 0
+                         else ("level_counts", "first_match"))
+    note(case, ranks)
+    records[case] = quorum_line(case, ranks, card,
+                                f"; rank 0 adopted engine -> "
+                                f"{adopt[0]['to']} from rank 1 at "
+                                f"{adopt[0]['site']}")
+
+    # Rank 1 is held 1.5 s after its level 2, so rank 0 launches K3 at
+    # level 3 first; rank 0 is held 3 s after its level 3, so rank 1's
+    # walk is there for rank 0's level.3 sync to adopt.
+    case = "c_file_vertical_clamp"
+    ranks = quorum_pair(
+        case, k_in, KOSARAK["min_support"],
+        env={"FA_MINE_ENGINE": "vertical"},
+        rank_env={0: {"FA_FAILPOINTS": "level.3:delay@3000"},
+                  1: {"FA_FAILPOINTS": "level.2:delay@1500,"
+                                       "fetch.vlevel_bits:oom*3"}})
+    ok(case, ranks, kos, writers=(0, 1))
+    clamp = [e for e in degraded_events(ranks[0], "mine_engine_fallback")
+             if e.get("reason") == "quorum" and "k" in e]
+    if not clamp:
+        raise SystemExit(f"{case}: rank 0 took no level-boundary clamp: "
+                         f"{ranks[0]['stderr'][-3000:]}")
+    for r, rep in enumerate(ranks):
+        require_clamped_launches(f"{case} rank {r}", rep["launches"],
+                                 rep["fields"], failed_level=r == 1)
+    note(case, ranks)
+    records[case] = quorum_line(case, ranks, card,
+                                f"; rank 0 clamped vertical -> bitmap at "
+                                f"k = {clamp[0]['k']}")
+
+    # (d) Elastic continuation: rank 1 killed at level.5; rank 0, held 4 s
+    # at level.6 (past the 2 s bound even if rank 1 dies up to 2 s
+    # later), finds the loss there.
+    case = "d_file_elastic"
+    ranks = quorum_pair(
+        case, in_dir, MIN_SUPPORT,
+        env={"FA_EPOCH_RETRY_MAX": "1", "FA_QUORUM_TIMEOUT_S": "2"},
+        rank_env={0: {"FA_FAILPOINTS": "level.6:delay@4000"},
+                  1: {"FA_FAILPOINTS": "level.5:abort"}})
+    r0, r1 = ranks
+    if r1["rc"] != 1 or "level.5" not in r1["stderr"]:
+        raise SystemExit(f"{case} rank 1: exit {r1['rc']}: "
+                         f"{r1['stderr'][-2000:]}")
+    ok(case, ranks[:1], t10)
+    q = quorum_event(case, r0)
+    if (q["mesh_epoch"], q["members"]) != (1, [0]) or (
+            "mesh_epoch_reseed" not in r0["notes"]):
+        raise SystemExit(f"{case} rank 0: quorum {q}, notes {r0['notes']}")
+    require_launches(f"{case} rank 0", r0["launches"], r0["fields"],
+                     ran=("level_counts", "first_match"))
+    note(case, ranks)
+    records[case] = quorum_line(
+        case, ranks, card, "; rank 0 finished alone at mesh epoch 1, "
+        "flight note mesh_epoch_reseed from k = "
+        f"{r0['fields'].get('level_resume', {}).get('from_k')}")
+
+    case = "d_file_exhaust"
+    ranks = quorum_pair(
+        case, in_dir, MIN_SUPPORT, env={"FA_EPOCH_RETRY_MAX": "0"},
+        rank_env={1: {"FA_FAILPOINTS": "level.5:abort"}})
+    r0, r1 = ranks
+    if r1["rc"] != 1 or r0["rc"] != 3 or (
+            "quorum peer rank 1 lost" not in r0["stderr"]):
+        raise SystemExit(f"{case}: exits {r0['rc']}, {r1['rc']}: "
+                         f"{r0['stderr'][-2000:]}")
+    note(case, ranks)
+    records[case] = quorum_line(case, ranks, card,
+                                "; rank 0 exit 3 naming rank 1")
+    wall = time.perf_counter() - t0
+    log(f"quorum phase ({card}, 2 ranks on cuda:0): {wall:.3f} s")
+    log("quorum summary: " + json.dumps(records))
+    return {"wall_s": wall, "cases": records}, launches_by
+
+
 def require_replayed(name: str, measured: dict, counted: int) -> None:
     """Phase 5's replay of a path must launch a kernel as often as the
     counted CLI run did, or its per-launch times are not the path's."""
@@ -3523,7 +3965,7 @@ def run_cards(t_start: float, cards: int) -> int:
 
 
 def run(t_start: float) -> int:
-    """Phases 1-12 (the module docstring); returns 0 when all passed."""
+    """Phases 1-14 (the module docstring); returns 0 when all passed."""
     import torch
 
     from fastapriori_tpu_torch.ops import build
@@ -3591,8 +4033,12 @@ def run(t_start: float) -> int:
     observability = observability_phase(in_dir, k_in, card)
     serving, serving_launches, serve_k2 = serving_phase(
         in_dir, device, card, main_launches)
+    # Phase 14's rank processes start now: their start-up overlaps
+    # phases 12 and 13.
+    start_quorum_workers()
     mesh, mesh_launches, mesh_measured = mesh_phase(in_dir, k_in, card)
     world, world_launches = world_phase(in_dir, k_in, card)
+    quorum, quorum_launches = quorum_phase(in_dir, k_in, card, main_fields)
     for name, path, _, min_support in corpora():
         ingest_compare(name, path, min_support, python_ingest[name])
 
@@ -3644,7 +4090,8 @@ def run(t_start: float) -> int:
                 "kosarak_vertical_device_rules_cli": vrules_launches[name],
                 **serving_launches.get(name, {}),
                 **mesh_launches.get(name, {}),
-                **world_launches.get(name, {})}
+                **world_launches.get(name, {}),
+                **quorum_launches.get(name, {})}
 
     # Top-level numbers: the first path in "measured_by_path".
     kernels = [
@@ -3694,6 +4141,7 @@ def run(t_start: float) -> int:
     log("serving walls: " + json.dumps(serving))
     log("mesh walls: " + json.dumps(mesh))
     log("world walls: " + json.dumps(world))
+    log("quorum walls: " + json.dumps(quorum))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
         f"torch's import, {time.perf_counter() - T_START:.3f} s from the "
         f"script's start")

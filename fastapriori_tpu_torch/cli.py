@@ -67,11 +67,23 @@ reference C1, Main.scala:15-41).
   sharing a card); one that does not start exits 2.  The NCCL path is
   checked by tests/test_torch_nccl.py and ``chip_smoke.py --cards N``
   on a host with two cards or more.  Without the variables the run is
-  one process, with a notice.  A rank that fails ends every rank with a
-  non-zero exit within ``FA_QUORUM_TIMEOUT_S`` (no rank writes), and
-  ``--checkpoint-every-level`` / ``--resume-from`` exit 2: the quorum
-  domain that fences them in the JAX package is not ported yet (ROADMAP
-  Queue 1).
+  one process, with a notice.  A rank that fails ends every other rank
+  with exit 3 within ``FA_QUORUM_TIMEOUT_S`` (no rank writes);
+  ``--checkpoint-every-level`` and ``--resume-from`` run in a world
+  (rank 0 writes the checkpoint, every rank resumes from it);
+- the quorum domain (reliability/quorum.py), as in the JAX CLI: a
+  ``--distributed`` world of more than one rank has one over the
+  process group, and ``FA_QUORUM_DIR`` with ``FA_QUORUM_RANK`` and
+  ``FA_QUORUM_PROCS`` makes one-process ranks (each mining the whole
+  corpus, each writing under its own output prefix) a file domain.
+  Every rank meets the others at ``run.start``, ``mine.end``,
+  ``rules.start`` and ``run.end``; a cascade walk on one rank is adopted
+  by all; the writer's checkpoints and manifests carry the domain's
+  fence (a stale one is refused, exit 2); a lost peer or a divergent
+  mesh exits 3 naming the rank; with ``FA_EPOCH_RETRY_MAX`` > 0 the
+  survivors of a file domain finish without the dead rank.  A run in a
+  domain ends with a ``quorum`` metrics event (transport, mesh epoch,
+  members, fence, the epoch trail).
 
 ``python -m fastapriori_tpu_torch serve <input> [<output>] ...`` is the
 serving tier (counterpart: the JAX CLI's ``serve`` subcommand): build the
@@ -89,7 +101,9 @@ spans and ``phase`` metrics events as well.  User-correctable failures
 print one line and exit 2, after the flight recorder has written
 ``<output>flight.json`` (obs/flight.py: the last span, ledger and
 watchdog events, reason ``classified_error``); an injected crash
-(``FA_FAILPOINTS=<site>:abort``) prints the site and exits 1.
+(``FA_FAILPOINTS=<site>:abort``) prints the site and exits 1; a
+fault-domain failure (``PeerLost``, ``MeshDivergence``,
+``MeshEpochAbort``) prints one line and exits 3.
 """
 
 from __future__ import annotations
@@ -103,8 +117,12 @@ from typing import List, Optional
 
 from fastapriori_tpu_torch.config import DEFAULT_MIN_SUPPORT, MinerConfig
 from fastapriori_tpu_torch.errors import InputError
-from fastapriori_tpu_torch.parallel.mesh import PeerLost
 from fastapriori_tpu_torch.reliability.failpoints import InjectedAbort
+from fastapriori_tpu_torch.reliability.quorum import (
+    MeshDivergence,
+    MeshEpochAbort,
+    PeerLost,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -311,13 +329,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         # A stand-in for a crash: nothing after the failpoint ran.
         print(f"error: aborted: {e}", file=sys.stderr)
         return 1
-    except PeerLost as e:
+    except (PeerLost, MeshDivergence, MeshEpochAbort) as e:
+        # A fault-domain failure is classified, as in the JAX CLI: a lost
+        # peer or a divergent mesh names the rank and exits 3 (the quorum
+        # domain already dumped its epoch trail to the flight recorder).
+        from fastapriori_tpu_torch.parallel import mesh
+
         print(f"error: {e}", file=sys.stderr)
-        sys.stdout.flush()
-        sys.stderr.flush()
-        # A collective may still be pending on the dead peer, and the
-        # interpreter's exit would wait on it: the process ends here.
-        os._exit(1)
+        if mesh.process_count() > 1:
+            # A lost world: a collective may still be pending on the dead
+            # peer, and the interpreter's exit would wait on it.
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(3)
+        return 3
 
 
 def _serve_main(argv: List[str]) -> int:
@@ -568,10 +593,9 @@ def _load_resume(prefix: str):
     )
 
 
-def _join_world(args, device: str):
+def _join_world(device: str):
     """``--distributed``: the world, or None for one process (no
-    ``env://`` variables: a notice, as the JAX CLI's; a world of one).
-    Raises InputError for the flags the world does not take yet."""
+    ``env://`` variables: a notice, as the JAX CLI's; a world of one)."""
     from fastapriori_tpu_torch.parallel import mesh
 
     try:
@@ -584,12 +608,6 @@ def _join_world(args, device: str):
     except RuntimeError as e:
         # Never a retry on another backend: the launch decides it.
         raise InputError(f"--distributed initialization failed: {e}")
-    if world is not None and (args.checkpoint_every_level
-                              or args.resume_from):
-        raise InputError(
-            "--checkpoint-every-level and --resume-from are not available "
-            "with --distributed yet: fenced checkpoints come with the "
-            "quorum domain (ROADMAP Queue 1, the multi-process world)")
     return world
 
 
@@ -599,6 +617,7 @@ def _run(args, context=None) -> int:
     card named S times)."""
     from fastapriori_tpu_torch.device import resolve_device
     from fastapriori_tpu_torch.parallel import mesh
+    from fastapriori_tpu_torch.reliability import quorum
 
     config = MinerConfig(
         min_support=args.min_support,
@@ -617,10 +636,22 @@ def _run(args, context=None) -> int:
     world = None
     if getattr(args, "distributed", False):
         resolve_device(device)  # no CUDA device and no --platform cpu
-        world = _join_world(args, device)
+        world = _join_world(device)
+    status = "failed"
     try:
-        return _run_in_world(args, config, device, world, context)
+        # The run's quorum domain: FA_QUORUM_* read now (a file domain),
+        # else the world's torch domain, else none.
+        quorum.reload_from_env()
+        rc = _run_in_world(args, config, device, world, context)
+        status = "done"
+        return rc
+    except InjectedAbort:
+        status = "aborted"
+        raise
     finally:
+        # Leaving the domain posts this rank's exit marker: a peer that
+        # still waits sees the loss at once.
+        quorum.shutdown(status)
         if world is not None:
             mesh.shutdown_distributed()
 
@@ -633,12 +664,14 @@ def _run_in_world(args, config, device: str, world, context) -> int:
 
     # Observability: the strict knobs, span recording on --trace or
     # FA_TRACE, and the flight recorder's dumps under this run's prefix
-    # (per rank in a multi-process world).
+    # (per rank in a domain of more than one process).
     flight.reload_from_env()
     device_trace.enabled_by_env()
     trace.maybe_enable(bool(args.trace))
-    flight.set_dump_prefix(args.output + (f"rank{world.rank}."
-                                          if world is not None else ""))
+    dom = quorum.active()
+    multi_rank = dom is not None and dom.nprocs > 1
+    flight.set_dump_prefix(args.output + (f"rank{dom.rank}."
+                                          if multi_rank else ""))
     miner = FastApriori(config=config,
                         context=_context(args, device, context))
     if world is not None:
@@ -646,6 +679,10 @@ def _run_in_world(args, config, device: str, world, context) -> int:
             "distributed", backend=world.backend, world=world.size,
             rank=world.rank, device=str(miner.ctx.device),
             local_shards=miner.ctx.local_txn_shards)
+    # Every rank up before any work: a peer that never starts is a
+    # classified PeerLost within the bound; a rank that waits here while
+    # a peer aborts the mesh meets it under the new epoch.
+    quorum.sync_or_rejoin("run.start", wait=True)
     u_lines = read_dat(args.input + "U.dat")
 
     # --profile-dir captures both phases: K2, the recommend scan's
@@ -654,6 +691,10 @@ def _run_in_world(args, config, device: str, world, context) -> int:
                if args.profile_dir else contextlib.nullcontext({}))
     with trace.span("run", cmd="mine"), profile as captured:
         _phases(args, config, device, miner, u_lines)
+    # The last rendezvous: no rank leaves while a peer still needs it.
+    quorum.sync_or_rejoin("run.end", wait=True)
+    if dom is not None:
+        _emit_quorum(miner.metrics, dom)
     if captured.get("active"):
         print(f"device trace written: {captured['trace']} "
               f"({captured['device_events']} device events)",
@@ -663,6 +704,21 @@ def _run_in_world(args, config, device: str, world, context) -> int:
         print(f"trace written: {path} ({len(trace.TRACER.events())} events; "
               "load in Perfetto)", file=sys.stderr)
     return 0
+
+
+def _emit_quorum(metrics, dom) -> None:
+    """One ``quorum`` metrics event at the end of a run in a domain: its
+    transport, rank, mesh epoch and members, the fence (a file domain's)
+    and the epoch trail of every sync the run completed."""
+    from fastapriori_tpu_torch.reliability import quorum
+
+    file_t = isinstance(dom.transport, quorum.FileTransport)
+    metrics.emit(
+        "quorum", transport="file" if file_t else "torch", rank=dom.rank,
+        nprocs=dom.nprocs, mesh_epoch=dom.mesh_epoch,
+        members=list(dom.members),
+        fence=dom.transport.current_fence() if file_t else None,
+        epoch_trail=dom.epoch_trail())
 
 
 def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
@@ -701,9 +757,11 @@ def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
             freq_items, item_to_rank = data.freq_items, data.item_to_rank
             item_counts = data.item_counts
             # Every rank arrives before the one writer writes: a rank
-            # whose peer failed stops here.
+            # whose peer failed stops here.  Rank 0 of the world writes
+            # (every rank of a file domain, each under its own prefix),
+            # its manifest stamped with the quorum writer's fence.
             mesh.agree()
-            if quorum.is_writer():
+            if mesh.process_index() == 0:
                 manifest: dict = {}
                 save_freq_itemsets_levels(
                     args.output, levels, freq_items, manifest=manifest,
@@ -712,9 +770,13 @@ def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
                 if args.save_counts:
                     save_phase1_aux(args.output, freq_items, item_to_rank,
                                     manifest=manifest)
-                write_manifest(args.output, manifest)
+                write_manifest(args.output, manifest,
+                               fence=quorum.writer_fence())
     print("==== Total time for get freqItemsets "
           f"{int((time.perf_counter() - t1) * 1e3)}", file=sys.stderr)
+    # Every rank arrives here, however many level boundaries it took: a
+    # rank killed mid-mine is found by its peers within the bound.
+    quorum.sync_or_rejoin("mine.end", wait=True)
 
     t2 = time.perf_counter()
     with phase_timer("get recommends", enabled=False):
@@ -724,10 +786,11 @@ def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
         )
         recommends = recommender.run(u_lines)
         mesh.agree()
-        if quorum.is_writer():
+        if mesh.process_index() == 0:
             manifest = {}
             save_recommends(args.output, recommends, manifest=manifest)
-            write_manifest(args.output, manifest)
+            write_manifest(args.output, manifest,
+                           fence=quorum.writer_fence())
     print("==== Total time for get recommends "
           f"{int((time.perf_counter() - t2) * 1e3)}", file=sys.stderr)
 

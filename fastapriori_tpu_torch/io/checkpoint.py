@@ -13,8 +13,11 @@ n_raw, min_count, num_items, fence]`` (fence 0 at one process) and per
 level ``mat_<i>`` (int32 [N, k] lex-sorted member matrix) and ``cnt_<i>``
 (int64 [N] weighted supports).  ``n_raw``, ``min_count`` and
 ``num_items`` pin the checkpoint to its dataset and support threshold:
-resuming against other data is an :class:`InputError`.  A checkpoint
-either package writes resumes under the other.
+resuming against other data is an :class:`InputError`.  The fence is
+the quorum domain's (reliability/quorum.py): the writer stamps it into
+the meta and the manifest, and a load in a domain whose fence has moved
+past it raises ``StaleFenceError``.  A checkpoint either package writes
+resumes under the other.
 """
 
 from __future__ import annotations
@@ -122,6 +125,19 @@ def load_checkpoint(prefix: str) -> Tuple[List[Level], Dict[str, int]]:
                 f"corrupt checkpoint {path!r}: level {i + 2} has shape "
                 f"{mat.shape}/{cnt.shape} (expected [N, {i + 2}]/[N])"
             )
+    # In a quorum domain a checkpoint whose fence (the larger of the meta
+    # slot and the manifest's monotone copy) is older than the domain's
+    # FENCE was written by a superseded writer: it must not seed a
+    # resume.  Without a domain the fence is informational and the
+    # manifest is not read again.
+    from fastapriori_tpu_torch.reliability import quorum
+
+    if quorum.active() is not None:
+        from fastapriori_tpu_torch.io.resume import manifest_fence
+
+        fences = [f for f in (meta.get("fence"), manifest_fence(prefix))
+                  if f is not None]
+        quorum.validate_resume_fence(max(fences) if fences else None)
     return levels, meta
 
 

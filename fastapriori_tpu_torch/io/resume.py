@@ -42,12 +42,15 @@ def save_phase1(
     freq_items: Sequence[str],
     item_to_rank: Dict[str, int],
 ) -> None:
-    """Write the three phase-1 artifacts and the run manifest."""
+    """Write the three phase-1 artifacts and the run manifest, stamped
+    with the quorum writer's fence."""
+    from fastapriori_tpu_torch.reliability import quorum
+
     manifest: Dict[str, dict] = {}
     save_freq_itemsets_with_count(prefix, freq_itemsets, freq_items,
                                   manifest=manifest)
     save_phase1_aux(prefix, freq_items, item_to_rank, manifest=manifest)
-    write_manifest(prefix, manifest)
+    write_manifest(prefix, manifest, fence=quorum.writer_fence())
 
 
 def save_phase1_aux(
@@ -158,7 +161,12 @@ def load_phase1(
     """``(freqItemsets, itemToRank, freqItems)`` from the saved artifacts
     (Utils.getAll, Utils.scala:65-81): items sorted by rank, itemset
     lines split at the last ``[``.  A malformed line raises InputError
-    naming the file and line."""
+    naming the file and line.  In a quorum domain, artifacts whose
+    manifest fence a newer writer superseded raise ``StaleFenceError``."""
+    from fastapriori_tpu_torch.reliability import quorum
+
+    if quorum.active() is not None:
+        quorum.validate_resume_fence(manifest_fence(prefix))
     item_to_rank: Dict[str, int] = {}
     for lineno, line in enumerate(_read_artifact(prefix, "ItemsToRank"), 1):
         if not line:

@@ -15,8 +15,10 @@ against.  The failpoint site ``write.<name>`` can fail a write or
 truncate its physical bytes (reliability/failpoints.py).  A remote
 prefix (``gs://``, ``memory://`` ...) goes through fsspec, imported only
 for such a path (no tmp + rename: object stores commit on close).  The
-manifest's ``fence`` is the JAX package's quorum fence; one process
-never has one.
+manifest's ``fence`` is the quorum domain's fence epoch
+(reliability/quorum.py ``writer_fence``), stamped by the writer rank of
+a file domain and monotone under merge; a run without a domain stamps
+none.
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def write_manifest(
     manifest is the last write, so a crash between an artifact and its
     entry leaves a manifest that still validates what it lists.
     ``fence``: a writer's fence epoch, stamped as a top-level field that
-    a merge never lowers (None at one process)."""
+    a merge never lowers (None without a quorum domain)."""
     from fastapriori_tpu_torch.io.reader import _open_bytes
 
     path = prefix + MANIFEST_NAME

@@ -12,9 +12,8 @@ and resume (``set_resume_levels``, ``_take_resume``,
 ``_checkpoint_levels``, the fused engine's checkpoint segments), the
 cascade's safe wrappers (``_mine_vertical_safe``,
 ``_fused_resident_safe``), ``_split_weights``, ``_mine_engine`` and
-``_mine_vertical``, at one process and one device, without the elastic,
-quorum, sparse and lane-tiled branches; reference C6-C9,
-FastApriori.scala:31-160).
+``_mine_vertical``, with the quorum domain's consults and the elastic
+arm; reference C6-C9, FastApriori.scala:31-160).
 
 ``run_file_raw`` ingests D.dat in one native call that cuts it into
 ``ingest_pipeline_blocks`` line-aligned blocks (pass 1 over
@@ -91,6 +90,19 @@ an audited fetch's retries gave up on walks the cascade
 (reliability/retry.py ``exhausted``): fused -> level, tail -> level,
 vertical -> bitmap; an error raised anywhere else, a kernel's launch
 included, propagates.
+
+In a quorum domain (reliability/quorum.py) every engine choice honours
+the domain's floors (the layout, the fused offer, the count reduction,
+the exchange topology), synced at ``mine.start`` as each layout's mine
+begins, and again before each level's dispatch after the ``level.<k>``
+sync (the vertical loop hands its complete levels to the bitmap loop
+when a peer left the vertical layout).  Checkpoints are written by the writer
+rank only, stamped with the domain's fence.  A file domain's weight
+totals are cross-checked across its ranks once per mine
+(``mine.wstotals``), and a sharded ingest's totals cross over the
+domain's transport.  With elastic continuation on, counts are read
+eagerly, and a lost peer re-seeds the mine from its last complete
+level under the next mesh epoch (:meth:`FastApriori._mine_elastic`).
 """
 
 from __future__ import annotations
@@ -172,6 +184,7 @@ from fastapriori_tpu_torch.preprocess import (
 from fastapriori_tpu_torch.reliability import (
     failpoints,
     ledger,
+    quorum,
     retry,
     watchdog,
 )
@@ -184,6 +197,20 @@ Levels = List[Tuple[np.ndarray, np.ndarray]]
 # digit through K1 instead (the remainder arrays would no longer be tiny).
 HEAVY_SPLIT_CAP = 4096
 HEAVY_SPLIT_BYTES = 16 << 20
+
+
+class _MineEngineClamp(RuntimeError):
+    """A level-boundary adoption walked ``mine_engine`` vertical ->
+    bitmap while this rank was in the vertical loop: carries the
+    complete levels up to :meth:`FastApriori._mine_vertical_safe`, which
+    re-seeds the bitmap loop from that boundary.  ``ABORTED`` keeps it a
+    transient, as in the JAX package."""
+
+    def __init__(self, levels: Levels, k: int):
+        self.levels = levels
+        self.k = k
+        super().__init__(f"ABORTED: mine_engine clamped vertical->bitmap at "
+                         f"level {k} by quorum consensus")
 
 
 def resolve_engine(engine: str) -> str:
@@ -462,8 +489,17 @@ class FastApriori:
         self._resume_meta: Optional[Dict[str, int]] = None
         self._resume_label = "checkpoint"
         # The exchanged per-shard weight totals of a sharded ingest, per
-        # (t_pad, processes): one exchange per mine.
+        # (t_pad, processes): one exchange per mine; and the one-shot
+        # cross-check of a file domain's full replicas.
         self._wstotals_cache: Dict[tuple, np.ndarray] = {}
+        self._wstotals_verified = False
+        # The last checkpointed levels and meta, kept on every rank: an
+        # elastic rejoin may make this rank the writer, which re-commits
+        # them under the new fence.
+        self._ckpt_stash: Optional[Tuple[Levels, Dict[str, int]]] = None
+        # The complete levels of the mine in flight (the elastic arm
+        # re-seeds from them).
+        self._progress: Levels = []
 
     def set_resume_levels(
         self,
@@ -500,23 +536,57 @@ class FastApriori:
 
     def _checkpoint_levels(self, levels: Levels,
                            data: CompressedData) -> None:
-        """After a completed level: with ``checkpoint_prefix``, atomically
-        rewrite ``<prefix>checkpoint.npz`` and its manifest entry (a
-        ``checkpoint`` metrics event); then the ``level.<k>`` failpoint,
-        k the deepest level written, so a test can kill the run where the
-        checkpoint exists and nothing after it does."""
+        """After a completed level: with ``checkpoint_prefix``, the
+        writer (rank 0 of the world and the quorum domain's writer)
+        atomically rewrites ``<prefix>checkpoint.npz`` and its manifest
+        entry (a ``checkpoint`` metrics event), stamped with the domain's
+        fence (a superseded writer raises ``StaleFenceError``); then the
+        ``level.<k>`` failpoint, k the deepest level written, so a test
+        can kill the run where the checkpoint exists and nothing after
+        it does; then the domain's ``level.<k>`` sync, which adopts a
+        peer's walks before the next level and finds a dead peer."""
         if not levels:
             return
+        self._progress = list(levels)
         k = int(levels[-1][0].shape[1])
         prefix = self.config.checkpoint_prefix
         if prefix:
-            from fastapriori_tpu_torch.io.checkpoint import save_checkpoint
+            meta = {"n_raw": data.n_raw, "min_count": data.min_count,
+                    "num_items": data.num_items}
+            self._ckpt_stash = (list(levels), meta)
+            dom = quorum.active()
+            if dom is not None:
+                dom.add_rejoin_hook(self._recommit_checkpoint)
+            if mesh.process_index() == 0 and quorum.is_writer():
+                from fastapriori_tpu_torch.io.checkpoint import (
+                    save_checkpoint,
+                )
 
-            with self.metrics.timed("checkpoint", levels=len(levels), k=k):
-                save_checkpoint(prefix, levels, {
-                    "n_raw": data.n_raw, "min_count": data.min_count,
-                    "num_items": data.num_items})
+                with self.metrics.timed("checkpoint", levels=len(levels),
+                                        k=k) as m:
+                    fence = quorum.checkpoint_fence()
+                    save_checkpoint(prefix, levels, dict(meta, fence=fence))
+                    if fence:
+                        m.update(fence=fence)
         failpoints.fire(f"level.{k}")
+        quorum.sync(f"level.{k}")
+
+    def _recommit_checkpoint(self) -> None:
+        """The elastic rejoin's hook: the writer re-commits the last
+        checkpointed levels under the re-derived fence, so no checkpoint
+        is left at the old fence while later manifests carry the new
+        one.  Local file I/O only: no failpoint, no sync."""
+        stash = self._ckpt_stash
+        prefix = self.config.checkpoint_prefix
+        if stash is None or not prefix:
+            return
+        if mesh.process_index() != 0 or not quorum.is_writer():
+            return
+        from fastapriori_tpu_torch.io.checkpoint import save_checkpoint
+
+        levels, meta = stash
+        save_checkpoint(prefix, levels,
+                        dict(meta, fence=quorum.checkpoint_fence()))
 
     def run_file_raw(self, d_path: str) -> Tuple[Levels, CompressedData]:
         """Mine ``D.dat``: returns the level matrices (k >= 2) and the
@@ -598,7 +668,9 @@ class FastApriori:
         the decision of :meth:`_mine_engine` (the CSR is always there
         on this path)."""
         req = self._requested_mine_engine()
-        if req in ("bitmap", "vertical"):
+        if req == "bitmap" or self._quorum_left_vertical(req):
+            return "bitmap"
+        if req == "vertical":
             return req
         cfg = self.config
         density = density_from_tables(n_raw, num_items, occ_total)
@@ -802,7 +874,7 @@ class FastApriori:
                 )
                 self._emit_mine_engine("vertical", req_engine, density,
                                        probe="pass1")
-                return self._mine_vertical_safe(data), data
+                return self._mine_elastic(data, vertical=True), data
             self._emit_mine_engine("bitmap", req_engine, density,
                                    probe="pass1")
             n_chunks = max(1, -(-n_raw // cfg.level_txn_chunk))
@@ -900,7 +972,7 @@ class FastApriori:
             basket_offsets=offsets,
             weights=w_np,
         )
-        levels = self._mine_levels(
+        levels = self._mine_elastic(
             data,
             preupload=(bitmap, w_digits, scales, n_chunks, t_pad, f_pad,
                        heavy),
@@ -922,7 +994,7 @@ class FastApriori:
         layout, requested, density = self._mine_engine(data)
         self._emit_mine_engine(layout, requested, density)
         if layout == "vertical":
-            return self._mine_vertical_safe(data)
+            return self._mine_elastic(data, vertical=True)
         if not has_csr(data):
             # The packed upload and the bitmap build read the CSR: mining
             # an empty one would return an empty lattice.
@@ -935,8 +1007,9 @@ class FastApriori:
         # A resume or a checkpoint prefix skips the whole-lattice fused
         # loop: it has no mid-points to seed or checkpoint (engine "fused"
         # under a checkpoint prefix mines in segments in the level loop).
-        if self.engine in ("fused", "auto") and not (
-                self._resume_levels or self.config.checkpoint_prefix):
+        if (self.engine in ("fused", "auto")
+                and not (self._resume_levels or self.config.checkpoint_prefix)
+                and quorum.stage_allowed("engine", "fused")):
             reason = "row_budget_or_bound"
             try:
                 levels, partial = self._mine_fused(
@@ -952,8 +1025,48 @@ class FastApriori:
             # Row budget, level bound, the auto choice or a transient:
             # the level engine, resumed from the salvaged complete levels.
             self._fused_fallback(partial, reason)
-            return self._mine_levels(data, resume=partial or None)
-        return self._mine_levels(data)
+            return self._mine_elastic(data, resume=partial or None)
+        return self._mine_elastic(data)
+
+    def _mine_elastic(self, data: CompressedData, vertical: bool = False,
+                      **kw) -> Levels:
+        """The layout's mine (:meth:`_mine_vertical_safe`, else
+        :meth:`_mine_levels` with ``kw``) inside the elastic arm: on a
+        ``PeerLost`` or ``MeshEpochAbort`` the survivors meet again under
+        the next mesh epoch (reliability/quorum.py ``elastic_rejoin``,
+        which re-raises, classified, when continuation is off or spent)
+        and the mine starts again from the last complete level
+        boundary: the weight totals and their cross-check are re-derived
+        for the survivors, the domain's floors re-read at
+        ``mine.start``, and the fused offer and the ingest's pair
+        program (the aborted epoch's work) are not used again."""
+        saved = (self._resume_levels, self._resume_meta, self._resume_label)
+        self._progress = []
+        while True:
+            try:
+                if vertical:
+                    return self._mine_vertical_safe(data)
+                return self._mine_levels(data, **kw)
+            except (quorum.PeerLost, quorum.MeshEpochAbort) as exc:
+                quorum.elastic_rejoin(exc)
+                from fastapriori_tpu_torch.obs import flight
+
+                self._wstotals_cache.clear()
+                self._wstotals_verified = False
+                done = [lv for lv in self._progress if lv[1] is not None]
+                self._progress = []
+                if done:
+                    self.set_resume_levels(done, None, "elastic")
+                else:
+                    (self._resume_levels, self._resume_meta,
+                     self._resume_label) = saved
+                kw = {"preupload": kw.get("preupload")}
+                flight.note(
+                    "mesh_epoch_reseed", mesh_epoch=quorum.mesh_epoch(),
+                    members=quorum.mesh_members(),
+                    resume_from_k=(int(done[-1][0].shape[1]) if done
+                                   else None),
+                    levels_kept=len(done))
 
     _COUNT_REDUCE = ("auto", "dense", "sparse")
 
@@ -987,6 +1100,10 @@ class FastApriori:
             reason = "one_txn_shard"
         elif self.ctx.cand_shards != 1:
             reason = "cand_mesh"
+        elif not quorum.stage_allowed("count_reduce", "sparse"):
+            # A peer already walked the reduction: start at the agreed
+            # position, so this rank never issues the sparse collectives.
+            reason = "quorum"
         if reason is not None:
             if req == "sparse":
                 ledger.record("count_reduce_fallback", once_key=reason,
@@ -1033,12 +1150,15 @@ class FastApriori:
             return [int(x) for x in thr[r * loc : (r + 1) * loc]]
         w = np.zeros(t_pad, dtype=np.int64)
         w[: data.total_count] = data.weights
+        per = w.reshape(s, -1).sum(axis=1)
+        # Full replicas in a file domain: the totals shape the sparse
+        # collectives, so ranks that ingested differently must meet a
+        # classified error here, not silently divergent counts.
+        self._verify_wstotals([int(v) for v in per])
         if heavy:
             low = w % 128
             per = low.reshape(s, -1).sum(axis=1)
             per[0] += int((w - low).sum())
-        else:
-            per = w.reshape(s, -1).sum(axis=1)
         total = int(per.sum())
         if total <= 0:
             return [1] * s
@@ -1086,8 +1206,16 @@ class FastApriori:
         w = np.zeros(local_pad, dtype=np.int64)
         w[: data.total_count] = data.weights
         per_local = w.reshape(self.ctx.local_txn_shards, -1).sum(axis=1)
-        blobs = mesh.allgather_bytes(per_local.astype("<i8").tobytes())
-        per = np.concatenate([np.frombuffer(b, dtype="<i8") for b in blobs])
+        # Over the quorum domain's transport when one spans the ingest's
+        # processes, else the sharded ingest's own channel.
+        gathered = quorum.exchange("mine.wstotals", per_local.tolist())
+        if gathered is not None and len(gathered) == n_proc:
+            per = np.concatenate([np.asarray(gathered[r], dtype=np.int64)
+                                  for r in range(n_proc)])
+        else:
+            blobs = mesh.allgather_bytes(per_local.astype("<i8").tobytes())
+            per = np.concatenate([np.frombuffer(b, dtype="<i8")
+                                  for b in blobs])
         if per.size != self.ctx.txn_shards:
             raise InputError(
                 f"the weight-total exchange returned {per.size} shard "
@@ -1098,13 +1226,47 @@ class FastApriori:
         self._wstotals_cache[key] = per
         return per
 
+    def _verify_wstotals(self, mine: List[int]) -> None:
+        """The one-shot cross-check of a file domain's full replicas
+        (every rank mines the whole corpus): the ranks exchange their raw
+        per-shard weight totals ``mine`` at ``mine.wstotals`` and a
+        mismatch is a ``MeshDivergence`` naming both ranks, since prune
+        thresholds from divergent ingests never issue matching
+        collectives.  The payload is the raw totals (never the heavy
+        split), so every engine path posts the same one.  No-op without
+        a file domain of more than one rank (a torch transport's
+        collective count admits no optional exchange)."""
+        dom = quorum.active()
+        if (self._wstotals_verified or dom is None or dom.nprocs == 1
+                or not isinstance(dom.transport, quorum.FileTransport)):
+            return
+        self._wstotals_verified = True
+        gathered = dom.exchange("mine.wstotals", mine)
+        for rank in sorted(gathered):
+            if rank != dom.rank and gathered[rank] != mine:
+                raise quorum.MeshDivergence(
+                    "ABORTED: mesh divergence at 'mine.wstotals': rank "
+                    f"{dom.rank} derived shard weight totals {mine} while "
+                    f"rank {rank} derived {gathered[rank]} — sparse prune "
+                    "thresholds from divergent ingests can never issue "
+                    "matching collectives")
+        ledger.record("wstotals_exchange", once_key="verify",
+                      procs=dom.nprocs, verified=True)
+
     def _exchange_spec(self):
         """The two-level topology of this mine's sparse reductions
         (parallel/hier.py ``resolve_active_spec``: ``FA_EXCHANGE_GROUPS``
         over ``config.exchange_groups``), named on the ledger
-        (``exchange_engine``)."""
+        (``exchange_engine``); the quorum domain's ``exchange`` floor
+        clamps it to flat (an ``exchange_fallback`` event when the
+        topology would have been two-level)."""
         spec = hier.resolve_active_spec(self.ctx.txn_shards, self.config,
-                                        n_procs=self.ctx.world)
+                                        n_procs=self.ctx.world,
+                                        unclamped=True)
+        if spec is not None and not quorum.stage_allowed("exchange", "hier"):
+            ledger.record("exchange_fallback", once_key="quorum",
+                          reason="quorum")
+            spec = None
         ledger.record(
             "exchange_engine", once_key=f"spec:{spec}",
             engine="hier" if spec is not None else "flat",
@@ -1198,6 +1360,21 @@ class FastApriori:
                 )
         return req
 
+    @staticmethod
+    def _quorum_left_vertical(req: str) -> bool:
+        """True when the quorum domain's ``mine_engine`` floor is past
+        vertical (a peer left the layout: its lane collectives would
+        never match); a forced vertical then records the fallback and
+        the walk."""
+        if quorum.stage_allowed("mine_engine", "vertical"):
+            return False
+        if req == "vertical":
+            ledger.record("mine_engine_fallback", once_key="quorum",
+                          reason="quorum")
+            watchdog.downgrade("mine_engine", "vertical", "bitmap",
+                               reason="quorum")
+        return True
+
     def _mine_engine(self, data: CompressedData) -> Tuple[str, str, float]:
         """Resolve the layout for this mine: returns ``(engine,
         requested, density)`` with engine "bitmap" or "vertical".  Auto
@@ -1230,6 +1407,8 @@ class FastApriori:
                     "(basket_offsets of length total_count + 1); this "
                     "CompressedData has none"
                 )
+            return "bitmap", req, density
+        if self._quorum_left_vertical(req):
             return "bitmap", req, density
         if req == "vertical" or (
             data.num_items >= cfg.vertical_min_items
@@ -1391,11 +1570,22 @@ class FastApriori:
         vertical fetch that outlasted its retries walks mine_engine
         vertical -> bitmap and the bitmap level engine mines (the same
         levels), seeded from the resume levels the vertical attempt had
-        taken.  Any other error, K3's launch included, propagates."""
+        taken.  Any other error, K3's launch included, propagates.  A
+        ``mine_engine`` clamp adopted from a peer at a level boundary
+        (:class:`_MineEngineClamp`) hands the bitmap loop the complete
+        levels instead."""
         resume_state = (self._resume_levels, self._resume_meta,
                         self._resume_label)
         try:
             return self._mine_vertical(data)
+        except _MineEngineClamp as exc:
+            # A peer's walk, adopted at a level boundary (the adoption
+            # recorded the cascade walk): the bitmap loop goes on from
+            # the complete levels.
+            self.set_resume_levels(exc.levels, None, "engine_clamp")
+            ledger.record("mine_engine_fallback", once_key="quorum",
+                          reason="quorum", k=exc.k)
+            return self._mine_levels(data)
         except Exception as exc:
             if not retry.exhausted(exc):
                 raise
@@ -1701,6 +1891,9 @@ class FastApriori:
         ctx = self.ctx
         f = data.num_items
         min_count = data.min_count
+        # The domain's positions first: every resolution below starts at
+        # the agreed floor.
+        quorum.sync("mine.start")
         if resume is None:
             resume = self._take_resume(data)
         if preupload is not None:
@@ -1757,7 +1950,8 @@ class FastApriori:
 
         need_n2 = False
         if (not resume and try_fused and self.engine in ("fused", "auto")
-                and not cfg.checkpoint_prefix):
+                and not cfg.checkpoint_prefix
+                and quorum.stage_allowed("engine", "fused")):
             # A remembered budget or choice decides without level 2.
             lv, partial, need_n2 = self._fused_resident_safe(
                 data, bitmap, n_chunks, t_pad)
@@ -1896,6 +2090,7 @@ class FastApriori:
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
+        quorum.sync("mine.start")
         resume = self._take_resume(data)
         n_threads = ingest_thread_count(cfg.ingest_threads)
         multi = self._multi(data)
@@ -2021,8 +2216,11 @@ class FastApriori:
         drained: list = []  # [(per-level segment sizes, PendingCounts)]
         pending_bytes = [0]
         # The JAX package's gate: a multi-process world reads each
-        # level's counts at once.
-        defer = not cfg.checkpoint_prefix and self.ctx.world == 1
+        # level's counts at once, and so does an elastic domain (a level
+        # whose counts are still on the device is no boundary the
+        # survivors can re-seed from).
+        defer = (not cfg.checkpoint_prefix and self.ctx.world == 1
+                 and not quorum.elastic_enabled())
 
         def note_pending(entries) -> None:
             pending_bytes[0] += sum(c.numel() * 4 for c, _ in entries)
@@ -2051,6 +2249,28 @@ class FastApriori:
         fold_attempts = 2
         last_fold_seed = None
         while cur.shape[0] >= k:
+            # The boundary sync may have adopted a peer's walk since the
+            # last level: clamp this rank's choices before the level's
+            # dispatch, so its next collective matches the domain's.
+            if vertical and not quorum.stage_allowed("mine_engine",
+                                                     "vertical"):
+                # The arena cannot turn into a bitmap in place: the
+                # complete levels go up to _mine_vertical_safe.
+                raise _MineEngineClamp(finish(levels), int(k))
+            if red is not None and red["engine"] == "sparse" and (
+                    not quorum.stage_allowed("count_reduce", "sparse")):
+                ledger.record("count_reduce_fallback", once_key="quorum",
+                              reason="quorum", k=int(k))
+                red["engine"], red["thr"] = "dense", None
+            if self.ctx.exchange_spec is not None and (
+                    not quorum.stage_allowed("exchange", "hier")):
+                ledger.record("exchange_fallback", once_key="quorum",
+                              reason="quorum", k=int(k))
+                self.ctx.exchange_spec = None
+            if fused_ckpt and not quorum.stage_allowed("engine", "fused"):
+                fused_ckpt = False  # per level, still checkpointed
+            if tail_ok and not quorum.stage_allowed("engine", "tail"):
+                tail_ok = False
             if fused_ckpt:
                 # The engine was forced: a segment whenever the seed fits
                 # memory and no segment failed at this size.
@@ -2401,6 +2621,13 @@ class FastApriori:
             stats["plain_kernels"] = True
         if vertical:
             stats.update(engine="vertical", vops=0, member_bytes_saved=0)
+            if not quorum.stage_allowed("vertical_kernel", "cuda"):
+                # A peer walked its vertical kernel tier.  The port's
+                # collectives are the same shape either way and K3 stays
+                # on the card: the floor is recorded, not followed.
+                ledger.record("vertical_kernel_floor", once_key="quorum",
+                              floor=quorum.floor_stage("vertical_kernel"),
+                              kept="cuda")
         empty = (np.empty((0, s + 1), dtype=np.int32),
                  np.empty(0, dtype=np.int64), stats)
         if x_idx.size == 0:

@@ -11,9 +11,18 @@ writes it as a manifest-committed JSON artifact when something dies:
 - the degradation ledger forwards every event here (watchdog timeouts,
   cascade walks and retries included);
 - the tracer appends each completed span while enabled;
+- the quorum domain (reliability/quorum.py) notes every completed sync
+  (``quorum``: its epoch, site and positions) and every elastic rejoin
+  (``mesh_epoch``), and the miner its re-seed after one
+  (``mesh_epoch_reseed``: the epoch, the members, the level it resumes
+  from);
 - :func:`auto_dump` fires at the watchdog's abandoned-thread cap
-  (reliability/watchdog.py) and on the CLI's ``InputError`` exit,
-  against the prefix the CLI registered (:func:`set_dump_prefix`).
+  (reliability/watchdog.py), on the CLI's ``InputError`` exit and when a
+  quorum sync or exchange gives up on a lost peer or a divergent mesh
+  (reason ``PeerLost`` or ``MeshDivergence``, the domain's epoch trail
+  in the dump), against the prefix the CLI registered
+  (:func:`set_dump_prefix`; ``rank<r>.`` after the output prefix in a
+  domain of more than one rank).
 
 ``FA_FLIGHT_RECORDER_N`` sizes the ring (strict; 0 disables), read when
 a recorder is built without a capacity and by :func:`reload_from_env`,

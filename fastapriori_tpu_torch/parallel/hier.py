@@ -83,18 +83,26 @@ def resolve_spec(n_shards: int, requested: int,
     return (requested, n_shards // requested)
 
 
-def resolve_active_spec(n_shards: int, config=None,
-                        n_procs: int = 1) -> GroupSpec:
+def resolve_active_spec(n_shards: int, config=None, n_procs: int = 1,
+                        unclamped: bool = False) -> GroupSpec:
     """The mine's topology: ``FA_EXCHANGE_GROUPS`` (strictly parsed: a
     value that is not an integer >= 0 is an InputError) over
     ``config.exchange_groups``, through :func:`resolve_spec` for
-    ``n_procs`` processes (auto: a group per process)."""
+    ``n_procs`` processes (auto: a group per process), then the quorum
+    domain's floor: once any rank walked ``exchange`` hier -> flat,
+    every rank issues the flat collectives.  ``unclamped`` skips the
+    floor (the caller that records the clamp)."""
+    from fastapriori_tpu_torch.reliability import quorum
     from fastapriori_tpu_torch.utils.env import env_int
 
     req = env_int("FA_EXCHANGE_GROUPS", -1, minimum=0)
     if req < 0:
         req = getattr(config, "exchange_groups", 0) if config else 0
-    return resolve_spec(n_shards, req, n_procs)
+    spec = resolve_spec(n_shards, req, n_procs)
+    if (spec is not None and not unclamped
+            and not quorum.stage_allowed("exchange", "hier")):
+        return None
+    return spec
 
 
 def describe_spec(spec: GroupSpec) -> str:

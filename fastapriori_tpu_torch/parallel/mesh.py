@@ -168,7 +168,7 @@ def all_gather(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     local = _local_all_gather(xs)
     if _WORLD is None:
         return local
-    return torch.cat(_pg_all_gather(local))
+    return torch.cat(_pg_all_gather(local, "all_gather"))
 
 
 def _local_all_gather(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -204,7 +204,7 @@ def psum(xs: Sequence[torch.Tensor], spec: Spec = None,
     multi-process world, over every process's shards (with ``local``,
     this process's only)."""
     if _WORLD is not None and not local:
-        return _pg_sum(flat_psum(xs))
+        return _pg_sum(flat_psum(xs), "psum")
     if spec is None:
         return flat_psum(xs)
     from fastapriori_tpu_torch.parallel.hier import hier_psum
@@ -218,7 +218,7 @@ def union_packed(xs: Sequence[torch.Tensor],
     a multi-process world, over every process's shards."""
     if _WORLD is not None:
         out = flat_union_packed(xs).clone()
-        for other in _pg_all_gather(out):
+        for other in _pg_all_gather(out, "union_packed"):
             out |= other
         return out
     if spec is None:
@@ -235,7 +235,8 @@ def tiled_all_gather(xs: Sequence[torch.Tensor], axis: int = 0,
     order (each process's blocks have one shape; with ``local``, this
     process's blocks only)."""
     if _WORLD is not None and not local:
-        return torch.cat(_pg_all_gather(flat_tiled_all_gather(xs, axis)),
+        return torch.cat(_pg_all_gather(flat_tiled_all_gather(xs, axis),
+                                        "tiled_all_gather"),
                          dim=axis)
     if spec is None:
         return flat_tiled_all_gather(xs, axis)
@@ -259,11 +260,6 @@ def broadcast(x: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # The multi-process world (``--distributed``).
-
-
-class PeerLost(RuntimeError):
-    """A collective of the process group failed: a peer rank died or
-    did not arrive within ``FA_QUORUM_TIMEOUT_S``."""
 
 
 class World:
@@ -323,7 +319,7 @@ def initialize_distributed(platform: str) -> Optional[World]:
     global _WORLD
     import torch.distributed as dist
 
-    from fastapriori_tpu_torch.reliability.quorum import quorum_timeout_s
+    from fastapriori_tpu_torch.reliability import quorum
 
     missing = [k for k in _ENV if not os.environ.get(k)]
     if missing:
@@ -350,7 +346,7 @@ def initialize_distributed(platform: str) -> Optional[World]:
               else torch.device("cpu"))
     if own_cards:
         torch.cuda.set_device(device)
-    timeout_s = quorum_timeout_s()
+    timeout_s = quorum.quorum_timeout_s()
     timeout = datetime.timedelta(seconds=2 * timeout_s)
     try:
         dist.init_process_group(backend, init_method="env://", rank=rank,
@@ -359,21 +355,29 @@ def initialize_distributed(platform: str) -> Optional[World]:
         raise RuntimeError(f"the {backend} process group did not start: "
                            f"{e}") from e
     _WORLD = World(rank, size, local_rank, backend, device, timeout_s)
+    # The quorum domain follows the world: the next hook resolves the
+    # world's torch domain (or the file domain of FA_QUORUM_DIR).
+    quorum.shutdown("reload")
     return _WORLD
 
 
 def shutdown_distributed() -> None:
-    """Leave the world (tests and the CLI's end).  A lost world's
-    process group is left as it is: tearing it down would wait on the
-    collective still pending on the dead peer (the CLI then ends the
-    process)."""
+    """Leave the world (tests and the CLI's end) and forget its quorum
+    domain.  A lost world is left as it is, process group included:
+    tearing it down would wait on the collective still pending on the
+    dead peer (the CLI then ends the process)."""
     global _WORLD
-    if _WORLD is None:
+    if _WORLD is None or _WORLD.lost:
+        # A lost world stays: the process is about to end without
+        # waiting on its pending collective (cli.py ``main``).
         return
     import torch.distributed as dist
 
-    lost, _WORLD = _WORLD.lost, None
-    if dist.is_initialized() and not lost:
+    from fastapriori_tpu_torch.reliability import quorum
+
+    _WORLD = None
+    quorum.shutdown("reload")
+    if dist.is_initialized():
         dist.destroy_process_group()
 
 
@@ -393,12 +397,30 @@ def _to_group(x: torch.Tensor) -> torch.Tensor:
 _POLL_S = 1e-4
 
 
-def _collective(fn, *args) -> None:
-    """One process-group call, waited for at most the world's
-    ``timeout_s``: a peer that died or never arrives raises
-    :class:`PeerLost` within the bound under either backend (NCCL does
-    not notice a dead peer by itself; gloo raises when its connection
-    closes)."""
+def _lost(site: str, detail: str):
+    """The quorum domain's :class:`PeerLost` for a failed collective at
+    ``site``: the lost rank is the other one in a world of two, else
+    unknown (-1)."""
+    from fastapriori_tpu_torch.reliability.quorum import PeerLost
+
+    peer = 1 - _WORLD.rank if _WORLD.size == 2 else -1
+    return PeerLost(peer, site,
+                    f"rank {_WORLD.rank}: a collective of the "
+                    f"{_WORLD.size}-process world failed (a peer died or did "
+                    f"not arrive within FA_QUORUM_TIMEOUT_S): {detail}")
+
+
+def _collective(fn, *args, site: str) -> None:
+    """One process-group call at ``site`` (the collective's name, which
+    a ``PeerLost`` names), waited for at most the world's
+    ``timeout_s``: a peer that died or never arrives raises the quorum
+    domain's ``PeerLost`` within the bound under either backend (NCCL
+    does not notice a dead peer by itself; gloo raises when its
+    connection closes).  Once a collective failed, every later one
+    raises at once: the failed one may still be pending, and a new one
+    would pair with a peer's later call."""
+    if _WORLD.lost:
+        raise _lost(site, "the world was lost at an earlier collective")
     deadline = time.monotonic() + _WORLD.timeout_s
     try:
         work = fn(*args, async_op=True)
@@ -410,10 +432,7 @@ def _collective(fn, *args) -> None:
         work.wait()
     except RuntimeError as e:
         _WORLD.lost = True
-        raise PeerLost(f"rank {_WORLD.rank}: a collective of the "
-                       f"{_WORLD.size}-process world failed (a peer died or "
-                       f"did not arrive within FA_QUORUM_TIMEOUT_S): "
-                       f"{str(e)[:300]}") from e
+        raise _lost(site, str(e)[:300]) from e
 
 
 def _from_group(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -424,24 +443,30 @@ def _from_group(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.to(like.device, non_blocking=like.device.type == "cuda")
 
 
-def _pg_sum(x: torch.Tensor) -> torch.Tensor:
+def _pg_sum(x: torch.Tensor, site: str) -> torch.Tensor:
     """The process group's all-reduce sum of ``x``, on ``x``'s device."""
     import torch.distributed as dist
 
     y = _to_group(x).clone()
-    _collective(dist.all_reduce, y, dist.ReduceOp.SUM)
+    _collective(dist.all_reduce, y, dist.ReduceOp.SUM, site=site)
     return _from_group(y, x)
 
 
-def _pg_all_gather(x: torch.Tensor) -> List[torch.Tensor]:
+def _pg_all_gather(x: torch.Tensor, site: str) -> List[torch.Tensor]:
     """Every rank's ``x`` (one shape on every rank), in rank order, on
     ``x``'s device."""
     import torch.distributed as dist
 
     y = _to_group(x)
     outs = [torch.empty_like(y) for _ in range(_WORLD.size)]
-    _collective(dist.all_gather, outs, y)
+    _collective(dist.all_gather, outs, y, site=site)
     return [_from_group(o, x) for o in outs]
+
+
+def world_all_gather(x: torch.Tensor, site: str) -> List[torch.Tensor]:
+    """Every rank's ``x``, in rank order (the quorum domain's torch
+    transport); ``[x]`` in one process."""
+    return [x] if _WORLD is None else _pg_all_gather(x, site)
 
 
 def agree() -> None:
@@ -451,10 +476,9 @@ def agree() -> None:
     :class:`PeerLost` here instead of writing.  A no-op in one
     process."""
     if _WORLD is not None:
-        n = int(_pg_sum(torch.ones(1, dtype=torch.int32)).item())
+        n = int(_pg_sum(torch.ones(1, dtype=torch.int32), "agree").item())
         if n != _WORLD.size:
-            raise PeerLost(f"rank {_WORLD.rank}: {n} of the "
-                           f"{_WORLD.size} ranks agreed")
+            raise _lost("agree", f"{n} of the {_WORLD.size} ranks agreed")
 
 
 def allgather_bytes(blob: bytes) -> List[bytes]:
@@ -467,10 +491,10 @@ def allgather_bytes(blob: bytes) -> List[bytes]:
     failpoints.fire("allgather")
     if _WORLD is None:
         return [blob]
-    lens = [int(n) for n in
-            _pg_all_gather(torch.tensor([len(blob)], dtype=torch.int64))]
+    lens = [int(n) for n in _pg_all_gather(
+        torch.tensor([len(blob)], dtype=torch.int64), "allgather")]
     buf = torch.zeros(max(max(lens), 1), dtype=torch.uint8)
     if blob:
         buf[: len(blob)] = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
     return [bytes(g[:n].numpy().tobytes())
-            for g, n in zip(_pg_all_gather(buf), lens)]
+            for g, n in zip(_pg_all_gather(buf, "allgather"), lens)]

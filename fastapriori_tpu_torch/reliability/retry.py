@@ -244,13 +244,15 @@ def exhausted(exc: BaseException) -> Optional[str]:
     test every cascade walk makes before it walks.  Only
     :func:`call_with_retries` sets it, so an error raised outside an
     audited call (a kernel wrapper's launch or allocation, an operation
-    between fetches) has none.  Always None in a multi-process world:
-    without the quorum domain no rank may walk alone (its peers would
-    issue other collectives), so the error ends the rank and its peers
-    see it within ``FA_QUORUM_TIMEOUT_S``."""
+    between fetches) has none.  In a multi-process world the rank that
+    gave up walks when a quorum domain is active (its walk is a proposal
+    its peers adopt, reliability/quorum.py); without one, never: the
+    error ends the rank and its peers see it within
+    ``FA_QUORUM_TIMEOUT_S``."""
     from fastapriori_tpu_torch.parallel import mesh
+    from fastapriori_tpu_torch.reliability import quorum
 
-    if mesh.process_count() > 1:
+    if mesh.process_count() > 1 and quorum.active() is None:
         return None
     return getattr(exc, "fa_retries_exhausted_at", None)
 

@@ -1,6 +1,5 @@
 """Dispatch watchdog and the degradation cascade (counterpart:
-fastapriori_tpu/reliability/watchdog.py at one process: no quorum
-proposals).
+fastapriori_tpu/reliability/watchdog.py).
 
 **Watchdog.**  A blocking fetch can hang (a wedged device, a runtime
 bug), and the retry layer sees only raised errors.  :func:`guard` bounds
@@ -34,8 +33,11 @@ On a mesh of more than one transaction shard the level engine also walks
 ``exchange`` (hier -> flat) and ``count_reduce`` (sparse -> dense), again
 only when a sparse reduction's audited fetch used up its retries (the
 level, or the pair phase, is then counted dense); a union past its
-budget walks ``count_reduce`` for that reduction.  ``elastic`` belongs
-to multi-process mining, which this port does not have yet.
+budget walks ``count_reduce`` for that reduction.  In a multi-process
+fault domain (reliability/quorum.py) a walk of a chain in
+``CONSENSUS_CHAINS`` is proposed to the domain and adopted by every
+rank; ``elastic`` (continue -> abort) is walked when elastic
+continuation spends its ``FA_EPOCH_RETRY_MAX`` budget.
 """
 
 from __future__ import annotations
@@ -90,6 +92,15 @@ def downgrade(
             f"cascade {chain}: {frm!r} -> {to!r} walks backward "
             f"(chain order {order})"
         )
+    if reason != "quorum":
+        # A local walk of a chain that shapes the mesh's collectives is
+        # a proposal to the fault domain at once (peers adopt it before
+        # their next dispatch); an adoption comes back here with reason
+        # "quorum" and proposes nothing.  No-op without a domain.
+        from fastapriori_tpu_torch.reliability import quorum
+
+        if chain in quorum.CONSENSUS_CHAINS:
+            quorum.propose(chain, to, reason)
     ledger.record(
         "cascade",
         once_key=once_key or f"{chain}:{frm}>{to}:{reason}",

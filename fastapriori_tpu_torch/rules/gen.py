@@ -28,6 +28,9 @@ state on the device for the recommender's scan table
 device engine whose fetches failed past their retries
 (reliability/retry.py: transient errors only), walk the cascade's
 ``rule_engine`` chain (sharded or device -> host) with a ledger event.
+In a quorum domain (reliability/quorum.py) phase 2 starts with the
+``rules.start`` rendezvous and both choices honour the domain's
+``rule_engine`` floor.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from fastapriori_tpu_torch.ops.contain import (
     rule_shard_stage_bytes,
 )
 from fastapriori_tpu_torch.parallel import hier, mesh
-from fastapriori_tpu_torch.reliability import ledger, retry, watchdog
+from fastapriori_tpu_torch.reliability import ledger, quorum, retry, watchdog
 from fastapriori_tpu_torch.utils.env import env_choice, env_int
 from fastapriori_tpu_torch.utils.order import consequent_key
 
@@ -120,15 +123,16 @@ def _max_count(mats: Dict[int, Tuple[np.ndarray, np.ndarray]]) -> int:
 
 def resolve_rule_shards(context, config) -> int:
     """Shards of the device rule join (counterpart: the JAX package's
-    ``resolve_rule_shards``, whose quorum floor comes with the quorum
-    domain): ``FA_RULE_SHARDS`` (strictly parsed) over
+    ``resolve_rule_shards``): ``FA_RULE_SHARDS`` (strictly parsed) over
     ``config.rule_shards``, 0 = auto.  Auto takes the whole transaction
     axis on an eligible mesh (one process, no cand axis: the sharded
     join's exchanges run over the transaction shards of one process) and
     1 elsewhere; 1 pins the join to shard 0's device; any other value
     must be the mesh's transaction shard count on an eligible mesh
     (InputError otherwise: the join shards over the existing mesh, it
-    cannot carve a sub-mesh)."""
+    cannot carve a sub-mesh).  Under the quorum domain's ``rule_engine``
+    floor past "sharded" it is 1 (a ``rule_gen_fallback`` event when a
+    sharded join was asked for)."""
     req = env_int("FA_RULE_SHARDS", 0, minimum=0)
     src = "FA_RULE_SHARDS"
     if req == 0:
@@ -141,8 +145,12 @@ def resolve_rule_shards(context, config) -> int:
             )
     eligible = (context is not None and context.world == 1
                 and context.cand_shards == 1)
+    # The quorum floor, judged apart from the mesh's eligibility: once a
+    # rank walked rule_engine past "sharded", the join's exchanges are
+    # off for the whole domain, and a valid request degrades with it.
+    quorum_ok = quorum.stage_allowed("rule_engine", "sharded")
     if req == 0:
-        return context.txn_shards if eligible else 1
+        return context.txn_shards if eligible and quorum_ok else 1
     if req == 1:
         return 1
     if not eligible:
@@ -157,6 +165,12 @@ def resolve_rule_shards(context, config) -> int:
             f"({context.txn_shards} shards): phase 2 shards over the "
             "existing mesh, it cannot carve a sub-mesh"
         )
+    if not quorum_ok:
+        # The adoption recorded the cascade walk; this is its local
+        # consequence.
+        ledger.record("rule_gen_fallback", once_key="quorum_shards",
+                      reason="quorum", requested_shards=req)
+        return 1
     return req
 
 
@@ -182,6 +196,15 @@ def _pick_rule_engine(mats, context, config, metrics=None) -> str:
     if engine == "host":
         return "host"
     raw = _raw_rule_count(mats)
+    if not quorum.stage_allowed("rule_engine", "device"):
+        # A peer walked phase 2 to the host engine: the device joins
+        # would issue collectives it never matches.
+        if engine == "device":
+            ledger.record("rule_gen_fallback", reason="quorum",
+                          raw_rules=raw)
+            watchdog.downgrade("rule_engine", "device", "host",
+                               reason="quorum")
+        return "host"
 
     def fallback(reason: str) -> str:
         if engine == "device":
@@ -405,7 +428,13 @@ def rule_arrays_from_tables(
     engine :func:`_pick_rule_engine` picks (both give the same arrays);
     a ``context`` (device.py ``DeviceContext``) makes the device engine
     eligible, and ``scan_state`` keeps its per-level state on the device
-    for the recommender's scan table."""
+    for the recommender's scan table.
+
+    First the ``rules.start`` rendezvous of the quorum domain (a no-op
+    without one): positions a peer walked while mining are adopted
+    before the engine is picked, so phase 2's first collective is the
+    same on every rank."""
+    quorum.sync_or_rejoin("rules.start", wait=True)
     if _pick_rule_engine(mats, context, config, metrics) == "device":
         shards = resolve_rule_shards(context, config)
         spec = None

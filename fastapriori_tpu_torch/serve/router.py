@@ -47,10 +47,13 @@ from fastapriori_tpu_torch.parallel.hier import (  # noqa: F401
     spill_order,
 )
 from fastapriori_tpu_torch.reliability import ledger, watchdog
-from fastapriori_tpu_torch.reliability.quorum import quorum_timeout_s
+from fastapriori_tpu_torch.reliability.quorum import (
+    heartbeat_ms,
+    quorum_timeout_s,
+)
 from fastapriori_tpu_torch.serve.server import RecommendServer, ServeRequest
 from fastapriori_tpu_torch.serve.state import ServingState
-from fastapriori_tpu_torch.utils.env import env_float, env_int
+from fastapriori_tpu_torch.utils.env import env_int
 
 _HOSTS: Optional[int] = None
 
@@ -68,12 +71,6 @@ def reload_from_env() -> None:
     """Forget the parsed knob (tests change the environment)."""
     global _HOSTS
     _HOSTS = None
-
-
-def heartbeat_ms() -> float:
-    """``FA_HEARTBEAT_MS``: the monitor's poll interval in milliseconds
-    (strict; default 200), the JAX package's heartbeat knob."""
-    return env_float("FA_HEARTBEAT_MS", 200.0, minimum=1.0)
 
 
 class LocalHost:

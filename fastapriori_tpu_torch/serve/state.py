@@ -216,8 +216,11 @@ class ServingState:
     def save(self, prefix: str) -> str:
         """Write ``<prefix>serving.npz`` through the crash-safe writer and
         its manifest entry (a killed save leaves the old artifact or the
-        new one; a truncated one fails validation at load).  One
-        process: no writer fence."""
+        new one; a truncated one fails validation at load), its manifest
+        stamped with the quorum writer's fence (None without a
+        domain)."""
+        from fastapriori_tpu_torch.reliability import quorum
+
         arrays = {
             "meta": np.array(
                 [1, len(self.levels), len(self.freq_items)], dtype=np.int64),
@@ -233,7 +236,7 @@ class ServingState:
         manifest: Dict[str, dict] = {}
         path = write_artifact_bytes(
             prefix + SERVING_NAME, [buf.getvalue()], SERVING_NAME, manifest)
-        write_manifest(prefix, manifest, fence=None)
+        write_manifest(prefix, manifest, fence=quorum.writer_fence())
         return path
 
     @classmethod

@@ -16,9 +16,12 @@ The port reads ``FA_MINE_ENGINE``, ``FA_COUNT_REDUCE``,
 ``FA_TRACE_EVENTS`` (obs/trace.py), ``FA_FLIGHT_RECORDER_N``
 (obs/flight.py), ``FA_METRICS_DUMP_S`` (obs/metrics.py) and
 ``FA_DEVICE_TRACE`` (obs/device_trace.py), and the serving tier's
-``FA_SERVE_PIPELINE_DEPTH`` (serve/server.py), ``FA_SERVE_HOSTS``,
-``FA_HEARTBEAT_MS`` and ``FA_QUORUM_TIMEOUT_S`` (serve/router.py); a
-value it does not know is an error, never a quiet default.
+``FA_SERVE_PIPELINE_DEPTH`` (serve/server.py) and ``FA_SERVE_HOSTS``
+(serve/router.py), and the quorum domain's ``FA_QUORUM_DIR``,
+``FA_QUORUM_RANK``, ``FA_QUORUM_PROCS``, ``FA_QUORUM_TIMEOUT_S``,
+``FA_HEARTBEAT_MS`` and ``FA_EPOCH_RETRY_MAX``
+(reliability/quorum.py); a value it does not know is an error, never a
+quiet default.
 """
 
 from __future__ import annotations
@@ -64,6 +67,12 @@ def env_choice(
         f"unrecognized {name} value {raw!r}: use one of "
         f"{'/'.join(choices)} (or unset for the config default)"
     )
+
+
+def env_str(name: str, default: str = "") -> str:
+    """Free-form knob (a path: every string is valid): the value with
+    surrounding blanks stripped, ``default`` when unset or blank."""
+    return os.environ.get(name, "").strip() or default
 
 
 def env_int(name: str, default: int, minimum: Optional[int] = None) -> int:

@@ -117,8 +117,8 @@ def test_nccl_collectives_are_complete_when_they_return():
 def test_nccl_rank_whose_peer_died_ends_non_zero_in_the_bound(tmp_path):
     """tests/test_torch_distributed.py's failed fetch on rank 1, over
     NCCL: rank 1 exits on its failpoint, and rank 0, whose next
-    collective never completes, ends non-zero within the bound; neither
-    writes."""
+    collective never completes, ends with exit 3 (a lost peer) within
+    the bound; neither writes."""
     _two_cards()
     from fastapriori_tpu_torch.utils.datagen import (
         generate_transactions,
@@ -145,6 +145,8 @@ def test_nccl_rank_whose_peer_died_ends_non_zero_in_the_bound(tmp_path):
              "FA_RETRY_BACKOFF_MS": "0"}}, outs=[str(o) + "/" for o in outs])
     assert rc1 != 0 and "fetch.level_bits" in err1, err1[-3000:]
     assert rc0 != 0 and "collective" in err0, err0[-3000:]
+    # A lost peer is a classified fault-domain exit.
+    assert rc0 == 3, err0[-3000:]
     # Start-up and the process group's first call take a few seconds.
     assert t0 < QUORUM_S + 30, t0
     assert not os.listdir(outs[0]) and not os.listdir(outs[1])
