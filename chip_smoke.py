@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (fastapriori_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards N   # phases 12 and 13 over N cards
+    python3 chip_smoke.py --cards N   # phases 12, 13, 11 (h), 14 over N cards
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -169,10 +169,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and the device memory drops at the barrier by at least the old
    table's bytes; (f) ``--hosts 2`` from (a)'s artifact: the digest,
    both hosts served; (g) ``FA_NO_PALLAS=1``: the digest, no K2 launch,
-   one ``pallas_disabled``.  Every serving run, CLI or API, has its
-   launch counts set to 0 just before it and read just after: K2's
-   equal the scan dispatches the serving states counted, and K1 and K3
-   launch no time in a run that mined nothing.
+   one ``pallas_disabled``; (h) two worker-process hosts (``ProcHost``,
+   ``python -m fastapriori_tpu_torch.serve.router --worker``) on cuda:0,
+   started while (e) runs, serving (a)'s artifact behind the router:
+   their ready signatures and answers equal a LocalHost run's on the
+   same artifact, a swap across both hosts to (c)'s model (answers equal
+   a LocalHost run's on it), then worker 0 killed a quarter into a
+   burst (its in-flight requests answered "0" and counted as sheds,
+   every other answer the model's); each worker's K2 launches from its
+   ``stats.json`` (the survivor's equal to the scan dispatches of both
+   models it mounted), the router process launching nothing.  Every
+   serving run, CLI or API, has its launch counts set to 0 just before
+   it and read just after: K2's equal the scan dispatches the serving
+   states counted, and K1 and K3 launch no time in a run that mined
+   nothing.
 12. The one-process device mesh (``mesh_phase``): S transaction
    shards on the one card, a ``DeviceContext`` whose device list names
    cuda:0 S times, injected into the CLI's ``_run`` (``_run_serve``):
@@ -237,16 +247,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``FA_EPOCH_RETRY_MAX=0`` the same kill ends rank 0 with exit 3.  One
    line per case: each rank's exit code, wall, peak device memory,
    launches, mesh epoch and fence.
+15. The object-form library API at the MovieLens shape
+   (``movielens_phase``): the prep child writes the doc corpus
+   (``generate_doc_transactions``: 162,000 transactions over 59,000
+   items, length 153, seed 2017; bench.py:96) and 16,200 user baskets
+   (seed 2018; bench.py:1408-1414), whose files' SHA-256 must equal the
+   JAX generators'; then, the launch counts set to 0 just before and
+   read just after, ``FastApriori(0.1).run_file(D)``,
+   ``AssociationRules(itemsets, freq_items, item_to_rank).run(users,
+   use_device=True)``, ``save_freq_itemsets`` and ``save_recommends``:
+   both digests equal the JAX CLI's, K1 and K2 launched as often as the
+   run's level and first_match events say (K1 at least once, on the
+   level loop; K2 on the table built from the object-form rules); one
+   line with F, the levels, the itemset and rule counts, the walls of
+   generation, mine (decode), rules, scan and writes, and the peak
+   device memory; then every K1 launch replayed at the run's shapes and
+   K2's scan block, each against its plain version.
 
-``--cards N`` (N >= 2 visible cards) runs phases 1, 2, 12 and 13 alone,
-with each mesh's shard t on card ``t mod N`` and phase 13's rank r on
-card r over NCCL, with the same checks; it prints the mesh and world
-summaries, the first card's name and power limit and the same last
-line.
+``--cards N`` (N >= 2 visible cards) runs phases 1, 2, 12 and 13, with
+each mesh's shard t on card ``t mod N`` and phase 13's rank r on card r
+over NCCL, then phase 11 (h) with worker i on card i (T10's two models
+mined and saved first) and phase 14's torch-transport cases (a) and
+(b) over NCCL with rank r on card r, with the same checks; it prints
+the mesh, world, ProcHost and quorum summaries, the first card's name
+and power limit and the same last line.
 
 Every child process starts first, when ``nvidia-smi`` is on the path:
 the prep child, which writes both corpora and runs the Python ingest of
-each (phase 4's compare) while this process builds the kernels, the
+each (phase 4's compare) while this process builds the kernels, then
+writes phase 15's corpus, the
 cold runs of phases 6 and 8, one kill worker that serves phase 9's
 three killed runs, and phase 13's two rank workers; phase 14's four
 start just before phase 12.  All but the first
@@ -292,6 +321,25 @@ KOSARAK = {
         "9b510238756f3acba31addfac72f3c07255e57f1c88065fc4658129854799167",
     "rec_sha256":
         "b5a59dffec02a2fe3563f321739f211b889a4dea93807b682efa1d0b470f850b",
+}
+
+# Phase 15: the MovieLens-shape corpus (bench.py:96) and its users
+# (bench.py:1408-1414), the SHA-256 of D.dat and U.dat as the JAX
+# package's generators write them (tests/test_torch_datagen.py holds
+# the port's generators to them), and of freqItemset / recommends
+# written by `python -m fastapriori_tpu <in>/ <out>/ --min-support 0.1
+# --platform cpu --engine level --num-devices 1` on those files.
+MOVIELENS = {
+    "n_txns": 162_000, "n_items": 59_000, "avg_txn_len": 153, "seed": 2017,
+    "n_users": 16_200, "user_seed": 2018, "min_support": "0.1",
+    "d_sha256":
+        "22af453633275b3e3fef5b085cc0e679ec31ddf3860dfac9ee2cd5e195bb4208",
+    "u_sha256":
+        "144938a5b3a4c26eeb5c508fb341d06f20bfa9e6e0c9a320112b65ca14ca8015",
+    "freq_sha256":
+        "b71064e90528cf316f96630b62a69cce21250fa3474828f2729fa86a34c44e56",
+    "rec_sha256":
+        "f07567d5864104dc07721ff249ebee4a69e064f87f301e40266ebbe7dfa68354",
 }
 
 # Published H100 SXM peaks (dense; NVIDIA data sheet, at 700 W).
@@ -827,10 +875,12 @@ def ingest_digests(data) -> dict:
     return out
 
 
-# The corpora, then the Python ingest of each (phase 4's compare), in a
-# child started first (:class:`Child`): it needs no card, so it runs
-# while this process builds the kernels.  One reply when both corpora
-# are written, one with the Python ingests' walls and digests.
+# The corpora, then the Python ingest of each (phase 4's compare), then
+# phase 15's MovieLens-shape corpus, in a child started first
+# (:class:`Child`): it needs no card, so it runs while this process
+# builds the kernels and runs the phases before 15.  One reply when both
+# corpora are written, one with the Python ingests' walls and digests,
+# one with the MovieLens-shape corpus's wall and digests.
 PREP = """
 import json, os, time
 import chip_smoke as cs
@@ -849,6 +899,8 @@ for name, in_dir, _, min_support in cs.corpora():
     out[name] = {"python_s": time.perf_counter() - t0,
                  "digests": cs.ingest_digests(data)}
 print("REPLY " + json.dumps(out), flush=True)
+print("REPLY " + json.dumps(cs.write_doc_corpus(cs.MOVIELENS_DIR)),
+      flush=True)
 """
 
 
@@ -869,6 +921,34 @@ def write_corpus(in_dir: str, n_txns: int, n_items: int, avg_txn_len: int,
         f.write("\n".join(generate_user_baskets(
             n_users=n_users, n_items=n_items, seed=user_seed)) + "\n")
     log(f"datagen {in_dir}: {time.perf_counter() - t0:.3f} s")
+
+
+MOVIELENS_DIR = os.path.join(WORK, "mlin")
+
+
+def write_doc_corpus(in_dir: str) -> dict:
+    """Phase 15's corpus (:data:`MOVIELENS`) by the port's doc-corpus and
+    user-basket generators: the wall and each file's SHA-256."""
+    from fastapriori_tpu_torch.utils.datagen import (
+        generate_doc_transactions,
+        generate_user_baskets,
+    )
+
+    os.makedirs(in_dir, exist_ok=True)
+    spec = MOVIELENS
+    t0 = time.perf_counter()
+    with open(os.path.join(in_dir, "D.dat"), "w") as f:
+        f.write("\n".join(generate_doc_transactions(
+            n_txns=spec["n_txns"], n_items=spec["n_items"],
+            avg_txn_len=spec["avg_txn_len"], seed=spec["seed"])) + "\n")
+    with open(os.path.join(in_dir, "U.dat"), "w") as f:
+        f.write("\n".join(generate_user_baskets(
+            n_users=spec["n_users"], n_items=spec["n_items"],
+            seed=spec["user_seed"])) + "\n")
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall,
+            "d_sha256": sha256(os.path.join(in_dir, "D.dat")),
+            "u_sha256": sha256(os.path.join(in_dir, "U.dat"))}
 
 
 # The environment variables the CLI reads (cli_path sets them per call).
@@ -1555,22 +1635,34 @@ def scan_crossover(path: str, rec, baskets) -> None:
 
 def k2_measure(path: str, in_dir: str, data, levels, device) -> dict:
     """Phase 5, K2: the path's first scan micro-batch (each path's
-    recommend runs one, its only launch), then :func:`scan_crossover` on its baskets."""
-    import torch
-
+    recommend runs one, its only launch, :func:`k2_replay`), then
+    :func:`scan_crossover` on its baskets."""
     from fastapriori_tpu_torch.io.reader import read_dat
     from fastapriori_tpu_torch.models.recommender import AssociationRules
+    from fastapriori_tpu_torch.preprocess import dedup_user_baskets
+
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, device=device)
+    baskets, _, _ = dedup_user_baskets(
+        read_dat(os.path.join(in_dir, "U.dat")), data.item_to_rank)
+    out = k2_replay(path, rec, baskets, device)
+    scan_crossover(path, rec, baskets)
+    return out
+
+
+def k2_replay(path: str, rec, baskets, device) -> dict:
+    """K2 at the first scan micro-batch of ``rec`` on ``baskets``: held
+    against its plain version and timed (CUDA events and torch.profiler),
+    with its bound."""
+    import torch
+
     from fastapriori_tpu_torch.ops.match_kernel import (
         NO_MATCH,
         first_match,
         first_match_plain,
     )
-    from fastapriori_tpu_torch.preprocess import dedup_user_baskets
 
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, device=device)
-    baskets, _, _ = dedup_user_baskets(
-        read_dat(os.path.join(in_dir, "U.dat")), data.item_to_rank)
     _, _, bm, blen = next(rec.micro_batches(baskets))
     ant, size, cons = rec.table()
     args = (torch.from_numpy(bm).to(device), torch.from_numpy(blen).to(device),
@@ -1598,7 +1690,6 @@ def k2_measure(path: str, in_dir: str, data, levels, device) -> dict:
         f"bound "
         f"{bound_ms:.4f} ms ({bound_by}); matched "
         f"{int((got < NO_MATCH).sum().item())} of {len(baskets)} baskets")
-    scan_crossover(path, rec, baskets)
     # Each path's recommend launches K2 once: this micro-batch.
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1769,8 +1860,8 @@ t0 = time.perf_counter()
 host = sort_rule_arrays(gen_rule_arrays_levels(levels, data.item_counts),
                         data.freq_items)
 t1 = time.perf_counter()
-rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                       data.item_counts, config=MinerConfig(
+rec = AssociationRules([], data.freq_items, data.item_to_rank, levels=levels,
+                       item_counts=data.item_counts, config=MinerConfig(
                            rule_engine="device"))
 rec.rule_arrays()
 t2 = time.perf_counter()
@@ -1874,15 +1965,17 @@ def rule_compare(name: str, in_dir: str, min_support: str, knobs: dict,
 
     users = read_dat(os.path.join(in_dir, "U.dat"))
     baskets, _, _ = dedup_user_baskets(users, data.item_to_rank)
-    rec_host = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                                data.item_counts,
+    rec_host = AssociationRules([], data.freq_items, data.item_to_rank,
+                                levels=levels,
+                                item_counts=data.item_counts,
                                 config=MinerConfig(rule_engine="host"),
                                 device=device)
     want = rec_host.run(users, use_device=True)
     # At or above the floor auto itself takes the device engine.
     engine = "auto" if raw >= floor else "device"
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts,
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts,
                            config=MinerConfig(rule_engine=engine),
                            device=device)
     rec.ctx.sync_check = True
@@ -1940,8 +2033,9 @@ def rule_compare(name: str, in_dir: str, min_support: str, knobs: dict,
         host_runs.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                             data.item_counts,
+        r = AssociationRules([], data.freq_items, data.item_to_rank,
+                             levels=levels,
+                             item_counts=data.item_counts,
                              config=MinerConfig(rule_engine="device"),
                              device=device)
         r.rule_arrays()
@@ -2182,8 +2276,9 @@ def api_run(name: str, in_dir: str, out_dir: str, min_support: str,
     launches = {n: fn.launches for n, fn in kernels.items()}
     os.makedirs(out_dir, exist_ok=True)
     save_freq_itemsets_levels(out_dir + "/", levels, data.freq_items)
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, config=cfg)
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, config=cfg)
     save_recommends(out_dir + "/", rec.run(read_dat(
         os.path.join(in_dir, "U.dat"))))
     check_digests(name, out_dir,
@@ -2946,11 +3041,18 @@ def serving_phase(in_dir: str, device, card: str,
     out, launches_by = serve_cli_runs(in_dir, main_launches)
     records, api_launches, serve_k2 = open_loop_runs(in_dir, device, card)
     out["open_loop"] = records
+    # (h)'s workers start up while (e) runs, on (a)'s model.
+    model, big = (os.path.join(WORK, name) + "/"
+                  for name in ("out_serve", "out_serve_big"))
+    box = start_proc_hosts(model)
     swap, swap_launches = hot_swap_run(
         in_dir, device, records["depth2"]["capacity_rps"])
     out["hot_swap"] = swap
     launches_by.update(api_launches)
     launches_by["t10i4d100k_serve_hot_swap_api"] = swap_launches
+    out["proc_host"], proc_launches = proc_host_run(
+        box, model, big, in_dir, device, card)
+    launches_by.update(proc_launches)
     by_kernel = {kernel: {path: launches[kernel]
                           for path, launches in launches_by.items()}
                  for kernel in kernel_launches()}
@@ -2958,6 +3060,189 @@ def serving_phase(in_dir: str, device, card: str,
     log(f"serving phase ({card}): {out['wall_s']:.3f} s")
     log("serving summary: " + json.dumps(out))
     return out, by_kernel, serve_k2
+
+
+# Phase 11 (h): the worker-process hosts' queue bound, far above a
+# burst, so a run sheds only when a host dies; every started host, for
+# the script's end to stop.
+PROC_QUEUE_DEPTH = 1 << 15
+PROC_HOST_BOXES: list = []
+
+
+def start_proc_hosts(prefix: str, cards: int = 1) -> dict:
+    """Phase 11 (h)'s two ``ProcHost`` workers on ``prefix``'s model,
+    started in a thread (each worker's start-up, torch's import and the
+    model's mount overlap the parent's work): worker 0's scan slowed 5 ms
+    a batch (its share is in flight when it is killed); worker i on card
+    i when ``cards`` > 1, else both on cuda:0."""
+    from fastapriori_tpu_torch.serve import ProcHost
+
+    box: dict = {}
+    PROC_HOST_BOXES.append(box)
+
+    def start(i: int) -> None:
+        env = {"FA_FAILPOINTS": "fetch.serve_match:delay@5" if i == 0
+               else ""}
+        if cards > 1:
+            env["CUDA_VISIBLE_DEVICES"] = str(i)
+        try:
+            box[i] = ProcHost(f"proc{i}", os.path.join(WORK, f"proc{i}"),
+                              prefix, batch_rows=256,
+                              queue_depth=PROC_QUEUE_DEPTH,
+                              start_timeout_s=180.0, env=env)
+        except BaseException as exc:  # reported by proc_host_run
+            box[i] = exc
+
+    for i in range(2):
+        shutil.rmtree(os.path.join(WORK, f"proc{i}"), ignore_errors=True)
+    threads = [threading.Thread(target=start, args=(i,), daemon=True)
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    box["threads"] = threads
+    box["t0"] = time.perf_counter()
+    return box
+
+
+def local_answers(prefix: str, u_lines, device) -> tuple:
+    """The LocalHost run: two in-process hosts on ``device`` serving
+    ``prefix``'s model behind the router; ``(answers, signature)``."""
+    from fastapriori_tpu_torch.serve import (
+        LocalHost,
+        MeshRouter,
+        RecommendServer,
+        ServingState,
+    )
+
+    states = [ServingState.load(prefix, device=device) for _ in range(2)]
+    mesh = MeshRouter([LocalHost(f"local{i}", RecommendServer(
+        st, batch_rows=256, queue_depth=PROC_QUEUE_DEPTH).start())
+        for i, st in enumerate(states)])
+    reqs = [mesh.submit(t) for t in u_lines]
+    if not mesh.wait_for(reqs, timeout_s=120.0) or any(r.shed for r in reqs):
+        raise SystemExit(f"LocalHost run on {prefix}: unanswered or shed")
+    mesh.stop()
+    for st in states:
+        st.release()
+    return [r.item for r in reqs], states[0].signature
+
+
+def proc_host_run(box: dict, prefix: str, big_prefix: str, in_dir: str,
+                  device, card: str, cards: int = 1) -> tuple:
+    """Phase 11 (h) (the module docstring): the ``ProcHost`` mesh against
+    the LocalHost run, a swap to ``big_prefix``'s model across both
+    hosts, worker 0 killed mid-burst.  Returns ``(record, {path:
+    launches})``, each worker's launches from its ``stats.json``."""
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.serve import MeshRouter
+
+    u_lines = read_dat(os.path.join(in_dir, "U.dat"))
+    want, sig = local_answers(prefix, u_lines, device)
+    want_big, big_sig = local_answers(big_prefix, u_lines, device)
+    for t in box["threads"]:
+        t.join(300.0)
+    hosts = [box.get(i) for i in range(2)]
+    for i, h in enumerate(hosts):
+        if not hasattr(h, "signature"):
+            raise SystemExit(f"ProcHost proc{i}: {h!r}")
+    start_s = time.perf_counter() - box["t0"]
+    kernels = zero_launches()
+    mesh = MeshRouter(hosts)
+    try:
+        rec = proc_host_checks(mesh, hosts, u_lines, want, sig, want_big,
+                               big_sig, big_prefix)
+    except SystemExit as exc:
+        # Each worker's exit code, stats and last stderr lines.
+        why = "; ".join(f"{h.name}: exit {h.proc.poll()}, stats "
+                        f"{h.stats()}, log {h._log_tail()}" for h in hosts)
+        raise SystemExit(f"{exc} ({why})") from None
+    finally:
+        mesh.stop()
+    rec.update(start_s=start_s, cards=cards)
+    parent = read_launches(kernels)
+    if any(parent.values()):
+        raise SystemExit(f"ProcHost: the router process launched {parent}")
+    launches_by = {}
+    rec["hosts"] = {}
+    for h, row in zip(hosts, mesh.stats()["per_host"]):
+        # From each worker's stats.json: the survivor's final one (K2 =
+        # the scan dispatches of both models it mounted, the warm probes
+        # included), the killed worker's last heartbeat's.
+        got = row.get("launches", {})
+        want_k2 = row.get("scan_dispatches_total", -1)
+        bad = (got.get("first_match", 0) < 2 or got.get("level_counts")
+               or got.get("vertical_counts"))
+        if h is hosts[1]:
+            bad = bad or got.get("first_match") != want_k2
+        if bad:
+            raise SystemExit(f"ProcHost {h.name}: launches {got}, scan "
+                             f"dispatches {want_k2}")
+        launches_by[f"t10i4d100k_proc_host_{h.name}"] = {
+            k: got.get(k, 0) for k in kernel_launches()}
+        rec["hosts"][h.name] = {"served": row.get("served"),
+                                "launches": got,
+                                "scan_dispatches_total": want_k2}
+    where = "one worker per card" if cards > 1 else "two workers on cuda:0"
+    log(f"serve ProcHost ({card}, {where}): answers equal the LocalHost "
+        f"run's, swap to {big_sig[:16]} in {rec['swap_s']:.3f} s, worker 0 "
+        f"killed mid-burst: {rec['lost_shed']} in-flight requests answered "
+        f"0 as sheds; {json.dumps(rec)}")
+    return rec, launches_by
+
+
+def proc_host_checks(mesh, hosts, u_lines, want, sig, want_big, big_sig,
+                     big_prefix) -> dict:
+    """:func:`proc_host_run`'s three runs on the started mesh, checked;
+    returns their walls and shed counts."""
+    rec = {}
+    if {h.signature for h in hosts} != {sig}:
+        raise SystemExit(f"ProcHost: ready signatures "
+                         f"{[h.signature for h in hosts]} != {sig}")
+    t0 = time.perf_counter()
+    reqs = [mesh.submit(t) for t in u_lines]
+    if not mesh.wait_for(reqs, timeout_s=120.0):
+        raise SystemExit("ProcHost: requests unanswered in 120 s")
+    rec["serve_s"] = time.perf_counter() - t0
+    if [r.item for r in reqs] != want or any(r.shed for r in reqs):
+        bad = sum(r.item != w for r, w in zip(reqs, want))
+        raise SystemExit(f"ProcHost: {bad} answers differ from the "
+                         f"LocalHost run's, {sum(r.shed for r in reqs)} "
+                         f"shed; {mesh.stats()}")
+    t0 = time.perf_counter()
+    if not mesh.swap([big_prefix, big_prefix], timeout_s=120.0):
+        raise SystemExit("ProcHost: the swap did not commit")
+    rec["swap_s"] = time.perf_counter() - t0
+    after = [mesh.submit(t) for t in u_lines]
+    if not mesh.wait_for(after, timeout_s=120.0):
+        raise SystemExit("ProcHost: requests after the swap unanswered")
+    if ({r.model for r in after} != {big_sig}
+            or [r.item for r in after] != want_big):
+        raise SystemExit("ProcHost: answers after the swap differ from "
+                         "the LocalHost run's on the swapped model")
+    # Worker 0 killed mid-burst: its in-flight requests are answered "0"
+    # and counted as sheds; every other answer is the model's.
+    burst = u_lines * 2
+    t0 = time.perf_counter()
+    killed = []
+    for i, t in enumerate(burst):
+        killed.append(mesh.submit(t))
+        if i == len(burst) // 4:
+            hosts[0].kill()
+    if not mesh.wait_for(killed, timeout_s=120.0):
+        raise SystemExit("ProcHost: the burst was not answered after the "
+                         "kill")
+    rec["kill_burst_s"] = time.perf_counter() - t0
+    for i, r in enumerate(killed):
+        if r.item != ("0" if r.shed else want_big[i % len(u_lines)]):
+            raise SystemExit(f"ProcHost: burst request {i} answered "
+                             f"{r.item!r} (shed {r.shed})")
+    st = mesh.stats()
+    if st["hosts_lost"] != 1 or st["lost_shed"] < 1 or st["shed"] != sum(
+            r.shed for r in killed):
+        raise SystemExit(f"ProcHost: after the kill {st}")
+    rec.update(lost_shed=st["lost_shed"], shed=st["shed"],
+               submitted=st["submitted"])
+    return rec
 
 
 # Phase 12: the one-process device mesh, S transaction shards on the one
@@ -3244,11 +3529,13 @@ def mesh_kernel_measure(in_dir: str, k_in: str) -> dict:
         levels, data = miner.run_file_raw(os.path.join(in_dir, "D.dat"))
         users = read_dat(os.path.join(in_dir, "U.dat"))
         recommender.AssociationRules(
-            data.freq_items, data.item_to_rank, levels, data.item_counts,
+            [], data.freq_items, data.item_to_rank,
+            levels=levels, item_counts=data.item_counts,
             config=miner.config, context=ctx).run(users, use_device=True)
         # The device rule join, then K2 on the rank-strided table.
         recommender.AssociationRules(
-            data.freq_items, data.item_to_rank, levels, data.item_counts,
+            [], data.freq_items, data.item_to_rank,
+            levels=levels, item_counts=data.item_counts,
             config=MinerConfig(min_support=float(MIN_SUPPORT),
                                rule_engine="device"),
             context=ctx).run(users, use_device=True)
@@ -3262,8 +3549,8 @@ def mesh_kernel_measure(in_dir: str, k_in: str) -> dict:
             min_support=float(BIG_MIN_SUPPORT)), context=mesh_context(2))
         blevels, bdata = big.run_file_raw(os.path.join(in_dir, "D.dat"))
         recommender.AssociationRules(
-            bdata.freq_items, bdata.item_to_rank, blevels,
-            bdata.item_counts, config=big.config,
+            [], bdata.freq_items, bdata.item_to_rank, levels=blevels,
+            item_counts=bdata.item_counts, config=big.config,
             context=big.ctx).run(users, use_device=True)
         del blevels, bdata, big
     finally:
@@ -3466,7 +3753,7 @@ def reply(rc):
         "rc": rc, "wall_s": time.perf_counter() - state["t0"],
         "t_end": time.time(),
         "launches": {n: fn.launches for n, fn in kernels.items()},
-        "peak": torch.cuda.max_memory_allocated(0),
+        "peak": torch.cuda.max_memory_allocated(state["card"]),
         "notes": [e["kind"] for e in flight.snapshot()]}),
         file=sys.__stdout__, flush=True)
 real_exit = os._exit
@@ -3487,7 +3774,11 @@ for line in sys.stdin:
     ledger.reset()
     for fn in kernels.values():
         fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(0)
+    # A world's rank r runs on card r mod the visible cards.
+    state["card"] = (int(os.environ.get("LOCAL_RANK", "0"))
+                     % torch.cuda.device_count())
+    torch.cuda.set_device(state["card"])
+    torch.cuda.reset_peak_memory_stats(state["card"])
     state["t0"] = time.perf_counter()
     with open(req["log"], "w") as err:
         with contextlib.redirect_stderr(err), contextlib.redirect_stdout(err):
@@ -3645,9 +3936,11 @@ def quorum_line(case: str, ranks: list, card: str, extra: str = "") -> dict:
 
 
 def quorum_phase(in_dir: str, k_in: str, card: str,
-                 main_fields: dict) -> tuple:
+                 main_fields: dict, cards: int = 1) -> tuple:
     """Phase 14 (the module docstring): the quorum domain, two ranks on
-    cuda:0.  Returns ``({case: record}, {kernel: {case_rank: launches}})``."""
+    cuda:0; with ``cards`` > 1 only the torch-transport cases (a) and
+    (b), a world over NCCL with rank r on card r.  Returns ``({case:
+    record}, {kernel: {case_rank: launches}})``."""
     t10 = {"freqItemset": FREQ_SHA256, "recommends": REC_SHA256}
     kos = {"freqItemset": KOSARAK["freq_sha256"],
            "recommends": KOSARAK["rec_sha256"]}
@@ -3677,6 +3970,11 @@ def quorum_phase(in_dir: str, k_in: str, card: str,
         if q["transport"] != "torch" or sites != [
                 "run.start", "mine.end", "rules.start", "run.end"]:
             raise SystemExit(f"{case} rank {r}: quorum event {q}")
+        ev = rep["fields"].get("distributed", {})
+        want = ("nccl", f"cuda:{r}") if cards > 1 else ("gloo", "cuda:0")
+        if (ev.get("backend"), ev.get("device")) != want:
+            raise SystemExit(f"{case} rank {r}: distributed event {ev}, "
+                             f"expected {want}")
         require_launches(f"{case} rank {r}", rep["launches"], rep["fields"],
                          ran=("level_counts", "first_match"))
     if os.listdir(ranks[1]["out"]):
@@ -3760,6 +4058,8 @@ def quorum_phase(in_dir: str, k_in: str, card: str,
     records[case] = quorum_line(case, ranks, card,
                                 f"; level_resume from k = {k_kill + 1}, "
                                 f"manifest fence {res_fence}")
+    if cards > 1:
+        return quorum_done(t0, card, records, launches_by, cards)
 
     # (c) A file domain of two one-process ranks, lockstep degradation.
     case = "c_file_fused_lockstep"
@@ -3846,10 +4146,112 @@ def quorum_phase(in_dir: str, k_in: str, card: str,
     note(case, ranks)
     records[case] = quorum_line(case, ranks, card,
                                 "; rank 0 exit 3 naming rank 1")
+    return quorum_done(t0, card, records, launches_by)
+
+
+def quorum_done(t0: float, card: str, records: dict, launches_by: dict,
+                cards: int = 1) -> tuple:
     wall = time.perf_counter() - t0
-    log(f"quorum phase ({card}, 2 ranks on cuda:0): {wall:.3f} s")
+    where = ("rank r on card r over NCCL" if cards > 1
+             else "2 ranks on cuda:0")
+    log(f"quorum phase ({card}, {where}): {wall:.3f} s")
     log("quorum summary: " + json.dumps(records))
-    return {"wall_s": wall, "cases": records}, launches_by
+    return {"wall_s": wall, "cases": records,
+            "backend": "nccl" if cards > 1 else "gloo"}, launches_by
+
+
+def movielens_phase(device, card: str) -> tuple:
+    """Phase 15 (the module docstring): the object-form library API at
+    the MovieLens shape.  Returns ``(walls and facts, launches, K1
+    replayed, K2 replayed)``."""
+    import torch
+
+    from fastapriori_tpu_torch import AssociationRules, FastApriori
+    from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.io.writer import (
+        save_freq_itemsets,
+        save_recommends,
+    )
+    from fastapriori_tpu_torch.preprocess import dedup_user_baskets
+
+    spec = MOVIELENS
+    gen = CHILDREN["prep"].reply(timeout=600)
+    for name in ("d_sha256", "u_sha256"):
+        if gen[name] != spec[name]:
+            raise SystemExit(f"movielens: {name} {gen[name]} != the JAX "
+                             f"generator's {spec[name]}")
+    log(f"movielens corpus (prep child): {gen['wall_s']:.3f} s, D.dat and "
+        f"U.dat equal the JAX generators' files")
+    d_path = os.path.join(MOVIELENS_DIR, "D.dat")
+    out_dir = os.path.join(WORK, "mlout")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels = zero_launches()
+    t0 = time.perf_counter()
+    miner = FastApriori(float(spec["min_support"]))
+    # The level matrices and the ingest under run_file, kept for the
+    # kernels' replay (run_file is run_file_raw, then _decode_levels).
+    kept = {}
+    run_file_raw = miner.run_file_raw
+
+    def keep(path):
+        kept["levels"], kept["data"] = run_file_raw(path)
+        return kept["levels"], kept["data"]
+
+    miner.run_file_raw = keep
+    itemsets, item_to_rank, freq_items = miner.run_file(d_path)
+    t_mine = time.perf_counter()
+    rec = AssociationRules(itemsets, freq_items, item_to_rank)
+    rec.rule_arrays()
+    t_rules = time.perf_counter()
+    u_lines = read_dat(os.path.join(MOVIELENS_DIR, "U.dat"))
+    recs = rec.run(u_lines, use_device=True)
+    t_scan = time.perf_counter()
+    save_freq_itemsets(out_dir + "/", itemsets, freq_items)
+    save_recommends(out_dir + "/", recs)
+    t_end = time.perf_counter()
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated(device)
+    check_digests("movielens", out_dir, {
+        "freqItemset": spec["freq_sha256"],
+        "recommends": spec["rec_sha256"]})
+    walls, fields = phase_metrics("\n".join(
+        json.dumps(r) for r in miner.metrics.records + rec.metrics.records))
+    require_launches("movielens", launches, fields,
+                     ran=("level_counts", "first_match"))
+    levels, data = kept["levels"], kept["data"]
+    n_levels = len(levels)
+    out = {
+        "generate_s": gen["wall_s"], "mine_s": t_mine - t0,
+        "decode_ms": walls.get("decode"), "rules_s": t_rules - t_mine, "scan_s": t_scan - t_rules,
+        "write_s": t_end - t_scan, "wall_s": t_end - t0,
+        "f": data.num_items, "levels": n_levels, "k_max": n_levels + 1,
+        "itemsets": len(itemsets), "rules": rec.n_rules,
+        "users": len(u_lines),
+        "distinct_baskets": fields.get("user_dedup", {}).get("distinct"),
+        "peak_device_bytes": peak, "launches": launches,
+        "engine": fields.get("engine_auto", {}).get("choice"),
+        "tail_fuse": [v.get("k0") for k, v in fields.items()
+                      if k.startswith("tail_fuse")],
+    }
+    log(f"movielens API ({card}): F = {out['f']}, levels 2..{n_levels + 1}, "
+        f"{out['itemsets']} itemsets, {out['rules']} rules, "
+        f"{out['distinct_baskets']} distinct baskets of {out['users']}; "
+        f"walls: generation {out['generate_s']:.3f} s, mine "
+        f"{out['mine_s']:.3f} s (decode {out['decode_ms']} ms), rules "
+        f"{out['rules_s']:.3f} s, scan {out['scan_s']:.3f} s, writes "
+        f"{out['write_s']:.3f} s; peak device memory {peak} bytes; "
+        f"launches {launches}; the JAX digests")
+    # One launch of each kernel replayed against its plain version: K1's
+    # launches at the run's own shapes (the same ingest and levels), K2
+    # at the object-form table's scan block.
+    k1 = k1_measure(miner.config, data, levels, device, fields)
+    require_replayed("K1 movielens", k1, launches["level_counts"])
+    baskets, _, _ = dedup_user_baskets(u_lines, item_to_rank)
+    k2 = k2_replay("movielens", rec, baskets, device)
+    del miner, rec, itemsets, kept, levels, data
+    return out, launches, k1, k2
 
 
 def require_replayed(name: str, measured: dict, counted: int) -> None:
@@ -3903,6 +4305,7 @@ def main() -> int:
             if cards > 1:
                 CHILDREN["prep"] = Child("prep", PREP)
                 start_rank_workers()
+                start_quorum_workers()
             else:
                 start_children()
         import torch
@@ -3915,11 +4318,43 @@ def main() -> int:
         return run(t_start) if cards == 1 else run_cards(t_start, cards)
     finally:
         Child.stop_all()
+        for box in PROC_HOST_BOXES:
+            for t in box.get("threads", ()):
+                t.join(200.0)
+            for i in range(2):
+                proc = getattr(box.get(i), "proc", None)
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                if proc is not None:
+                    proc.wait()
+
+
+def serving_models(in_dir: str, device) -> tuple:
+    """Phase 11 (a)'s and (c)'s models for ``--cards N``, which runs no
+    serve CLI: T10 at ``MIN_SUPPORT`` and at ``BIG_MIN_SUPPORT`` mined
+    and saved as ``serving.npz`` prefixes."""
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.serve import ServingState
+
+    out = []
+    for name, ms in (("out_serve", MIN_SUPPORT),
+                     ("out_serve_big", BIG_MIN_SUPPORT)):
+        prefix = os.path.join(WORK, name) + "/"
+        shutil.rmtree(prefix, ignore_errors=True)
+        state = ServingState.from_mine(
+            os.path.join(in_dir, "D.dat"),
+            MinerConfig(min_support=float(ms)), device=device)
+        state.save(prefix)
+        state.release()
+        out.append(prefix)
+    return tuple(out)
 
 
 def run_cards(t_start: float, cards: int) -> int:
-    """``--cards N`` (the module docstring): phases 1, 2 and 12, the
-    mesh's shards spread over N cards."""
+    """``--cards N`` (the module docstring): phases 1, 2, 12 and 13, the
+    mesh's shards and the world's ranks spread over N cards, then phase
+    11 (h) with worker i on card i and phase 14's torch-transport cases
+    over NCCL, rank r on card r."""
     import torch
 
     from fastapriori_tpu_torch.ops import build
@@ -3949,12 +4384,22 @@ def run_cards(t_start: float, cards: int) -> int:
         f"{json.dumps(mesh_measured)}")
     if "rank worker 0" not in CHILDREN:
         start_rank_workers()
+    if "quorum rank 0" not in CHILDREN:
+        start_quorum_workers()
+    model, big = serving_models(in_dir, torch.device("cuda", 0))
+    box = start_proc_hosts(model, cards)
     world, world_launches = world_phase(in_dir, k_in, card, cards)
+    proc, proc_launches = proc_host_run(box, model, big, in_dir,
+                                        torch.device("cuda", 0), card, cards)
+    quorum, quorum_launches = quorum_phase(in_dir, k_in, card, {}, cards)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
         f"torch's import")
     print(json.dumps({"mesh_cards": cards, "mesh": mesh, "world": world,
+                      "proc_host": proc, "quorum": quorum,
                       "launches_by_path": mesh_launches,
-                      "world_launches_by_path": world_launches}))
+                      "world_launches_by_path": world_launches,
+                      "proc_host_launches_by_path": proc_launches,
+                      "quorum_launches_by_path": quorum_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4039,6 +4484,7 @@ def run(t_start: float) -> int:
     mesh, mesh_launches, mesh_measured = mesh_phase(in_dir, k_in, card)
     world, world_launches = world_phase(in_dir, k_in, card)
     quorum, quorum_launches = quorum_phase(in_dir, k_in, card, main_fields)
+    movielens, ml_launches, ml_k1, ml_k2 = movielens_phase(device, card)
     for name, path, _, min_support in corpora():
         ingest_compare(name, path, min_support, python_ingest[name])
 
@@ -4091,7 +4537,8 @@ def run(t_start: float) -> int:
                 **serving_launches.get(name, {}),
                 **mesh_launches.get(name, {}),
                 **world_launches.get(name, {}),
-                **quorum_launches.get(name, {})}
+                **quorum_launches.get(name, {}),
+                "movielens_api": ml_launches[name]}
 
     # Top-level numbers: the first path in "measured_by_path".
     kernels = [
@@ -4102,13 +4549,15 @@ def run(t_start: float) -> int:
          "launches_by_path": by_path("level_counts"), **k1,
          "measured_by_path": {
              "t10i4d100k": k1,
-             "t10i4d100k_mesh_s2_api": mesh_measured["level_counts"]}},
+             "t10i4d100k_mesh_s2_api": mesh_measured["level_counts"],
+             "movielens_api": ml_k1}},
         {"name": "first_match", "route": "cuda",
          "source": "fastapriori_tpu_torch/csrc/first_match.cu",
          "replaces": "fastapriori_tpu/ops/pallas_vertical.py:210",
          "launches": main_launches["first_match"], "path": "t10i4d100k",
          "launches_by_path": by_path("first_match"), **k2,
          "measured_by_path": {"t10i4d100k": k2, "kosarak_vertical": k2v,
+                              "movielens_api": ml_k2,
                               "t10i4d100k_serving_block": serve_k2,
                               "t10i4d100k_mesh_s2_api":
                                   mesh_measured["first_match"],
@@ -4142,6 +4591,7 @@ def run(t_start: float) -> int:
     log("mesh walls: " + json.dumps(mesh))
     log("world walls: " + json.dumps(world))
     log("quorum walls: " + json.dumps(quorum))
+    log("movielens walls: " + json.dumps(movielens))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s after "
         f"torch's import, {time.perf_counter() - T_START:.3f} s from the "
         f"script's start")

@@ -781,7 +781,8 @@ def _phases(args, config: MinerConfig, device: str, miner, u_lines) -> None:
     t2 = time.perf_counter()
     with phase_timer("get recommends", enabled=False):
         recommender = AssociationRules(
-            freq_items, item_to_rank, levels, item_counts,
+            [], freq_items, item_to_rank,
+            levels=levels, item_counts=item_counts,
             config=config, context=miner.ctx,
         )
         recommends = recommender.run(u_lines)

@@ -70,8 +70,9 @@ def from_jax_levels(
             f"frequent item ({len(freq_items)})"
         )
     return AssociationRules(
-        freq_items, item_to_rank, normalize_levels(levels, len(freq_items)),
-        counts, config=config, device=device,
+        [], freq_items, item_to_rank,
+        levels=normalize_levels(levels, len(freq_items)),
+        item_counts=counts, config=config, device=device,
     )
 
 

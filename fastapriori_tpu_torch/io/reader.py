@@ -11,7 +11,7 @@ a path; without fsspec it is an InputError naming the path.
 from __future__ import annotations
 
 import re
-from typing import List
+from typing import List, Tuple
 
 from fastapriori_tpu_torch.errors import InputError
 
@@ -72,3 +72,12 @@ def read_dat(path: str) -> List[List[str]]:
     """Read one ``*.dat`` file into a list of token lists, one per line."""
     with _open(path) as f:
         return [tokenize_line(line) for line in split_lines_java(f.read())]
+
+
+def read_input_dir(
+    input_prefix: str,
+) -> Tuple[List[List[str]], List[List[str]]]:
+    """Read ``<prefix>D.dat`` and ``<prefix>U.dat`` (Utils.scala:21-23: the
+    prefix is concatenated without a separator, so a trailing ``/`` is
+    the caller's)."""
+    return read_dat(input_prefix + "D.dat"), read_dat(input_prefix + "U.dat")

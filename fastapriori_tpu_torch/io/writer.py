@@ -35,15 +35,26 @@ from fastapriori_tpu_torch.reliability import failpoints
 MANIFEST_NAME = "MANIFEST.json"
 
 
-def _open_write_bytes(path: str):
+def _open_write(path: str, mode: str):
     if "://" in path:
         from fastapriori_tpu_torch.io.reader import _require_fsspec
 
-        return _require_fsspec(path).open(path, "wb").open()
+        return _require_fsspec(path).open(path, mode).open()
     parent = os.path.dirname(path)
     if parent:
         os.makedirs(parent, exist_ok=True)
-    return open(path, "wb")
+    return open(path, mode)
+
+
+def _open_write_bytes(path: str):
+    return _open_write(path, "wb")
+
+
+def open_write(path: str):
+    """A raw text handle on ``path`` (fsspec for a remote URL).  Prefer
+    :func:`write_artifact` for run artifacts: this handle is not atomic,
+    records no manifest entry and fires no failpoint."""
+    return _open_write(path, "w")
 
 
 def write_artifact_bytes(
@@ -154,6 +165,22 @@ def format_itemset_line(ranks: Iterable[int],
     """One itemset: ranks sorted descending, mapped to item strings,
     joined by a single space (Utils.scala:38)."""
     return " ".join(freq_items[r] for r in sorted(ranks, reverse=True))
+
+
+def save_freq_itemsets(
+    output_prefix: str,
+    freq_itemsets: Sequence[Tuple[frozenset, int]],
+    freq_items: Sequence[str],
+    manifest: Optional[Dict[str, dict]] = None,
+) -> str:
+    """Write ``<output>freqItemset`` (Utils.scala:29-41) from ``(rank
+    frozenset, count)`` pairs, lines sorted lexicographically."""
+    lines = [format_itemset_line(s, freq_items) for s, _ in freq_itemsets]
+    lines.sort()
+    return write_artifact(
+        output_prefix + "freqItemset", (line + "\n" for line in lines),
+        "freqItemset", manifest,
+    )
 
 
 def save_freq_itemsets_with_count(

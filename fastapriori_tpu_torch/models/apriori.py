@@ -110,7 +110,7 @@ from __future__ import annotations
 import dataclasses
 import mmap
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, FrozenSet, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,6 +178,7 @@ from fastapriori_tpu_torch.preprocess import (
     CompressedData,
     ingest_thread_count,
     native_choice,
+    preprocess,
     preprocess_file,
     preprocess_file_sharded,
 )
@@ -192,6 +193,7 @@ from fastapriori_tpu_torch.utils.env import env_choice, env_int
 from fastapriori_tpu_torch.utils.logging import MetricsLogger
 
 Levels = List[Tuple[np.ndarray, np.ndarray]]
+ItemsetWithCount = Tuple[FrozenSet[int], int]
 
 # Heavy-row remainder bounds: above either, the engine runs every weight
 # digit through K1 instead (the remainder arrays would no longer be tiny).
@@ -458,8 +460,10 @@ def level_chunks(
 
 
 class FastApriori:
-    """Mining engine; API mirrors the reference class
-    (``FastApriori(min_support).run_file_raw(path)``).  ``device``:
+    """Mining engine; API mirrors the reference class and the JAX
+    package's argument order (``FastApriori(min_support, num_devices,
+    config, context)``; ``run``/``run_file`` return frozensets,
+    ``run_file_raw`` the level matrices).  ``device`` (keyword):
     ``None``/``"cuda"`` (the default: InputError without a GPU) or
     ``"cpu"`` (every kernel wrapper runs its plain version).
     ``context``: a DeviceContext to share (it remembers grown pair
@@ -468,19 +472,22 @@ class FastApriori:
     def __init__(
         self,
         min_support: Optional[float] = None,
+        num_devices: Optional[int] = None,
         config: Optional[MinerConfig] = None,
-        device=None,
         context: Optional[DeviceContext] = None,
+        *,
+        device=None,
     ):
         self.config = (
             dataclasses.replace(config) if config is not None else MinerConfig()
         )
         if min_support is not None:
             self.config.min_support = min_support
+        if num_devices is not None:
+            self.config.num_devices = num_devices
         self.engine = resolve_engine(self.config.engine)
-        self.ctx = context if context is not None else DeviceContext(
-            device, num_devices=self.config.num_devices,
-            cand_devices=self.config.cand_devices)
+        self._device = device
+        self.ctx = context if context is not None else self._new_context()
         # Degradation events (the ledger) go to this miner's metrics.
         self.metrics = MetricsLogger(
             enabled=self.config.log_metrics).bind_global_ledger()
@@ -500,6 +507,72 @@ class FastApriori:
         # The complete levels of the mine in flight (the elastic arm
         # re-seeds from them).
         self._progress: Levels = []
+
+    def _new_context(self) -> DeviceContext:
+        return DeviceContext(self._device,
+                             num_devices=self.config.num_devices,
+                             cand_devices=self.config.cand_devices)
+
+    @property
+    def context(self) -> DeviceContext:
+        return self.ctx
+
+    # Fluent setters (FastApriori.scala:21-29).
+    def set_min_support(self, min_support: float) -> "FastApriori":
+        self.config.min_support = min_support
+        return self
+
+    def set_num_devices(self, num_devices: Optional[int]) -> "FastApriori":
+        """A new mesh of ``num_devices`` shards on this miner's device."""
+        self.config.num_devices = num_devices
+        self.ctx = self._new_context()
+        return self
+
+    def run(
+        self, transactions: Sequence[Sequence[str]]
+    ) -> Tuple[List[ItemsetWithCount], Dict[str, int], List[str]]:
+        """Full mining from tokenized lines (FastApriori.run, :31-44):
+        ``(frequent itemsets with counts, item_to_rank, freq_items)``,
+        levels >= 2 first, then the 1-itemsets with their raw occurrence
+        counts (:41, :83)."""
+        with trace.span("mine", source="transactions"):
+            with self.metrics.timed("preprocess") as m:
+                data = preprocess(transactions, self.config.min_support)
+                m.update(n_raw=data.n_raw, min_count=data.min_count,
+                         num_items=data.num_items,
+                         total_count=data.total_count)
+            freq_itemsets = self.mine_compressed(data)
+        return freq_itemsets, data.item_to_rank, data.freq_items
+
+    def run_file(
+        self, d_path: str
+    ) -> Tuple[List[ItemsetWithCount], Dict[str, int], List[str]]:
+        """:meth:`run` from ``D.dat`` on disk, through the native ingest
+        (:meth:`run_file_raw`)."""
+        levels, data = self.run_file_raw(d_path)
+        return (self._decode_levels(levels, data), data.item_to_rank,
+                data.freq_items)
+
+    def mine_compressed(
+        self, data: CompressedData
+    ) -> List[ItemsetWithCount]:
+        """Levels >= 2 on the device, then the 1-itemsets, as
+        frozensets."""
+        return self._decode_levels(self.mine_levels_raw(data), data)
+
+    def _decode_levels(
+        self, levels: Levels, data: CompressedData
+    ) -> List[ItemsetWithCount]:
+        """The frozenset form of the level matrices plus the 1-itemsets
+        (the CLI stays in matrix form and never pays this)."""
+        with self.metrics.timed("decode") as m:
+            out: List[ItemsetWithCount] = []
+            for mat, cnts in levels:
+                out.extend(zip(map(frozenset, mat.tolist()), cnts.tolist()))
+            m.update(n=len(out))
+        out.extend((frozenset((r,)), int(c))
+                   for r, c in enumerate(data.item_counts))
+        return out
 
     def set_resume_levels(
         self,
@@ -1669,7 +1742,8 @@ class FastApriori:
             with self.metrics.timed("pair_prepass") as met:
                 n2, tri = (int(x) for x in ctx.fetch(torch.stack(
                     make_pair_counter(n_digits, n_chunks, fast_f32)(
-                        packed, w, data.min_count)), "pair"))
+                        packed, w, data.min_count,
+                        num_items=data.num_items)), "pair"))
                 met.update(n2=n2, cand3=tri)
             m_cap = self._size_fused_budget(profile, n2, tri, m_cap_max, auto)
             if m_cap is None:  # auto chose the level engine
@@ -1757,7 +1831,8 @@ class FastApriori:
                     packed_input=packed_input, sparse_caps=caps,
                     groups=ctx.exchange_spec if caps else None)
                 out = ctx.fetch(fn(bitmap, w, min_count, sparse_thr=thr,
-                                   region=ctx.sync_free), "fused")
+                                   region=ctx.sync_free,
+                                   num_items=data.num_items), "fused")
                 (a_rows, a_cols, a_counts, n_lvl, incomplete, overflow,
                  sparse_ovf, sparse_nu) = unpack_fused_result(out, l_max)
                 if sparse_ovf:
@@ -2524,7 +2599,8 @@ class FastApriori:
             thr = red["thr"] if sp_cap is not None else None
             if resolve_flat:
                 out_dev, handle = fn(*args, sparse_thr=thr,
-                                     region=ctx.sync_free, resolve=(
+                                     region=ctx.sync_free,
+                                     num_items=data.num_items, resolve=(
                     [(c, p) for _, c, p in resolve_flat],
                     data.n_raw < 2**24))
                 drained.append(
@@ -2535,7 +2611,8 @@ class FastApriori:
                                                resolve_flat}),
                            resolve_folded=True)
             else:
-                out_dev = fn(*args, sparse_thr=thr, region=ctx.sync_free)
+                out_dev = fn(*args, sparse_thr=thr, region=ctx.sync_free,
+                             num_items=data.num_items)
             out = ctx.fetch(out_dev, "tail")
             rows, cols, counts, n_lvl, incomplete, snu = unpack_tail_result(
                 out, m_cap, l_max, flat=segment)

@@ -1,6 +1,7 @@
 """Apriori candidate generation on the host (counterpart:
-fastapriori_tpu/models/candidates.py ``gen_candidates_blocks``,
-``gen_candidates_stream`` and ``gen_candidates_arrays``; reference C7,
+fastapriori_tpu/models/candidates.py ``gen_candidates``,
+``gen_candidates_blocks``, ``gen_candidates_stream`` and
+``gen_candidates_arrays``; reference C7,
 FastApriori.scala:167-193).
 
 Classic prefix join: two frequent (k-1)-sets sharing their first k-2
@@ -13,9 +14,42 @@ reference's per-rank enumeration and hashed prune (:176-188).
 
 from __future__ import annotations
 
-from typing import Tuple
+from collections import defaultdict
+from typing import Dict, FrozenSet, List, Sequence, Tuple
 
 import numpy as np
+
+Prefix = Tuple[int, ...]  # sorted ranks
+
+
+def gen_candidates(
+    k_items: Sequence[FrozenSet[int]], num_items: int
+) -> List[Tuple[Prefix, List[int]]]:
+    """The object form: ``(sorted prefix, sorted surviving extensions)``
+    per prefix with at least one extension (:190).  ``num_items`` is
+    unused, as in the JAX package: the join only extends by items
+    already in some frequent set."""
+    if not k_items:
+        return []
+    tuples = sorted(tuple(sorted(x)) for x in k_items)
+    k_set = set(tuples)
+    s = len(tuples[0])  # = k-1
+    by_prefix: Dict[Prefix, List[Prefix]] = defaultdict(list)
+    for t in tuples:
+        by_prefix[t[:-1]].append(t)
+    out: Dict[Prefix, List[int]] = defaultdict(list)
+    for group in by_prefix.values():
+        # Sorted by last element (the tuples were sorted globally).
+        for i in range(len(group) - 1):
+            x = group[i]
+            for j in range(i + 1, len(group)):
+                y = group[j][-1]
+                c = x + (y,)
+                # Dropping x's last element gives group[j] and dropping y
+                # gives x: check the k-2 subsets that drop a prefix item.
+                if all(c[:d] + c[d + 1:] in k_set for d in range(s - 1)):
+                    out[x].append(y)
+    return [(x, ys) for x, ys in out.items()]
 
 
 def _encode_rows(a: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Association-rule recommender (counterpart: fastapriori_tpu/models/
-recommender.py ``AssociationRules.run`` on the matrix path; reference
-C10 + C12, AssociationRules.scala:17-113).
+recommender.py ``AssociationRules.run`` on the matrix and the object
+path; reference C10 + C12, AssociationRules.scala:17-113).
 
 ``run``: dedupe the user baskets keeping the original row indexes (C10);
 generate, prune and priority-sort the rules once per instance (C11,
@@ -44,7 +44,7 @@ shard 0's device (the JAX package's ``make_sharded_first_match_scan``).
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,9 +67,13 @@ from fastapriori_tpu_torch.parallel import mesh
 from fastapriori_tpu_torch.preprocess import dedup_user_baskets
 from fastapriori_tpu_torch.rules.gen import (
     DeviceRuleState,
+    Rule,
     _consequent_priority,
     gen_rule_arrays_levels,
+    gen_rules,
+    rule_arrays_from_objects,
     sort_rule_arrays,
+    sort_rules,
 )
 from fastapriori_tpu_torch.utils.env import env_flag, env_int
 from fastapriori_tpu_torch.utils.logging import MetricsLogger
@@ -161,24 +165,34 @@ class ServeScanHandle:
 
 
 class AssociationRules:
-    """``AssociationRules(freq_items, item_to_rank, levels, item_counts)
+    """``AssociationRules(freq_itemsets, freq_items, item_to_rank)
     .run(user_lines)`` returns ``[(original row index, recommended item
-    string or "0"), ...]``.  ``levels``/``item_counts`` are the miner's
-    matrix-form result (models/apriori.py).  ``device`` and ``context``
-    as for :class:`~fastapriori_tpu_torch.models.apriori.FastApriori`
-    (the mesh from ``config.num_devices`` / ``cand_devices`` when no
-    context is given)."""
+    string or "0"), ...]``, in the JAX package's argument order.
+    ``freq_itemsets``: the object form, ``(rank frozenset, count)``
+    pairs (``FastApriori.run_file``), whose rules come from
+    rules/gen.py ``gen_rules`` and ``sort_rules`` on the host; or, with
+    ``levels``/``item_counts`` (the miner's matrix-form result,
+    ``run_file_raw``), the rule engines of ``gen_rule_arrays_levels``,
+    and ``freq_itemsets`` may be empty.  Either form's sorted rules feed
+    the same host and device (K2) scans.  ``device`` (keyword) and
+    ``context`` as for
+    :class:`~fastapriori_tpu_torch.models.apriori.FastApriori` (the mesh
+    from ``config.num_devices`` / ``cand_devices`` when no context is
+    given)."""
 
     def __init__(
         self,
+        freq_itemsets: Sequence[Tuple[FrozenSet[int], int]],
         freq_items: Sequence[str],
         item_to_rank: Dict[str, int],
-        levels,
-        item_counts,
         config: Optional[MinerConfig] = None,
-        device=None,
         context: Optional[DeviceContext] = None,
+        levels=None,
+        item_counts=None,
+        *,
+        device=None,
     ):
+        self.freq_itemsets = list(freq_itemsets)
         self.freq_items = list(freq_items)
         self.item_to_rank = dict(item_to_rank)
         self.config = config or MinerConfig()
@@ -189,8 +203,10 @@ class AssociationRules:
         self._levels = levels
         self._item_counts = item_counts
         # Sorted rule arrays (ant [R, k_max] 0-padded, lens, cons, conf),
-        # built once per instance like the reference's single genRules.
+        # built once per instance like the reference's single genRules;
+        # on the object path also the sorted Rule list they came from.
         self._rule_arrays: Optional[tuple] = None
+        self.sorted_rules: Optional[List[Rule]] = None
         # Device copies of the padded rule table (one per transaction
         # shard, uploaded once per distinct device), on first use.
         self._table_dev: Optional[list] = None
@@ -210,9 +226,18 @@ class AssociationRules:
         return len(self.rule_arrays()[1])
 
     def rule_arrays(self) -> tuple:
-        """The priority-sorted rule arrays, generated once per instance
-        by the engine rules/gen.py picks on this instance's device; the
-        device engine leaves its state for :meth:`scan_table`."""
+        """The priority-sorted rule arrays, generated once per instance:
+        on the object path by ``gen_rules`` and ``sort_rules`` on the
+        host (the JAX package's object pipeline), else by the engine
+        rules/gen.py picks on this instance's device; the device engine
+        leaves its state for :meth:`scan_table`."""
+        if self._rule_arrays is None and self._levels is None:
+            with self.metrics.timed("gen_rules", form="objects") as m:
+                self.sorted_rules = sort_rules(
+                    gen_rules(self.freq_itemsets), self.freq_items)
+                self._rule_arrays = rule_arrays_from_objects(
+                    self.sorted_rules)
+                m.update(rules=len(self.sorted_rules))
         if self._rule_arrays is None:
             with self.metrics.timed("gen_rules") as m:
                 state = DeviceRuleState()

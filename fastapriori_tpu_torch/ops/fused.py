@@ -111,10 +111,12 @@ def gen_candidates_matmul(
     valid_row: torch.Tensor,  # [M, 1] bool
     row_chunks: int = 1,
     f32: bool = False,
+    num_items: Optional[int] = None,
 ) -> torch.Tensor:
     """Candidate generation as products (module docstring): the bool
     ``[M, F]`` mask of extensions ``y`` of each frequent (k-1)-set row x
-    whose k-1 subsets holding y are all frequent, with ``y > max(x)``.
+    whose k-1 subsets holding y are all frequent, with ``y > max(x)``
+    and ``y < num_items`` (the real item columns; None: all F).
     ``row_chunks`` cuts the ``[M, M]`` intersection matrix into row
     blocks of M / row_chunks, bounding its peak to 5·M²/row_chunks bytes
     (int32 D plus the bool E).  Every value is an intersection size or a
@@ -135,8 +137,9 @@ def gen_candidates_matmul(
         assert m % row_chunks == 0, (m, row_chunks)
         mb = m // row_chunks
         cand_cnt = torch.cat([blk(s[i : i + mb]) for i in range(0, m, mb)])
+    real = col_ids < (col_ids.shape[0] if num_items is None else num_items)
     return ((cand_cnt == k - 1) & (col_ids[None, :] > rowmax[:, None])
-            & valid_row)
+            & real[None, :] & valid_row)
 
 
 def weighted_digit_counts(
@@ -215,9 +218,11 @@ def fused_mine(
     sparse_caps: Optional[Tuple[int, int]] = None,
     sparse_thr: Optional[Sequence[int]] = None,
     groups: Optional[Tuple[int, int]] = None,
+    num_items: Optional[int] = None,
 ) -> torch.Tensor:
     """The whole level loop from level 2 (the reference's
-    ``_fused_mine_local``).  ``bitmap`` and ``w`` are per-shard lists (a
+    ``_fused_mine_local``); only the first ``num_items`` columns are real
+    items (None: all F).  ``bitmap`` and ``w`` are per-shard lists (a
     lone tensor is one shard); ``n_chunks`` chunks each shard's rows.
     Returns the reference's packed int32 ``[3·l_max + 1, m_cap]`` on
     shard 0's device: rows, cols and counts per level (level k at slot k
@@ -236,6 +241,7 @@ def fused_mine(
     devs = [b.device for b in bitmaps]
     dev = devs[0]
     f = bitmaps[0].shape[1] * 8 if packed_input else bitmaps[0].shape[1]
+    num_items = f if num_items is None else num_items
     for b in bitmaps:
         assert b.shape[0] % n_chunks == 0, (b.shape[0], n_chunks)
     col_ids = torch.arange(f, device=dev)
@@ -273,8 +279,10 @@ def fused_mine(
         return (int(got), 0) if nu is None else (int(got[0]), int(got[1]))
 
     with region():
-        # Level 2: the weighted Gram product.
-        upper2 = col_ids[None, :] > col_ids[:, None]
+        # Level 2: the weighted Gram product.  The padded columns count
+        # 0, which passes a min_count <= 0: only real columns may pair.
+        upper2 = ((col_ids[None, :] > col_ids[:, None])
+                  & (col_ids[None, :] < num_items))
         pair, nu = reduce2(scan_counts(lambda sh, b: b.t(), f), upper2)
         mask = (pair >= min_count) & upper2
         n = mask.sum(dtype=torch.int32)
@@ -291,7 +299,8 @@ def fused_mine(
     while not overflow and not sparse_ovf and m >= k and k <= l_max + 1:
         with region():
             cand = gen_candidates_matmul(
-                s, k, col_ids, (slots < m)[:, None], f32=fast_f32)
+                s, k, col_ids, (slots < m)[:, None], f32=fast_f32,
+                num_items=num_items)
             s_sh = mesh.broadcast(s, devs)
 
             def contains_prefix(sh, b, k=k):
@@ -338,15 +347,18 @@ def make_fused_miner(
     (:func:`fused_mine`).  ``packed_input=False`` takes the resident
     unpacked int8 bitmap.  ``sparse_caps`` (pair cap, level cap) runs
     both count reductions through the threshold-sparse exchange, over
-    ``groups`` when given; the call then passes ``sparse_thr``."""
+    ``groups`` when given; the call then passes ``sparse_thr``.
+    ``num_items``: the real item columns (:func:`fused_mine`)."""
     assert m_cap > l_max + 1, (m_cap, l_max)
 
-    def run(bitmap, w, min_count, sparse_thr=None, region=None):
+    def run(bitmap, w, min_count, sparse_thr=None, region=None,
+            num_items=None):
         return fused_mine(
             bitmap, w, int(min_count), m_cap=m_cap, l_max=l_max,
             n_digits=n_digits, n_chunks=n_chunks, fast_f32=fast_f32,
             packed_input=packed_input, region=region,
-            sparse_caps=sparse_caps, sparse_thr=sparse_thr, groups=groups)
+            sparse_caps=sparse_caps, sparse_thr=sparse_thr, groups=groups,
+            num_items=num_items)
 
     return run
 
@@ -355,11 +367,12 @@ def make_pair_counter(n_digits: int, n_chunks: int = 1,
                       fast_f32: bool = False):
     """The fused engine's sizing pre-pass over the packed bitmap (per-shard
     lists, the pair counts summed by the dense psum):
-    ``fn(packed, w, min_count) -> (n2, tri)`` int32 device scalars, the
-    frequent-pair count and the level-3 candidate census (-1 when F_pad
-    exceeds ``TRI_F_CAP``)."""
+    ``fn(packed, w, min_count, num_items=None) -> (n2, tri)`` int32 device
+    scalars, the frequent-pair count over the first ``num_items`` columns
+    (None: all) and the level-3 candidate census (-1 when F_pad exceeds
+    ``TRI_F_CAP``)."""
 
-    def run(packed, w, min_count):
+    def run(packed, w, min_count, num_items=None):
         parts = []
         for pk, wv in zip(_as_parts(packed), _as_parts(w)):
             acc = torch.zeros((pk.shape[1] * 8,) * 2, dtype=torch.int32,
@@ -370,8 +383,11 @@ def make_pair_counter(n_digits: int, n_chunks: int = 1,
         pair = dense_psum(parts)
         f, dev = pair.shape[0], pair.device
         col = torch.arange(f, device=dev)
-        # Padded item columns count 0, so min_count >= 1 keeps them out.
-        mask = (pair >= int(min_count)) & (col[None, :] > col[:, None])
+        # Padded item columns count 0, which passes a min_count <= 0: the
+        # real-item bound keeps them out.
+        real = col < (f if num_items is None else num_items)
+        mask = ((pair >= int(min_count)) & (col[None, :] > col[:, None])
+                & real[None, :])
         n2 = mask.sum(dtype=torch.int32)
         tri = (_pair_triangles(mask) if f <= TRI_F_CAP
                else torch.full((), -1, dtype=torch.int32, device=dev))
@@ -402,6 +418,7 @@ def tail_mine(
     sparse_cap: Optional[int] = None,
     sparse_thr: Optional[Sequence[int]] = None,
     groups: Optional[Tuple[int, int]] = None,
+    num_items: Optional[int] = None,
 ):
     """The shallow-tail fold (the reference's ``_tail_mine_local``): the
     levels after ``k0`` from the seed level, in one device loop.
@@ -460,7 +477,7 @@ def tail_mine(
         with region():
             cand = gen_candidates_matmul(
                 s, k, col_ids, (slots < m)[:, None],
-                row_chunks=cand_row_chunks)
+                row_chunks=cand_row_chunks, num_items=num_items)
             has = cand.any(dim=1)
             n_pref = has.sum(dtype=torch.int32)
             pr = torch.nonzero_static(has, size=p_cap, fill_value=0)[:, 0]
@@ -559,20 +576,22 @@ def make_tail_miner(
     ``tail_miner_with_resolve``).  ``flat_caps``: the checkpoint
     segment's slot caps (:func:`tail_slot_caps`); ``sparse_cap``: the
     per-iteration reduction through the threshold-sparse exchange (over
-    ``groups`` when given; the call then passes ``sparse_thr``)."""
+    ``groups`` when given; the call then passes ``sparse_thr``);
+    ``num_items``: the real item columns (None: all F)."""
     assert m_cap > l_max + 1, (m_cap, l_max)
     caps = tail_slot_caps(m_cap, l_max, flat=flat_caps)
     row_chunks = tail_cand_row_chunks(m_cap)
 
     def run(bitmap, w_digits, seed_cols, n0, min_count, *heavy,
-            sparse_thr=None, region=None, resolve=None):
+            sparse_thr=None, region=None, resolve=None, num_items=None):
         hb, hw = heavy if has_heavy else (None, None)
         return tail_mine(
             bitmap, w_digits, seed_cols, int(n0), int(min_count), hb, hw,
             scales=tuple(scales), k0=k0, m_cap=m_cap, p_cap=p_cap,
             l_max=l_max, n_chunks=n_chunks, slot_caps=caps,
             cand_row_chunks=row_chunks, region=region, resolve=resolve,
-            sparse_cap=sparse_cap, sparse_thr=sparse_thr, groups=groups)
+            sparse_cap=sparse_cap, sparse_thr=sparse_thr, groups=groups,
+            num_items=num_items)
 
     return run
 

@@ -89,6 +89,24 @@ class CompressedData:
     def total_count(self) -> int:  # T' (FastApriori.scala:79)
         return len(self.weights)
 
+    @property
+    def baskets(self) -> List[np.ndarray]:
+        """Ragged view (one rank array per basket); prefer the CSR
+        fields."""
+        if self.total_count > 0 and len(self.basket_offsets) != (
+            self.total_count + 1
+        ):
+            raise InputError(
+                "CompressedData carries no basket CSR (produced by the "
+                "pipelined capture ingest with retain_csr=False); "
+                "re-ingest with retain_csr=True to read baskets"
+            )
+        return [
+            self.basket_indices[self.basket_offsets[i]:
+                                self.basket_offsets[i + 1]]
+            for i in range(self.total_count)
+        ]
+
 
 def count_item_occurrences(
     transactions: Sequence[Sequence[str]],

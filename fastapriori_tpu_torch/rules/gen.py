@@ -15,6 +15,13 @@
 Confidence is an IEEE double division of two ints, identical on the JVM,
 so the comparisons agree bit for bit with the reference.
 
+The object form (counterpart: the JAX package's ``Rule``, ``gen_rules``,
+``gen_rules_levels``, ``rule_objects_from_arrays`` and ``sort_rules``)
+takes ``(rank frozenset, count)`` itemsets and returns ``(antecedent
+frozenset, consequent, confidence)`` tuples from the same host engine;
+:func:`rule_arrays_from_objects` turns a sorted object list back into
+the arrays the recommender's scans read.
+
 Two engines compute the same arrays (counterpart also: the JAX package's
 ``_rule_arrays_device``, ``resolve_rule_shards``, ``_pick_rule_engine``,
 ``rule_engine_from_env``, ``DeviceRuleState``): the numpy engine, and the
@@ -36,7 +43,7 @@ In a quorum domain (reliability/quorum.py) phase 2 starts with the
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -56,6 +63,7 @@ from fastapriori_tpu_torch.utils.env import env_choice, env_int
 from fastapriori_tpu_torch.utils.order import consequent_key
 
 RuleArrays = Tuple[np.ndarray, np.ndarray, np.ndarray]  # ant [N,w], cons, conf
+Rule = Tuple[FrozenSet[int], int, float]  # (antecedent, consequent, conf)
 
 _RULE_ENGINES = ("auto", "host", "device")
 
@@ -686,3 +694,83 @@ def sort_rule_arrays(
     pr = _consequent_priority(freq_items)
     order = np.lexsort((pr[cons], -conf))
     return ant[order], lens[order], cons[order], conf[order]
+
+
+def _rules_from_tables(
+    mats: Dict[int, Tuple[np.ndarray, np.ndarray]]
+) -> List[Rule]:
+    out: List[Rule] = []
+    for ant, cons, conf in rule_arrays_from_tables(mats):
+        out.extend(
+            (frozenset(a), int(c), float(cf))
+            for a, c, cf in zip(ant.tolist(), cons.tolist(), conf.tolist())
+        )
+    return out
+
+
+def gen_rules(
+    freq_itemsets: Sequence[Tuple[FrozenSet[int], int]]
+) -> List[Rule]:
+    """Surviving rules from ``(rank frozenset, count)`` itemsets (the
+    1-itemsets' counts are the size-1 denominators), grouped by size
+    into sorted-row tables for the host engine."""
+    by_len: Dict[int, List[Tuple[FrozenSet[int], int]]] = {}
+    for s, c in freq_itemsets:
+        by_len.setdefault(len(s), []).append((s, c))
+    mats: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+    for k, entries in by_len.items():
+        if k == 0:
+            continue
+        mat = np.fromiter(
+            (r for s, _ in entries for r in sorted(s)), np.int32,
+            len(entries) * k,
+        ).reshape(-1, k)
+        cnts = np.fromiter((c for _, c in entries), np.int64, len(entries))
+        mats[k] = (mat, cnts)
+    return _rules_from_tables(mats)
+
+
+def gen_rules_levels(levels, item_counts) -> List[Rule]:
+    """:func:`gen_rules` from the miner's level matrices and per-rank raw
+    occurrence counts."""
+    return _rules_from_tables(_level_tables(levels, item_counts))
+
+
+def rule_objects_from_arrays(
+    ant: np.ndarray, lens: np.ndarray, cons: np.ndarray, conf: np.ndarray
+) -> List[Rule]:
+    """The object form of (already sorted) rule arrays."""
+    return [
+        (frozenset(a[:n]), int(c), float(cf))
+        for a, n, c, cf in zip(
+            ant.tolist(), lens.tolist(), cons.tolist(), conf.tolist()
+        )
+    ]
+
+
+def rule_arrays_from_objects(
+    rules: Sequence[Rule],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The inverse of :func:`rule_objects_from_arrays`, order kept:
+    ``(ant int32 [R, k_max] (0-padded, each row ascending), lens, cons,
+    conf)`` as :func:`sort_rule_arrays` returns them."""
+    r = len(rules)
+    lens = np.fromiter((len(a) for a, _, _ in rules), np.int32, r)
+    ant = np.zeros((r, max(int(lens.max()) if r else 1, 1)), np.int32)
+    if r:
+        rows = np.repeat(np.arange(r), lens)
+        cols = np.arange(rows.size) - np.repeat(
+            np.cumsum(lens) - lens, lens)
+        ant[rows, cols] = np.fromiter(
+            (x for a, _, _ in rules for x in sorted(a)), np.int32, rows.size)
+    cons = np.fromiter((c for _, c, _ in rules), np.int32, r)
+    conf = np.fromiter((cf for _, _, cf in rules), np.float64, r)
+    return ant, lens, cons, conf
+
+
+def sort_rules(rules: Sequence[Rule], freq_items: Sequence[str]) -> List[Rule]:
+    """Recommendation priority order: confidence desc, then the
+    consequent's tie order (AssociationRules.scala:116-120), original
+    order on full ties."""
+    return sorted(rules, key=lambda r: (-r[2], consequent_key(
+        freq_items[r[1]])))

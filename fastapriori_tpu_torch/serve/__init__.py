@@ -9,10 +9,12 @@
   dispatcher, barrier-ordered hot swap.
 - :mod:`~fastapriori_tpu_torch.serve.loadgen`: seeded open-loop load.
 - :class:`~fastapriori_tpu_torch.serve.router.MeshRouter` over
-  in-process :class:`~fastapriori_tpu_torch.serve.router.LocalHost`\\ s:
-  routing with spill, global shed, mesh swap, host loss, merged
-  metrics.  The JAX package's subprocess host (``ProcHost``) waits for
-  the multi-GPU slice.
+  in-process :class:`~fastapriori_tpu_torch.serve.router.LocalHost`\\ s
+  and worker-process
+  :class:`~fastapriori_tpu_torch.serve.router.ProcHost`\\ s (``python -m
+  fastapriori_tpu_torch.serve.router --worker``, one card each through
+  ``CUDA_VISIBLE_DEVICES``): routing with spill, global shed, mesh swap,
+  host loss, merged metrics.
 """
 
 from fastapriori_tpu_torch.serve.loadgen import (  # noqa: F401
@@ -23,6 +25,7 @@ from fastapriori_tpu_torch.serve.loadgen import (  # noqa: F401
 from fastapriori_tpu_torch.serve.router import (  # noqa: F401
     LocalHost,
     MeshRouter,
+    ProcHost,
 )
 from fastapriori_tpu_torch.serve.server import (  # noqa: F401
     RecommendServer,

@@ -156,8 +156,8 @@ class ServingState:
             self.levels, self.item_counts, self.freq_items)
         self.source = source
         self._rec = AssociationRules(
-            self.freq_items, self.item_to_rank, self.levels,
-            self.item_counts, config=self.config, device=device,
+            [], self.freq_items, self.item_to_rank, levels=self.levels,
+            item_counts=self.item_counts, config=self.config, device=device,
             context=context,
         )
         self._engine_req = engine

@@ -1,6 +1,6 @@
 """Synthetic transaction datasets in the style of the IBM Quest generator
-(counterpart: fastapriori_tpu/utils/datagen.py ``generate_transactions``
-and ``generate_user_baskets``).
+(counterpart: fastapriori_tpu/utils/datagen.py ``generate_transactions``,
+``generate_doc_transactions`` and ``generate_user_baskets``).
 
 A numpy-only copy, so that a machine without JAX can make the same data:
 for the same arguments it returns the same lines, line for line.
@@ -77,9 +77,21 @@ def _txn_block(rng, pat, weights, yield_per_draw, targets, n_items,
     return flat[order], np.bincount(rows, minlength=n)
 
 
+_TOK_CACHE: dict = {}
+
+
+def _token_table(n_items: int):
+    """item id -> str, computed once per distinct vocabulary size."""
+    tab = _TOK_CACHE.get(n_items)
+    if tab is None:
+        tab = np.array([str(i) for i in range(n_items + 1)], dtype=object)
+        _TOK_CACHE[n_items] = tab
+    return tab
+
+
 def _format_rows(flat, counts, n_items) -> List[str]:
-    """Vectorized int->str (table lookup) then per-row join."""
-    toks = np.array([str(i) for i in range(n_items + 1)], dtype=object)[flat]
+    """Vectorized int->str (cached table lookup) then per-row join."""
+    toks = _token_table(n_items)[flat]
     out = []
     pos = 0
     for c in counts:
@@ -133,6 +145,102 @@ def generate_transactions(
         n_txns, n_items, avg_txn_len, n_patterns, avg_pattern_len,
         corruption, seed,
     ):
+        lines.extend(blk)
+    return lines
+
+
+def _doc_block(rng, p_cum, pat, pat_w_cum, targets, pattern_frac, n_items):
+    """One block of doc-style transactions: independent zipf draws plus a
+    fraction of tokens contributed by planted head-item patterns."""
+    n = targets.shape[0]
+    n_zipf = np.maximum(1, (targets * (1.0 - pattern_frac)).astype(np.int64))
+    rows_z = np.repeat(np.arange(n), n_zipf)
+    # Clip: float error can leave p_cum[-1] a hair below 1.0, and a draw
+    # above it would index past the vocabulary.
+    flat_z = np.minimum(
+        np.searchsorted(p_cum, rng.random(rows_z.shape[0]), side="right"),
+        n_items - 1,
+    ) + 1
+    # Pattern overlay: each txn picks a couple of patterns whose items are
+    # all drawn from the popularity head, planting real correlations.
+    npat = np.maximum(
+        1, (targets * pattern_frac / max(pat.shape[1], 1)).astype(np.int64)
+    )
+    row_of_draw = np.repeat(np.arange(n), npat)
+    draws = np.searchsorted(
+        pat_w_cum, rng.random(row_of_draw.shape[0]), side="right"
+    )
+    items = pat[draws]
+    rows_p = np.repeat(row_of_draw, items.shape[1])
+    flat_p = items.ravel()
+    keep = flat_p > 0
+    rows = np.concatenate([rows_z, rows_p[keep]])
+    flat = np.concatenate([flat_z, flat_p[keep]])
+    # Dedupe within each transaction: the key orders (row, item), so one
+    # stable sort both groups the rows and orders the items in each.
+    key = rows * np.int64(n_items + 1) + flat
+    key.sort(kind="stable")
+    first = np.empty(key.shape[0], dtype=bool)
+    first[0] = True
+    np.not_equal(key[1:], key[:-1], out=first[1:])
+    key = key[first]
+    rows, flat = np.divmod(key, np.int64(n_items + 1))
+    return flat, np.bincount(rows, minlength=n)
+
+
+def iter_doc_transaction_blocks(
+    n_txns: int = 1_700_000,
+    n_items: int = 50_000,
+    avg_txn_len: int = 177,
+    zipf_s: float = 1.05,
+    zipf_shift: float = 12.0,
+    n_patterns: int = 60,
+    avg_pattern_len: int = 4,
+    pattern_frac: float = 0.15,
+    head_items: int = 400,
+    seed: int = 2017,
+    block: int = 100_000,
+) -> Iterator[List[str]]:
+    """Doc-corpus-style transactions in blocks: item marginals follow a
+    shifted zipf law (the number of items above any support threshold
+    decays smoothly), with planted patterns over the popularity head for
+    real multi-item correlations."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(n_items, dtype=np.float64)
+    p = 1.0 / np.power(ranks + zipf_shift, zipf_s)
+    p /= p.sum()
+    p_cum = np.cumsum(p)
+    sizes = np.clip(
+        np.maximum(1, rng.exponential(avg_pattern_len, n_patterns)),
+        2, 8,
+    ).astype(np.int64)
+    pat = np.zeros((n_patterns, int(sizes.max())), dtype=np.int64)
+    for i, s in enumerate(sizes):
+        pat[i, :s] = rng.choice(
+            min(head_items, n_items), size=int(s), replace=False
+        ) + 1
+    pat_w = rng.exponential(1.0, n_patterns)
+    pat_w_cum = np.cumsum(pat_w / pat_w.sum())
+
+    done = 0
+    while done < n_txns:
+        n = min(block, n_txns - done)
+        targets = np.clip(
+            rng.exponential(avg_txn_len, n).astype(np.int64),
+            1,
+            min(3 * avg_txn_len, n_items),
+        )
+        flat, counts = _doc_block(
+            rng, p_cum, pat, pat_w_cum, targets, pattern_frac, n_items
+        )
+        yield _format_rows(flat, counts, n_items)
+        done += n
+
+
+def generate_doc_transactions(**kw) -> List[str]:
+    """Materialized form of :func:`iter_doc_transaction_blocks`."""
+    lines: List[str] = []
+    for blk in iter_doc_transaction_blocks(**kw):
         lines.extend(blk)
     return lines
 

@@ -114,8 +114,9 @@ def _small_phase1(tmp_path):
 def test_device_recommend_path_matches_host(tmp_path):
     d_path, users = _small_phase1(tmp_path)
     levels, data = FastApriori(0.02, device="cpu").run_file_raw(d_path)
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, device="cpu")
     host = rec.run(users, use_device=False)
     dev = rec.run(users, use_device=True)
     assert dev == host
@@ -156,8 +157,8 @@ def test_cpu_run_launches_no_kernel(tmp_path):
     first_match.launches = 0
     d_path, users = _small_phase1(tmp_path)
     levels, data = FastApriori(0.02, device="cpu").run_file_raw(d_path)
-    AssociationRules(data.freq_items, data.item_to_rank, levels,
-                     data.item_counts, device="cpu").run(users,
+    AssociationRules([], data.freq_items, data.item_to_rank, levels=levels,
+                     item_counts=data.item_counts, device="cpu").run(users,
                                                          use_device=True)
     assert level_counts.launches == 0
     assert first_match.launches == 0
@@ -179,8 +180,9 @@ def test_run_takes_the_side_the_threshold_names(tmp_path, monkeypatch,
                                                 n_users):
     d_path, users = _small_phase1(tmp_path)
     levels, data = FastApriori(0.02, device="cpu").run_file_raw(d_path)
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, device="cpu")
     users = users[:n_users]
     host = rec.run(users, use_device=False)
     sides = []

@@ -456,3 +456,51 @@ def test_mine_without_csr_is_refused(tmp_path, engine):
     assert levels and data.total_count > 0
     with pytest.raises(InputError, match="retain_csr"):
         miner.mine_levels_raw(data)
+
+
+def _six_item_lines(seed=5, n=40):
+    rng = np.random.default_rng(seed)
+    items = list("abcdef")
+    return [" ".join(rng.choice(items, rng.integers(1, 5), replace=False))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("min_support", ["0", "-0.1"])
+@pytest.mark.parametrize("corpus", ["two-line", "six-item"])
+@pytest.mark.parametrize("run", ["zero-flag", "fused", "vertical"])
+def test_min_support_at_most_zero_mines_only_real_items(
+        tmp_path, monkeypatch, min_support, corpus, run):
+    """At min support <= 0 min_count is <= 0, which the padded item
+    columns (count 0) pass: every fused, tail and candidate mask is bound
+    to the real columns, so each engine writes the JAX level engine's
+    bytes (every subset of the real items) within a few seconds (the
+    bound leaves room for a loaded test machine; unbounded, the two-line
+    corpus seeds 8,128 pairs and runs past 600 s).  The oracle divides
+    by zero here, so the JAX level engine is the reference."""
+    import time
+
+    if corpus == "two-line":
+        d_raw, u_raw = ["a b", "b c"], ["b"]
+    else:
+        d_raw, u_raw = _six_item_lines(), _six_item_lines(6, n=8)
+    inp = _write_inputs(tmp_path, d_raw, u_raw)
+    flags = {"zero-flag": [], "fused": ["--engine", "fused"],
+             "vertical": []}[run]
+    if run == "vertical":
+        monkeypatch.setenv("FA_MINE_ENGINE", "vertical")
+    t0 = time.perf_counter()
+    assert torch_main([inp, str(tmp_path / "out_torch") + "/",
+                       f"--min-support={min_support}", "--platform", "cpu",
+                       *flags]) == 0
+    wall = time.perf_counter() - t0
+    monkeypatch.delenv("FA_MINE_ENGINE", raising=False)
+    assert jax_main([inp, str(tmp_path / "out_jax") + "/",
+                     f"--min-support={min_support}", "--engine", "level",
+                     "--num-devices", "1", "--platform", "cpu"]) == 0
+    for name in ("freqItemset", "recommends"):
+        assert (tmp_path / "out_torch" / name).read_bytes() == \
+            (tmp_path / "out_jax" / name).read_bytes(), name
+    n_sets = len((tmp_path / "out_jax" / "freqItemset").read_text()
+                 .splitlines())
+    assert n_sets == (7 if corpus == "two-line" else 63)
+    assert wall < 30.0, wall

@@ -61,7 +61,11 @@ def test_import_leaves_jax_out():
         "fastapriori_tpu_torch.serve, fastapriori_tpu_torch.serve.state, "
         "fastapriori_tpu_torch.serve.server, "
         "fastapriori_tpu_torch.serve.loadgen, "
-        "fastapriori_tpu_torch.serve.router\n"
+        "fastapriori_tpu_torch.serve.router, "
+        "fastapriori_tpu_torch.models.apriori, "
+        "fastapriori_tpu_torch.models.candidates, "
+        "fastapriori_tpu_torch.io.reader, fastapriori_tpu_torch.preprocess, "
+        "fastapriori_tpu_torch.utils.datagen\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'fastapriori_tpu', 'fsspec'))\n"
         "print(','.join(bad))\n"
@@ -70,6 +74,31 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+def test_serving_worker_leaves_jax_out(tmp_path):
+    """The ProcHost worker, run as ``python -m
+    fastapriori_tpu_torch.serve.router --worker``, imports neither jax
+    nor the JAX package (here it exits 2: no serving.npz to load)."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['router', '--worker', '--dir', {str(tmp_path)!r}, "
+        f"'--serving', {str(tmp_path / 'none') + '/'!r}, "
+        "'--platform', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('fastapriori_tpu_torch.serve.router', "
+        "run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'fastapriori_tpu'))\n"
+        "print(rc, ','.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["2"], out.stdout
+    assert "serving checkpoint" in out.stderr
 
 
 OBS_MODULES = ("fastapriori_tpu_torch.obs", "fastapriori_tpu_torch.obs.trace",
@@ -221,7 +250,8 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch, tmp_path, capsys):
     with pytest.raises(InputError, match="CUDA"):
         FastApriori(0.1)
     with pytest.raises(InputError, match="CUDA"):
-        AssociationRules(["1", "2"], {"1": 0, "2": 1}, [], [3, 2])
+        AssociationRules([], ["1", "2"], {"1": 0, "2": 1},
+                         levels=[], item_counts=[3, 2])
     (tmp_path / "D.dat").write_text("1 2\n2 3\n")
     (tmp_path / "U.dat").write_text("1\n")
     rc = torch_main([str(tmp_path) + "/", str(tmp_path) + "/out-"])
@@ -266,7 +296,8 @@ def test_forced_device_rule_engine_without_cuda_is_refused(
     assert "CUDA" in capsys.readouterr().err
     assert not (tmp_path / "out-recommends").exists()
     with pytest.raises(InputError, match="CUDA"):
-        AssociationRules(["1", "2"], {"1": 0, "2": 1}, [], [3, 2],
+        AssociationRules([], ["1", "2"], {"1": 0, "2": 1},
+                         levels=[], item_counts=[3, 2],
                          config=MinerConfig(rule_engine="device"))
 
 

@@ -151,7 +151,7 @@ def test_rec_batch_rows_bucketing_is_the_jax_packages(rows, monkeypatch):
     if rows is not None:
         monkeypatch.setenv("FA_REC_BATCH", rows)
     cfg_rows = 100
-    got = AssociationRules([], {}, [], [], device="cpu",
+    got = AssociationRules([], [], {}, levels=[], item_counts=[], device="cpu",
                            config=MinerConfig(rec_batch_rows=cfg_rows))
     want = JaxRules([], ["1"], {"1": 0},
                     config=JaxConfig(rec_batch_rows=cfg_rows))
@@ -392,8 +392,10 @@ def test_no_pallas_runs_the_plain_versions_at_the_call_sites(
     cfg = MinerConfig(min_support=0.08, engine="level", mine_engine=layout)
     want_levels, data = FastApriori(config=cfg, device="cpu").run_file_raw(
         corpus + "D.dat")
-    rec = AssociationRules(data.freq_items, data.item_to_rank, want_levels,
-                           data.item_counts, config=cfg, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=want_levels,
+                           item_counts=data.item_counts, config=cfg,
+                           device="cpu")
     users = [x.split() for x in random_dataset(13, n_txns=30)]
     want_recs = rec.run(users, use_device=True)
 
@@ -422,8 +424,10 @@ def test_no_pallas_runs_the_plain_versions_at_the_call_sites(
     levels = [r for r in miner.metrics.records
               if r["event"] == "level" and "p_cap" in r]
     assert levels and all(r["plain_kernels"] for r in levels)
-    rec = AssociationRules(data.freq_items, data.item_to_rank, got_levels,
-                           data.item_counts, config=cfg, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=got_levels,
+                           item_counts=data.item_counts, config=cfg,
+                           device="cpu")
     assert rec.run(users, use_device=True) == want_recs
     (fm,) = [r for r in rec.metrics.records if r["event"] == "first_match"]
     assert fm["plain_kernels"] is True

@@ -480,7 +480,8 @@ def _events(miner, name):
 
 def _recommend(corpus, levels, data, **knobs):
     rec = AssociationRules(
-        data.freq_items, data.item_to_rank, levels, data.item_counts,
+        [], data.freq_items, data.item_to_rank,
+        levels=levels, item_counts=data.item_counts,
         config=MinerConfig(min_support=MIN_SUPPORT, **knobs), device="cpu")
     return rec.run(read_dat(corpus + "U.dat"), use_device=True)
 

@@ -379,10 +379,10 @@ def test_scan_table_matches_jax_and_host(case):
     mats = CASES[case]()
     data = {"s0": _mined(0, 0.05), "s6": _mined(6, 0.05),
             "deep": _mined(0, 0.05, deep=True)}[case][1]
-    rec = AssociationRules(data.freq_items, data.item_to_rank,
-                           [(m, c) for k, (m, c) in sorted(mats.items())
-                            if k >= 2], data.item_counts, config=DEVICE,
-                           device="cpu")
+    levels = [(m, c) for k, (m, c) in sorted(mats.items()) if k >= 2]
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels, item_counts=data.item_counts,
+                           config=DEVICE, device="cpu")
     rec.rule_arrays()
     assert rec._scan_state is not None
     (ant, size, cons), = rec.scan_table()[0]
@@ -414,8 +414,9 @@ def test_recommender_resident_scan_matches_host_engine():
     mats, data = _mined(6, 0.05)
     levels = [(m, c) for k, (m, c) in sorted(mats.items()) if k >= 2]
     users = tokenized(random_dataset(60, n_txns=200))
-    host = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                            data.item_counts, device="cpu")
+    host = AssociationRules([], data.freq_items, data.item_to_rank,
+                            levels=levels,
+                            item_counts=data.item_counts, device="cpu")
     want = host.run(users, use_device=False)
     assert want == host.run(users, use_device=True)
     assert want == JaxRules([], data.freq_items, data.item_to_rank,
@@ -424,8 +425,10 @@ def test_recommender_resident_scan_matches_host_engine():
     fm = [r for r in host.metrics.records if r["event"] == "first_match"]
     assert fm[-1]["resident_table"] is False
 
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, config=DEVICE, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, config=DEVICE,
+                           device="cpu")
     assert rec.run(users, use_device=True) == want
     events = {r["event"]: r for r in rec.metrics.records}
     assert events["rule_gen_engine"]["engine"] == "device"
@@ -448,8 +451,10 @@ def test_host_scan_releases_the_state():
     mats, data = _mined(6, 0.05)
     levels = [(m, c) for k, (m, c) in sorted(mats.items()) if k >= 2]
     users = tokenized(random_dataset(61, n_txns=40))
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, config=DEVICE, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, config=DEVICE,
+                           device="cpu")
     host = rec.run(users, use_device=False)
     assert rec._scan_state is None and rec._scan_table is None
     # A later device scan uploads the host-built table.

@@ -207,8 +207,9 @@ def _rec(case, s):
     mats, data = {"s0": _mined(0, 0.05), "s6": _mined(6, 0.05),
                   "deep": _mined(0, 0.05, deep=True)}[case]
     levels = [(m, c) for k, (m, c) in sorted(mats.items()) if k >= 2]
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, config=DEVICE,
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, config=DEVICE,
                            context=DeviceContext("cpu", num_devices=s))
     return rec, mats, data
 
@@ -325,8 +326,9 @@ def test_merged_scan_equals_the_one_shard_scan(s):
 def test_resident_strided_scan_answers_as_the_host_scan(s):
     rec, _, data = _rec("s6", s)
     users = tokenized(random_dataset(60, n_txns=200))
-    host = AssociationRules(data.freq_items, data.item_to_rank,
-                            rec._levels, data.item_counts, device="cpu")
+    host = AssociationRules([], data.freq_items, data.item_to_rank,
+                            levels=rec._levels, item_counts=data.item_counts,
+                            device="cpu")
     want = host.run(users, use_device=False)
     assert rec.run(users, use_device=True) == want
     (fm,) = [r for r in rec.metrics.records if r["event"] == "first_match"]

@@ -137,8 +137,10 @@ def test_serving_state_matches_batch_recommender():
     (and the port's batch recommender)."""
     expected = list(_jax_batch_answers())
     levels, data, cfg = _model()
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, config=cfg, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, config=cfg,
+                           device="cpu")
     assert [item for _, item in sorted(rec.run(U_LINES))] == expected
     for engine in ("host", "device"):
         st = _state(engine=engine)
@@ -313,8 +315,10 @@ def test_rec_batch_rows_caps_batch_recommender_microbatch(monkeypatch):
     micro-batches at the same knob."""
     monkeypatch.setenv("FA_REC_BATCH", "64")
     levels, data, cfg = _model(rule_engine="device")
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts, config=cfg, device="cpu")
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts, config=cfg,
+                           device="cpu")
     out = rec.run(U_LINES, use_device=True)
     fm = [r for r in rec.metrics.records
           if r.get("event") == "first_match" and r.get("device")][-1]

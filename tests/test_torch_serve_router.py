@@ -1,12 +1,20 @@
 """The port's serving mesh and pipelined dispatcher (fastapriori_tpu_torch/
 serve/router.py, server.py) against the JAX package's: counterparts of
-tests/test_serve_router.py on in-process hosts (the JAX ``ProcHost``
-waits for the multi-GPU slice): the spill order (equal to the JAX
-package's ``spill_order``), the strict FA_SERVE_PIPELINE_DEPTH /
-FA_SERVE_HOSTS knobs, pipelined = serial answers, ring buffering, shed
+tests/test_serve_router.py on in-process hosts: the spill order (equal
+to the JAX package's ``spill_order``), the strict FA_SERVE_PIPELINE_DEPTH
+/ FA_SERVE_HOSTS knobs, pipelined = serial answers, ring buffering, shed
 conservation, swaps under the pipeline and across the mesh, a host
-killed mid-burst, total loss, and the metrics merge and render."""
+killed mid-burst, total loss, and the metrics merge and render.  Then
+the worker-process host ``ProcHost`` (``python -m
+fastapriori_tpu_torch.serve.router --worker --platform cpu``): answers
+equal to the LocalHost mesh's and the JAX batch path's, ``ready.json``'s
+signature equal to the JAX ``model_signature``, a swap across two
+worker hosts, a worker killed mid-burst (its in-flight requests answered
+"0" as sheds), and a worker without a card and without ``--platform
+cpu`` refused with InputError naming its exit code.  Every wait has its
+own timeout."""
 
+import os
 import threading
 import time
 
@@ -14,6 +22,7 @@ import pytest
 
 from conftest import random_dataset, tokenized
 from fastapriori_tpu.parallel.hier import spill_order as jax_spill_order
+from fastapriori_tpu.serve.state import model_signature as jax_signature
 from fastapriori_tpu_torch.config import MinerConfig
 from fastapriori_tpu_torch.errors import InputError
 from fastapriori_tpu_torch.models.apriori import FastApriori
@@ -23,6 +32,7 @@ from fastapriori_tpu_torch.reliability import failpoints, ledger
 from fastapriori_tpu_torch.serve import (
     LocalHost,
     MeshRouter,
+    ProcHost,
     RecommendServer,
     ServingState,
 )
@@ -410,6 +420,140 @@ def test_mesh_host_whose_context_is_lost_is_routed_around():
     st = mesh.stats()
     assert st["hosts_lost"] == 1 and st["failed"] >= 1
     assert mesh.stop()
+
+
+# ---------------------------------------------------------------------------
+# MeshRouter on ProcHosts (worker processes on the CPU)
+
+
+def _saved(tmp_path, seed):
+    """A ``serving.npz`` prefix of the seed's model, and the state."""
+    st = _state(seed=seed)
+    prefix = str(tmp_path / f"model{seed}") + "/"
+    st.save(prefix)
+    return prefix, st
+
+
+def _proc_hosts(tmp_path, prefix, n=2, envs=None, **kw):
+    kw = dict(dict(batch_rows=16, linger_ms=0.0, queue_depth=256,
+                   start_timeout_s=120.0, platform="cpu"), **kw)
+    return [ProcHost(f"p{i}", str(tmp_path / f"w{i}"), prefix,
+                     env=(envs or {}).get(i), **kw) for i in range(n)]
+
+
+def test_prochost_answers_equal_localhost_and_jax(tmp_path):
+    expected = list(_jax_batch_answers())
+    prefix, st = _saved(tmp_path, 6)
+    local, _, _, _ = _mesh(2, batch_rows=16, linger_ms=0.0)
+    want = [local.submit(t) for t in U_LINES]
+    assert local.wait_for(want, timeout_s=60.0)
+    assert local.stop()
+    hosts = _proc_hosts(tmp_path, prefix)
+    mesh = MeshRouter(hosts)
+    try:
+        for h in hosts:
+            assert h.signature == st.signature == jax_signature(
+                st.levels, st.item_counts, st.freq_items)
+        reqs = [mesh.submit(t) for t in U_LINES]
+        assert mesh.wait_for(reqs, timeout_s=60.0)
+        assert [r.item for r in reqs] == [r.item for r in want] == expected
+        assert {r.model for r in reqs} == {st.signature}
+    finally:
+        assert mesh.stop()
+    st_all = mesh.stats()
+    assert st_all["served"] == len(U_LINES) and st_all["shed"] == 0
+    for h in st_all["per_host"]:
+        assert h["served"] > 0
+        # Each worker counts its own K2 launches (the plain version on
+        # the CPU counts none) and mines nothing.
+        assert h["launches"] == {"level_counts": 0, "first_match": 0,
+                                 "vertical_counts": 0}
+    assert mesh.metrics_snapshot()["fa_serve_served_total"] == len(U_LINES)
+
+
+def test_prochost_swap_across_two_hosts(tmp_path):
+    old_prefix, old = _saved(tmp_path, 6)
+    new_prefix, new = _saved(tmp_path, 7)
+    assert old.signature != new.signature
+    mesh = MeshRouter(_proc_hosts(tmp_path, old_prefix))
+    try:
+        before = [mesh.submit(t) for t in U_LINES[:60]]
+        assert mesh.swap([new_prefix, new_prefix], timeout_s=60.0)
+        after = [mesh.submit(t) for t in U_LINES[:60]]
+        assert mesh.wait_for(before + after, timeout_s=60.0)
+        assert {r.model for r in before} == {old.signature}
+        assert {r.model for r in after} == {new.signature}
+        assert not any(r.shed for r in before + after)
+        assert mesh.stats()["swaps"] == 1
+    finally:
+        assert mesh.stop()
+
+
+def test_prochost_killed_mid_burst_is_routed_around(tmp_path):
+    expected = list(_jax_batch_answers())
+    prefix, _ = _saved(tmp_path, 6)
+    # Worker 0 stalls on every request file, so its share is in flight
+    # when it is killed.
+    hosts = _proc_hosts(tmp_path, prefix, envs={
+        0: {"FA_FAILPOINTS": "router.req:delay@400"}})
+    mesh = MeshRouter(hosts)
+    try:
+        reqs = []
+        for i in range(240):
+            reqs.append(mesh.submit(U_LINES[i % len(U_LINES)]))
+            if i == 90:
+                time.sleep(0.2)
+                hosts[0].kill()
+        assert mesh.wait_for(reqs, timeout_s=60.0)
+        st = mesh.stats()
+        assert st["hosts_lost"] == 1
+        assert st["lost_shed"] > 0
+        for i, r in enumerate(reqs):
+            if not r.shed:
+                assert r.item == expected[i % len(U_LINES)]
+            else:
+                assert r.item == "0"
+        shed = sum(1 for r in reqs if r.shed)
+        assert st["shed"] == shed >= st["lost_shed"]
+        assert any(e.get("kind") == "serve_host_lost"
+                   for e in ledger.snapshot())
+    finally:
+        assert mesh.stop()
+    assert hosts[0].proc.poll() is not None
+
+
+def test_prochost_ignores_an_earlier_workers_files(tmp_path):
+    """A reused work directory: an earlier worker's ready.json (with
+    another signature), stop, heartbeat and response files are cleared
+    before the new worker starts, so it is judged by its own files."""
+    prefix, st = _saved(tmp_path, 6)
+    work = tmp_path / "w0"
+    work.mkdir()
+    (work / "ready.json").write_text('{"signature": "stale", "pid": 1}')
+    (work / "stop").write_text("{}")
+    (work / "hb").write_text("{}")
+    os.utime(work / "hb", (0, 0))
+    (work / "rsp-00000000.json").write_text(
+        '{"ids": [0], "items": ["x"], "models": ["stale"], "shed": [0]}')
+    mesh = MeshRouter(_proc_hosts(tmp_path, prefix, n=1))
+    try:
+        assert mesh._hosts[0].signature == st.signature
+        reqs = [mesh.submit(t) for t in U_LINES]
+        assert mesh.wait_for(reqs, timeout_s=60.0)
+        assert [r.item for r in reqs] == list(_jax_batch_answers())
+        assert not any(r.shed for r in reqs)
+    finally:
+        assert mesh.stop()
+
+
+def test_prochost_worker_without_a_card_is_refused(tmp_path):
+    """Without a CUDA device and without ``--platform cpu`` the worker
+    exits 2 and ProcHost raises, naming the exit code: it never falls
+    back to the CPU."""
+    prefix, _ = _saved(tmp_path, 6)
+    with pytest.raises(InputError, match=r"exit=2.*CUDA"):
+        ProcHost("nocard", str(tmp_path / "w"), prefix, platform="default",
+                 env={"CUDA_VISIBLE_DEVICES": ""}, start_timeout_s=120.0)
 
 
 # ---------------------------------------------------------------------------

@@ -364,8 +364,9 @@ def test_cand_mesh_keeps_the_bitmap_layout(corpus, reference, monkeypatch):
 def test_sharded_device_scan_equals_the_host_scan(s, corpus):
     levels, data, miner = _mine(corpus, num_devices=s, engine="level")
     users = read_dat(corpus + "U.dat")
-    rec = AssociationRules(data.freq_items, data.item_to_rank, levels,
-                           data.item_counts,
+    rec = AssociationRules([], data.freq_items, data.item_to_rank,
+                           levels=levels,
+                           item_counts=data.item_counts,
                            config=MinerConfig(rec_batch_rows=32),
                            context=miner.ctx)
     host = rec.run(users, use_device=False)
@@ -464,7 +465,8 @@ def test_serving_state_counts_a_launch_per_shard(corpus):
     got = state.recommend_batch(users)
     delta = state.scan_dispatches - before
     assert delta > 0 and delta % 2 == 0
-    batch = AssociationRules(state.freq_items, state.item_to_rank,
-                             state.levels, state.item_counts,
+    batch = AssociationRules([], state.freq_items, state.item_to_rank,
+                             levels=state.levels,
+                             item_counts=state.item_counts,
                              device="cpu").run(users, use_device=False)
     assert got == [item for _, item in sorted(batch)]
