@@ -514,6 +514,23 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, iters: int) -> dict:
+    """Mean device milliseconds per call of each CUDA kernel ``iters``
+    calls launch (torch.profiler), by kernel name cut to 60 characters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0}
+
+
 def device_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of device time: every CUDA kernel that
     ``iters`` calls launch, summed from torch.profiler.  Unlike
@@ -687,27 +704,33 @@ def k2_quick_checks(device, rng) -> None:
 
 
 def k1_quick_checks(device, rng) -> None:
-    """K1: T not a multiple of the 512-transaction sub-tile, M not a
-    multiple of the 32-row tile, F not a multiple of 32 and F from 33 to
-    41,088 (F = 1,000, 2,500 and 6,000 select the 256-, 128- and
+    """K1, each of its two forms: T not a multiple of the 512-transaction
+    sub-tile (packed) or the 128 (dense), M not a multiple of the 32- or
+    64-row tile, F not a multiple of 32 and F from 33 to 41,088 (F =
+    1,000, 2,500 and 6,000 select the packed form's 256-, 128- and
     64-transaction sub-tiles; 300 the 512, 12,288 the 32; 12,320 and
-    41,088, the kosarak-shape corpus's items padded, the form that reads
-    B from device memory), k1 = 3 and 130, rows that cannot match
-    (k1 - 1 items, empty), an S of padding rows only (one item in the
-    zero column), and WB rows of more than one value (within a 32-column
-    word and across words), which the kernel reads as bytes."""
+    41,088, the kosarak-shape corpus's items padded, the packed form that
+    reads B from device memory; the dense form reads it so past F = 1,024
+    and takes F in 256-column slices), k1 = 3 and 130, rows that cannot
+    match (k1 - 1 items, empty), an S of padding rows only (one item in
+    the zero column), WB rows of more than one value (within a 32-column
+    word and across words), which the packed form reads as bytes, and a
+    dense case (fill 0.45, most prefixes contained somewhere)."""
     import numpy as np
     import torch
 
     from fastapriori_tpu_torch.ops.level_kernel import (
+        FORMS,
         level_counts,
         level_counts_plain,
     )
 
     def check(name, b, wb, s, k1):
         bt, wbt, st = (torch.from_numpy(x).to(device) for x in (b, wb, s))
-        require_equal(f"level_counts {name}", level_counts(bt, wbt, st, k1),
-                      level_counts_plain(bt, wbt, st, k1))
+        want = level_counts_plain(bt, wbt, st, k1)
+        for form in FORMS:
+            require_equal(f"level_counts {name} ({form} form)",
+                          level_counts(bt, wbt, st, k1, form=form), want)
 
     def prefixes(m, f, k1, n_rows):
         # Rows hold exactly k1 items, except every fifth row (k1 - 1
@@ -719,6 +742,7 @@ def k1_quick_checks(device, rng) -> None:
         return s
 
     for t, f, m, density in ((5003, 300, 77, 0.3), (1111, 33, 45, 0.5),
+                             (3001, 203, 99, 0.45), (2051, 517, 130, 0.4),
                              (1500, 1000, 70, 0.05), (900, 2500, 40, 0.03),
                              (700, 6000, 40, 0.02), (700, 12288, 41, 0.02),
                              (700, 12320, 41, 0.02),
@@ -726,7 +750,7 @@ def k1_quick_checks(device, rng) -> None:
         b = (rng.random((t, f)) < density).astype(np.int8)
         b[rng.random(t) < 0.05] = 1  # dense rows, so wide prefixes match
         wb = b * rng.integers(1, 128, size=(t, 1)).astype(np.int8)
-        for k1 in (3, 130):
+        for k1 in (3, 130) if density < 0.4 else (2, 4, 130):
             if k1 <= f:
                 check(f"T={t} F={f} M={m} k1={k1}", b, wb,
                       prefixes(m, f, k1, m - 5), k1)
@@ -991,6 +1015,7 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    zero_k1_forms()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(captured):
@@ -1031,9 +1056,12 @@ def cli_path(name: str, in_dir: str, out_dir: str, min_support: str,
             raise SystemExit(f"{name}: expected one retry at {injected[0]}, "
                              f"the ledger holds {ledger.snapshot()}")
         log(f"{name}: ledger {summary} at {sites}")
-    log(f"{name}: CLI wall {wall:.3f} s, launches {launches}, peak device "
-        f"memory {torch.cuda.max_memory_allocated()} bytes")
+    forms = k1_forms(name, launches["level_counts"])
+    log(f"{name}: CLI wall {wall:.3f} s, launches {launches} (K1 by form "
+        f"{forms}), peak device memory {torch.cuda.max_memory_allocated()} "
+        f"bytes")
     walls, fields = phase_metrics(captured.getvalue())
+    fields["k1_forms"] = forms
     if verbose:
         log(f"{name} phases (wall ms): " + json.dumps(walls))
         log(f"{name} phase metrics: " + json.dumps(fields))
@@ -1499,16 +1527,28 @@ def level_launches(cfg, levels, f_pad: int):
             yield k, prefix_cols, cand_idx
 
 
+def contained_pairs(bitmap, s_mat, k1: int) -> int:
+    """The (prefix, transaction) pairs whose overlap is k1 (overlaps <= F
+    are exact in float32): the counting product's real work."""
+    pairs = 0
+    s_f = s_mat.float()
+    for t0 in range(0, bitmap.shape[0], 8192):
+        ov = s_f @ bitmap[t0 : t0 + 8192].float().T
+        pairs += int((ov == k1).sum().item())
+    return pairs
+
+
 def k1_measure(cfg, data, levels, device, fields) -> dict:
     """Phase 5, K1: every level-count launch of the main path replayed at
-    its own shapes (held against the plain version, timed), then the
-    heaviest (the first with the most prefix rows) in full: the plain
-    version, the library formulation and the bound.  A level the counted
-    run (``fields``) did not count with K1 (level 3 from the pair
-    program, a level a tail fold mined) is not on the path: its launches
-    are checked and timed all the same, so that the heaviest shape stays
-    comparable with earlier runs, but left out of the replay's count and
-    sum."""
+    its own shapes in each of the two forms (each held against the plain
+    version and timed; the form the rule picks noted beside the launch's
+    contained-pair share), then the heaviest (the first with the most
+    prefix rows) in full: both forms, the plain version, the library
+    formulation and the bound.  A level the counted run (``fields``) did
+    not count with K1 (level 3 from the pair program, a level a tail fold
+    mined) is not on the path: its launches are checked and timed all the
+    same, so that the heaviest shape stays comparable with earlier runs,
+    but left out of the replay's count and sums."""
     import numpy as np
     import torch
 
@@ -1516,8 +1556,10 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
     from fastapriori_tpu_torch.ops.bitmap import build_bitmap_csr
     from fastapriori_tpu_torch.ops.count import prefix_onehot
     from fastapriori_tpu_torch.ops.level_kernel import (
+        FORMS,
         level_counts,
         level_counts_plain,
+        pick_form,
     )
 
     # The transaction axis padded as the pipelined ingest pads it.
@@ -1536,61 +1578,176 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
     w = np.zeros(b_np.shape[0], dtype=np.int8)
     w[: data.total_count] = data.weights
     wb = bitmap * torch.from_numpy(w).to(device)[:, None]
-    per_launch, off_path, best = [], [], None
+    t, f = bitmap.shape
+    fill = int(np.count_nonzero(b_np)) / (t * f)
+    # The rule's quantity: the mine's min support (min count / N).
+    min_support = data.min_count / max(1, data.n_raw)
+    by_form = {form: [] for form in FORMS}
+    per_launch, off_path, launches, best = [], [], [], None
     for k, prefix_cols, _ in level_launches(cfg, levels, f_pad):
         k1 = prefix_cols.shape[1]
         s_mat = prefix_onehot(torch.from_numpy(prefix_cols).to(device), f_pad)
-        require_equal(f"level_counts k={k} launch",
-                      level_counts(bitmap, wb, s_mat, k1),
-                      level_counts_plain(bitmap, wb, s_mat, k1))
-        ms_k = time_ms(lambda: level_counts(bitmap, wb, s_mat, k1), iters=10)
-        (per_launch if k in on_path else off_path).append(ms_k)
-        if best is None or s_mat.shape[0] > best[0].shape[0]:
+        want = level_counts_plain(bitmap, wb, s_mat, k1)
+        ms = {}
+        for form in FORMS:
+            require_equal(f"level_counts k={k} launch ({form} form)",
+                          level_counts(bitmap, wb, s_mat, k1, form=form),
+                          want)
+            ms[form] = time_ms(
+                lambda: level_counts(bitmap, wb, s_mat, k1, form=form),
+                iters=10)
+        m = s_mat.shape[0]
+        m_real = int((torch.count_nonzero(s_mat, dim=1) == k1).sum().item())
+        picked = pick_form(min_support, f)
+        launches.append({
+            "k": k, "M": m, "m_real": m_real, "k1": k1,
+            "pair_share": contained_pairs(bitmap, s_mat, k1)
+            / max(1, m_real * t),
+            **{f"{form}_ms": ms[form] for form in FORMS}, "form": picked,
+            "on_path": k in on_path})
+        if k in on_path:
+            per_launch.append(ms[picked])
+            for form in FORMS:
+                by_form[form].append(ms[form])
+        else:
+            off_path.append(ms[picked])
+        if best is None or m > best[0].shape[0]:
             best = (s_mat, k1, k in on_path)
-    log(f"K1 per launch (ms): {json.dumps(per_launch)}, all launches "
-        f"{sum(per_launch):.4f} ms; launches not on the path (their level "
-        f"came from the pair program or a fold): {json.dumps(off_path)}")
+    sums = {form: sum(v) for form, v in by_form.items()}
+    log(f"K1 bitmap [{t} x {f}], fill {fill:.6f}, min support "
+        f"{min_support:.6f}; per launch: {json.dumps(launches)}")
+    log(f"K1 all launches on the path: the rule's picks "
+        f"{sum(per_launch):.4f} ms, each form alone {json.dumps(sums)}; "
+        f"launches not on the path (their level came from the pair program "
+        f"or a fold), the picks: {json.dumps(off_path)}")
     s_mat, k1, on_path = best
-    t, f = bitmap.shape
     m = s_mat.shape[0]
     # Real prefixes hold k1 items; the pow2 padding rows hold one item
     # and the kernel gives tiles of only those no work.
     m_real = int((torch.count_nonzero(s_mat, dim=1) == k1).sum().item())
+    form = pick_form(min_support, f)
     log(f"K1 shapes: T={t} F={f} M={m} ({m_real} real prefixes) k1={k1}"
-        + ("" if on_path else " (not on the path)"))
+        + ("" if on_path else " (not on the path)") + f"; the rule picks "
+        f"the {form} form")
 
-    got = level_counts(bitmap, wb, s_mat, k1)
     want = level_counts_plain(bitmap, wb, s_mat, k1)
-    err = require_equal("level_counts main shape", got, want)
+    errs = {name: require_equal(f"level_counts main shape ({name} form)",
+                                level_counts(bitmap, wb, s_mat, k1,
+                                             form=name), want)
+            for name in FORMS}
     b_t = bitmap.t().contiguous()
 
     def library():
         overlap = torch._int_mm(s_mat, b_t)  # [M, T] materialised
         return torch._int_mm((overlap == k1).to(torch.int8), wb)
 
-    require_equal("level_counts vs torch._int_mm", got, library())
-    # Contained (prefix, transaction) pairs: the counting product's real
-    # work (overlaps <= F are exact in float32).
-    pairs = 0
-    s_f = s_mat.float()
-    for t0 in range(0, t, 8192):
-        ov = s_f @ bitmap[t0 : t0 + 8192].float().T
-        pairs += int((ov == k1).sum().item())
-    ms = time_ms(lambda: level_counts(bitmap, wb, s_mat, k1), iters=20)
+    require_equal("level_counts vs torch._int_mm", want, library())
+    pairs = contained_pairs(bitmap, s_mat, k1)
+    ms_by_form = {
+        name: time_ms(lambda: level_counts(bitmap, wb, s_mat, k1, form=name),
+                      iters=20)
+        for name in FORMS}
+    # Each form's kernels in device time: the preparation passes (the
+    # dense form's transposed WB among them) beside the counting.
+    by_kernel = {name: kernel_device_ms(
+        lambda: level_counts(bitmap, wb, s_mat, k1, form=name), 5)
+        for name in FORMS}
+    log(f"K1 device ms by kernel: {json.dumps(by_kernel)}")
     plain_ms = time_ms(lambda: level_counts_plain(bitmap, wb, s_mat, k1),
                        iters=3, warmup=1)
     library_ms = time_ms(library, iters=5, warmup=1)
+    # The function's own work: B, WB and S read once, the counts written
+    # once; each contained pair adds its WB row (2 F operations, at the
+    # int8 rate).  The membership, k1 ANDs per 32 pairs, is left out.
     n_bytes = 2 * t * f + m * f + 4 * m * f
-    n_ops = 2 * m_real * t * f + 2 * pairs * f
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    log(f"K1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"contained pairs {pairs}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    bound_ms, bound_by = bound(n_bytes, 2 * pairs * f)
+    # The dense form's own roofline: the product common · WB over every
+    # live row, contained or not.
+    dense_roofline_ms, _ = bound(0, 2 * m_real * t * f)
+    log(f"K1: {json.dumps(ms_by_form)} ms by form (the rule picks {form}), "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); contained pairs {pairs}; the "
+        f"dense product over {m_real} live rows {dense_roofline_ms:.4f} ms")
+    return {"max_abs_err": max(errs.values()), "ms": ms_by_form[form],
+            "form": form, "ms_by_form": ms_by_form, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "dense_roofline_ms": dense_roofline_ms, "contained_pairs": pairs,
             "library_ms": library_ms, "ms_all_launches": sum(per_launch),
-            "per_launch_ms": per_launch, "heaviest_on_path": on_path,
+            "ms_all_launches_by_form": sums, "per_launch_ms": per_launch,
+            "heaviest_on_path": on_path, "fill": fill,
+            "min_support": min_support, "device_ms_by_kernel": by_kernel,
             "per_launch_ms_not_on_path": off_path}
+
+
+# K1's crossover sweeps: contained-pair shares set at the heaviest launch
+# shapes of the MovieLens-shape corpus ([T, F]) and of T10I4D100K (F =
+# 384, two of the dense form's 256-column F slices to one of the packed
+# form's 384), then at T10's T with F = 512 and 768 (2 and 3 dense
+# slices to 2 packed), M = 8,192, k1 = 4.
+K1_SWEEPS = ((159_040, 256, (0.001, 0.003, 0.01, 0.03, 0.1)),
+             (77_280, 384, (0.003, 0.006, 0.008, 0.01, 0.03)),
+             (77_280, 512, (0.001, 0.003, 0.01)),
+             (77_280, 768, (0.003, 0.006, 0.01, 0.03)))
+
+
+def k1_crossover(device) -> list:
+    """K1's two forms on bitmaps whose contained-pair share is set, at
+    each :data:`K1_SWEEPS` shape: M = 8,192 rows over disjoint item
+    quadruples (each prefix repeated over M / (F / 4) rows) planted in
+    about ``share`` of the transactions, on a random background fill of
+    0.02, weights 1..4.  At each share both forms are held against the
+    plain version and timed (CUDA events, 5 calls).  The transactions
+    are distinct, so the share stands for a mine's min support: where
+    the dense form starts to win is the ground of ops/level_kernel.py
+    ``pick_form``."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.ops.level_kernel import (
+        DENSE_SHARE_OFFSET,
+        DENSE_SHARE_SLOPE,
+        FORMS,
+        level_counts,
+        level_counts_plain,
+        pick_form,
+    )
+
+    m, k1 = 8192, 4
+    rng = np.random.default_rng(17)
+    rows = []
+    for t, f, shares in K1_SWEEPS:
+        n_prefixes = f // k1
+        s_np = np.zeros((m, f), dtype=np.int8)
+        for r in range(m):
+            p = r % n_prefixes
+            s_np[r, k1 * p : k1 * p + k1] = 1
+        s_mat = torch.from_numpy(s_np).to(device)
+        for share in shares:
+            b = (rng.random((t, f)) < 0.02).astype(np.int8)
+            for p in range(n_prefixes):
+                b[rng.random(t) < share, k1 * p : k1 * p + k1] = 1
+            w = rng.integers(1, 5, size=(t, 1)).astype(np.int8)
+            bitmap = torch.from_numpy(b).to(device)
+            wb = bitmap * torch.from_numpy(w).to(device)
+            want = level_counts_plain(bitmap, wb, s_mat, k1)
+            row = {"T": t, "F": f, "share": share,
+                   "measured_share": contained_pairs(bitmap, s_mat, k1)
+                   / (m * t),
+                   "rule": pick_form(share, f)}
+            for form in FORMS:
+                require_equal(f"level_counts crossover [{t} x {f}] share "
+                              f"{share} ({form} form)",
+                              level_counts(bitmap, wb, s_mat, k1, form=form),
+                              want)
+                row[f"{form}_ms"] = time_ms(
+                    lambda: level_counts(bitmap, wb, s_mat, k1, form=form),
+                    iters=5)
+            rows.append(row)
+            del bitmap, wb, want
+    log(f"K1 crossover, M = {m}, k1 = {k1} (rule: dense from a min support "
+        f"of {DENSE_SHARE_SLOPE} x dense slices / packed slices - "
+        f"{DENSE_SHARE_OFFSET}): {json.dumps(rows)}")
+    return rows
 
 
 def scan_crossover(path: str, rec, baskets) -> None:
@@ -2378,16 +2535,17 @@ def reliability_phases(in_dir: str, k_in: str, main_fields: dict,
 
 # Phase 10: each hand kernel's symbol in the device trace (the name
 # torch.profiler reports holds it) and the launch counter it must equal.
-KERNEL_SYMBOLS = {"level_counts": "level_counts_packed",
-                  "first_match": "first_match_kernel",
-                  "vertical_counts": "vertical_counts_kernel"}
+KERNEL_SYMBOLS = {"level_counts": ("level_counts_packed",
+                                    "level_counts_dense"),
+                  "first_match": ("first_match_kernel",),
+                  "vertical_counts": ("vertical_counts_kernel",)}
 
 
 def traced_kernel_calls(summary: dict) -> dict:
     """Launches of each hand kernel in a ``kernel_summary``."""
     return {name: sum(r["calls"] for r in summary["kernels"]
-                      if sym in r["name"])
-            for name, sym in KERNEL_SYMBOLS.items()}
+                      if any(sym in r["name"] for sym in syms))
+            for name, syms in KERNEL_SYMBOLS.items()}
 
 
 def profiled_run(name: str, in_dir: str, min_support: str, digests: dict,
@@ -2577,12 +2735,33 @@ def serve_dispatches(st: dict) -> int:
 
 
 def zero_launches() -> dict:
-    """Every kernel's launch count set to 0; the kernels by name, for
-    :func:`read_launches` just after the run they count."""
+    """Every kernel's launch count set to 0 (K1's per form too); the
+    kernels by name, for :func:`read_launches` just after the run they
+    count."""
     kernels = kernel_launches()
     for fn in kernels.values():
         fn.launches = 0
+    zero_k1_forms()
     return kernels
+
+
+def zero_k1_forms() -> None:
+    from fastapriori_tpu_torch.ops.level_kernel import level_counts
+
+    level_counts.launches_by_form = dict.fromkeys(
+        level_counts.launches_by_form, 0)
+
+
+def k1_forms(name: str, total: int) -> dict:
+    """K1's launches by form since :func:`zero_k1_forms`; they must add
+    up to its ``total`` launches."""
+    from fastapriori_tpu_torch.ops.level_kernel import level_counts
+
+    forms = dict(level_counts.launches_by_form)
+    if sum(forms.values()) != total:
+        raise SystemExit(f"{name}: K1 launches by form {forms} do not add "
+                         f"up to its {total} launches")
+    return forms
 
 
 def read_launches(kernels: dict) -> dict:
@@ -3477,6 +3656,7 @@ def mesh_kernel_measure(in_dir: str, k_in: str) -> dict:
     from fastapriori_tpu_torch.models import apriori, recommender
     from fastapriori_tpu_torch.models.apriori import FastApriori
     from fastapriori_tpu_torch.ops.level_kernel import (
+        FORMS,
         level_counts,
         level_counts_plain,
     )
@@ -3562,12 +3742,20 @@ def mesh_kernel_measure(in_dir: str, k_in: str) -> dict:
         if not calls[name]:
             raise SystemExit(f"{name}: the mesh API runs launched nothing")
         per, shapes, err, bounds = [], [], 0, []
-        for args, kw, got in calls[name]:
-            err = max(err, require_equal(f"{name} mesh launch", got,
-                                         plain(*args, **kw)))
+        by_form = {form: [] for form in FORMS}
+        for args, call_kw, got in calls[name]:
+            # K1's counting form is the engine's choice, not an input.
+            kw = {k: v for k, v in call_kw.items() if k != "form"}
+            want = plain(*args, **kw)
+            err = max(err, require_equal(f"{name} mesh launch", got, want))
             with torch.cuda.device(args[0].device):
-                per.append(round(time_ms(lambda a=args, k=kw: real(*a, **k),
-                                         10), 4))
+                per.append(round(time_ms(
+                    lambda a=args, k=call_kw: real(*a, **k), 10), 4))
+                for form in FORMS if name == "level_counts" else ():
+                    require_equal(f"{name} mesh launch ({form} form)",
+                                  real(*args, form=form), want)
+                    by_form[form].append(round(time_ms(
+                        lambda a=args, f=form: real(*a, form=f), 10), 4))
             shapes.append(shapes_of(args) + [kw] if kw else shapes_of(args))
             if kw:
                 bounds.append(strided_k2_bound(args, kw, got))
@@ -3575,6 +3763,9 @@ def mesh_kernel_measure(in_dir: str, k_in: str) -> dict:
                      "per_launch_ms": per,
                      "ms_all_launches": round(sum(per), 4),
                      "shapes": shapes}
+        if name == "level_counts":
+            out[name]["forms"] = [kw.get("form") for _, kw, _ in calls[name]]
+            out[name]["per_launch_ms_by_form"] = by_form
         if bounds:
             out[name]["bound_ms_per_launch"] = [b for b, _ in bounds]
             out[name]["bound_by"] = sorted({by for _, by in bounds})
@@ -4168,6 +4359,8 @@ def movielens_phase(device, card: str) -> tuple:
 
     from fastapriori_tpu_torch import AssociationRules, FastApriori
     from fastapriori_tpu_torch.io.reader import read_dat
+    from fastapriori_tpu_torch.ops.bitmap import pad_axis
+    from fastapriori_tpu_torch.ops.level_kernel import pick_form
     from fastapriori_tpu_torch.io.writer import (
         save_freq_itemsets,
         save_recommends,
@@ -4212,6 +4405,7 @@ def movielens_phase(device, card: str) -> tuple:
     save_recommends(out_dir + "/", recs)
     t_end = time.perf_counter()
     launches = read_launches(kernels)
+    forms = k1_forms("movielens", launches["level_counts"])
     peak = torch.cuda.max_memory_allocated(device)
     check_digests("movielens", out_dir, {
         "freqItemset": spec["freq_sha256"],
@@ -4221,6 +4415,12 @@ def movielens_phase(device, card: str) -> tuple:
     require_launches("movielens", launches, fields,
                      ran=("level_counts", "first_match"))
     levels, data = kept["levels"], kept["data"]
+    # Every K1 launch took the form the rule picks for this mine.
+    picked = pick_form(data.min_count / max(1, data.n_raw),
+                       pad_axis(data.num_items + 1, miner.config.item_tile))
+    if forms[picked] != launches["level_counts"]:
+        raise SystemExit(f"movielens: K1 launches by form {forms}, the rule "
+                         f"picks {picked} for every launch")
     n_levels = len(levels)
     out = {
         "generate_s": gen["wall_s"], "mine_s": t_mine - t0,
@@ -4231,6 +4431,7 @@ def movielens_phase(device, card: str) -> tuple:
         "users": len(u_lines),
         "distinct_baskets": fields.get("user_dedup", {}).get("distinct"),
         "peak_device_bytes": peak, "launches": launches,
+        "k1_forms": forms,
         "engine": fields.get("engine_auto", {}).get("choice"),
         "tail_fuse": [v.get("k0") for k, v in fields.items()
                       if k.startswith("tail_fuse")],
@@ -4242,12 +4443,13 @@ def movielens_phase(device, card: str) -> tuple:
         f"{out['mine_s']:.3f} s (decode {out['decode_ms']} ms), rules "
         f"{out['rules_s']:.3f} s, scan {out['scan_s']:.3f} s, writes "
         f"{out['write_s']:.3f} s; peak device memory {peak} bytes; "
-        f"launches {launches}; the JAX digests")
+        f"launches {launches} (K1 by form {forms}); the JAX digests")
     # One launch of each kernel replayed against its plain version: K1's
     # launches at the run's own shapes (the same ingest and levels), K2
     # at the object-form table's scan block.
     k1 = k1_measure(miner.config, data, levels, device, fields)
     require_replayed("K1 movielens", k1, launches["level_counts"])
+    k1["launches_by_form"] = forms
     baskets, _, _ = dedup_user_baskets(u_lines, item_to_rank)
     k2 = k2_replay("movielens", rec, baskets, device)
     del miner, rec, itemsets, kept, levels, data
@@ -4496,6 +4698,8 @@ def run(t_start: float) -> int:
                              levels)
     k1 = k1_measure(cfg, data, levels, device, main_fields)
     require_replayed("K1 main path", k1, main_launches["level_counts"])
+    k1["launches_by_form"] = main_fields["k1_forms"]
+    k1["crossover"] = k1_crossover(device)
     if api_k1 != main_launches["level_counts"]:
         raise SystemExit(f"K1: the level API path launched {api_k1} times, "
                          f"the main path {main_launches['level_counts']}")
@@ -4547,6 +4751,10 @@ def run(t_start: float) -> int:
          "replaces": "fastapriori_tpu/ops/pallas_level.py:57",
          "launches": main_launches["level_counts"], "path": "t10i4d100k",
          "launches_by_path": by_path("level_counts"), **k1,
+         "launches_by_form_by_path": {
+             "t10i4d100k": main_fields["k1_forms"],
+             "t10i4d100k_device_rules_cli": rules_fields["k1_forms"],
+             "movielens_api": movielens["k1_forms"]},
          "measured_by_path": {
              "t10i4d100k": k1,
              "t10i4d100k_mesh_s2_api": mesh_measured["level_counts"],

@@ -108,6 +108,7 @@ level under the next mesh epoch (:meth:`FastApriori._mine_elastic`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import mmap
 import time
 from typing import Dict, FrozenSet, Iterator, List, Optional, Sequence, Tuple
@@ -159,6 +160,7 @@ from fastapriori_tpu_torch.parallel import hier, mesh
 from fastapriori_tpu_torch.ops.level_kernel import (
     level_counts,
     level_counts_plain,
+    pick_form,
 )
 from fastapriori_tpu_torch.ops.vertical import (
     PAIR_TXN_CHUNK,
@@ -2412,6 +2414,7 @@ class FastApriori:
                 nxt, nxt_counts, stats = self._count_level(
                     table, weights, scales, cur, data.min_count, heavy,
                     vertical=vertical, defer=defer, red=red,
+                    min_support=data.min_count / max(1, data.n_raw),
                 )
                 m.update(frequent=int(nxt.shape[0]), **stats)
                 if k == 3:
@@ -2654,12 +2657,16 @@ class FastApriori:
         level: np.ndarray,
         min_count: int,
         heavy: Optional[tuple],
+        *,
+        min_support: float,
         vertical: bool = False,
         defer: bool = False,
         red: Optional[dict] = None,
     ) -> Tuple[np.ndarray, object, dict]:
         """C7 + C8 for one level: candidates on the host, counts through
-        K1 (``table`` the bitmap, ``weights`` its weight digits) or,
+        K1 (``table`` the bitmap, ``weights`` its weight digits; the
+        counting form ops/level_kernel.py ``pick_form`` chooses from the
+        mine's ``min_support`` and the bitmap's width) or,
         with ``vertical``, through K3 (``table`` the tid-lane arena,
         ``weights`` its weight bit-planes), survivors at ``min_count``.
         ``table`` and ``weights`` are the mesh's per-position lists.
@@ -2691,6 +2698,7 @@ class FastApriori:
         ctx = self.ctx
         s = level.shape[1]
         f_pad = table[0].shape[0] - 1 if vertical else table[0].shape[1]
+        k1_form = pick_form(min_support, f_pad)
         plain = ctx.plain_kernels()
         x_idx, ys = concat_blocks(gen_candidates_stream(level))
         stats = {"candidates": int(x_idx.size), "launches": 0, "p_cap": 0}
@@ -2716,7 +2724,8 @@ class FastApriori:
         ):
             got = self._count_chunk(
                 table, weights, scales, prefix_cols, cand_idx, f_pad,
-                min_count, heavy, vertical, plain, red, stats, nus)
+                min_count, heavy, vertical, plain, red, stats, nus,
+                k1_form=k1_form)
             parts.append(got)
             stats["p_cap"] = max(stats["p_cap"], prefix_cols.shape[0])
         counts_dev = torch.cat(parts) if len(parts) > 1 else parts[0]
@@ -2767,7 +2776,8 @@ class FastApriori:
             nxt_d, cnts_d, stats_d = self._count_level(
                 table, weights, scales, level, min_count, heavy,
                 vertical=vertical, defer=defer,
-                red={"engine": "dense", "thr": None})
+                red={"engine": "dense", "thr": None},
+                min_support=min_support)
             # The sparse attempt's launches and bytes were spent too.
             for key in ("launches", "vops", "member_bytes_saved",
                         "psum_bytes", "gather_bytes"):
@@ -2804,7 +2814,8 @@ class FastApriori:
                      prefix_cols: np.ndarray, cand_idx: np.ndarray,
                      f_pad: int, min_count: int, heavy: Optional[tuple],
                      vertical: bool, plain: bool, red: Optional[dict],
-                     stats: dict, nus: list) -> torch.Tensor:
+                     stats: dict, nus: list,
+                     k1_form: str) -> torch.Tensor:
         """One :func:`level_chunks` launch over the mesh: the prefix rows
         split into ``cand_shards`` contiguous blocks (candidate block c
         takes rows ``[c·p_sh, (c+1)·p_sh)`` and their candidates, at
@@ -2852,7 +2863,8 @@ class FastApriori:
             lane_tile = self._vertical_lane_tile()
             chunk = self._vertical_chunk(c_cap)
         else:
-            count = level_counts_plain if plain else level_counts
+            count = (level_counts_plain if plain else
+                     functools.partial(level_counts, form=k1_form))
         outs = []
         for c in range(c_shards):
             lo = c * p_sh

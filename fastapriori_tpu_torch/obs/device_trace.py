@@ -148,15 +148,20 @@ def find_device_trace(trace_dir: str) -> Optional[str]:
 # Raw kernel names -> the host span stage that launches them.  Ordered:
 # the first entry whose fragments all occur in the lower-cased name wins,
 # so the port's kernel symbols come first.  K1 (csrc/level_counts.cu)
-# launches pack_kernel (its parameters name the Scratch struct),
-# prep_rows_kernel and level_counts_packed per call; K3
+# launches, per call, pack_kernel (its parameters name the Scratch
+# struct), prep_rows_kernel and level_counts_packed (packed form) or
+# prep_dense_kernel, prep_items_kernel and level_counts_dense (dense
+# form); K3
 # (csrc/vertical_counts.cu) run_starts_kernel and vertical_counts_kernel;
 # K2 (csrc/first_match.cu) its own pack_kernel and first_match_kernel.
 # Then the JAX package's generic fragments.  Unmatched kernels map to
 # "other": attribution never drops device time.
 STAGE_PATTERNS = (
     (("level_counts_packed",), "mine.count"),
+    (("level_counts_dense",), "mine.count"),
     (("prep_rows_kernel",), "mine.count"),
+    (("prep_items_kernel",), "mine.count"),
+    (("prep_dense_kernel",), "mine.count"),
     (("pack_kernel", "scratch"), "mine.count"),
     (("vertical_counts_kernel",), "mine.count"),
     (("run_starts_kernel",), "mine.count"),

@@ -23,18 +23,53 @@ may exceed 127.
 
 :func:`level_counts` launches the kernel for CUDA tensors and runs
 :func:`level_counts_plain` only for CPU tensors; its ``launches``
-attribute counts kernel launches.  Everything the kernel derives from
-its inputs (packed B, each prefix row's word list, the packed WB rows,
-the tile work list) is derived on the device inside that launch.
+attribute counts kernel launches, ``launches_by_form`` each form's.
+Everything the kernel derives from its inputs (B packed or sliced by
+transaction, the prefix rows' word or item lists, the packed WB rows or
+WB transposed, the tile work list) is derived on the device inside that
+launch.  The counting runs in one of two forms (:data:`FORMS`), the
+level loop choosing per launch by :func:`pick_form`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from fastapriori_tpu_torch.ops import build
+
+# The counting kernel's two forms (csrc/level_counts.cu `Form`, in this
+# order): "packed" adds each contained (prefix, transaction) pair's WB
+# row on CUDA cores; "dense" runs common · WB on the int8 tensor cores.
+FORMS = ("packed", "dense")
+
+# Columns of one F slice of each form (csrc/level_counts.cu kFS, kDFS):
+# each form redoes its work per slice.
+PACKED_SLICE_COLS, DENSE_SLICE_COLS = 384, 256
+
+# The crossover.  chip_smoke.py's "K1 crossover" sweeps (an H100 80GB
+# HBM3; PERF.md §6), which set the contained-pair share of synthetic
+# launches, put the forms equal near 0.25 % at F = 256, 1.05 % at 384,
+# under 0.1 % at 512 and 0.6 % at 768: about SLOPE · r - OFFSET, with r
+# the dense form's F slices over the packed form's.
+DENSE_SHARE_SLOPE, DENSE_SHARE_OFFSET = 0.008, 0.0055
+
+
+def pick_form(min_support: float, f: int) -> str:
+    """K1's form for a mine at ``min_support`` (min count over the
+    transaction count) on a bitmap ``f`` columns wide, both known on the
+    host without a sync: dense from the crossover share at ``f``, else
+    packed.  The packed form's work grows with the contained (prefix,
+    transaction) pairs, the dense form's does not.  The rule reads min
+    support for the share: every real prefix has at least that weighted
+    support, though the share the kernel sees is over the distinct
+    bitmap rows, which repeated baskets can put far below it."""
+    r = -(-max(f, 1) // DENSE_SLICE_COLS) / -(-max(f, 1) // PACKED_SLICE_COLS)
+    cross = DENSE_SHARE_SLOPE * r - DENSE_SHARE_OFFSET
+    return "dense" if min_support >= cross else "packed"
+
 
 def level_counts_plain(
     bitmap: torch.Tensor,
@@ -92,11 +127,11 @@ def _check_widths(s_mat, k1) -> None:
 def _lib():
     lib = build.load("level_counts")
     if lib.fa_level_counts.argtypes is None:
-        lib.fa_level_counts_scratch.argtypes = [ctypes.c_int] * 4
+        lib.fa_level_counts_scratch.argtypes = [ctypes.c_int] * 5
         lib.fa_level_counts_scratch.restype = ctypes.c_longlong
         lib.fa_level_counts.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int
-        ] * 4 + [ctypes.c_void_p]
+        ] * 5 + [ctypes.c_void_p]
         lib.fa_level_counts.restype = ctypes.c_int
     return lib
 
@@ -106,10 +141,16 @@ def level_counts(
     wb: torch.Tensor,
     s_mat: torch.Tensor,
     k1: int,
+    form: Optional[str] = None,
 ) -> torch.Tensor:
     """K1 on the tensors' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  ``form`` (private: the level loop
+    passes :func:`pick_form`'s choice, chip_smoke.py forces each form) is
+    one of :data:`FORMS`; a CUDA launch without one raises, and CPU
+    tensors run the plain version whatever it is."""
     _check(bitmap, wb, s_mat)
+    if form is not None and form not in FORMS:
+        raise ValueError(f"K1 form {form!r} is not one of {FORMS}")
     if bitmap.device.type == "cpu":
         _check_widths(s_mat, k1)
         return level_counts_plain(bitmap, wb, s_mat, k1)
@@ -119,6 +160,9 @@ def level_counts(
     # and launches there: make that the tensors' card, which a mesh
     # shard need not share with the caller.
     with torch.cuda.device(bitmap.device):
+        if form is None:
+            raise ValueError("K1 on the card needs its form: pick_form's "
+                             "choice")
         t, f = bitmap.shape
         m = s_mat.shape[0]
         check_limits(t, f, m)
@@ -126,22 +170,28 @@ def level_counts(
         out = torch.zeros((m, f), dtype=torch.int32, device=bitmap.device)
         if t == 0 or f == 0 or m == 0:
             return out
+        code = FORMS.index(form)
         lib = _lib()
-        # Packed B and WB, each prefix row's word list, the tile work
-        # list and the work counter (csrc/level_counts.cu `Scratch`).
+        # The form's scratch (csrc/level_counts.cu `Scratch`): B packed
+        # by words or sliced by transaction, the rows' word or item
+        # lists, the packed WB rows or WB transposed, the tile work list
+        # and the work counter.
         scratch = torch.empty(
-            lib.fa_level_counts_scratch(t, f, m, int(k1)),
+            lib.fa_level_counts_scratch(t, f, m, int(k1), code),
             dtype=torch.uint8, device=bitmap.device)
         stream = torch.cuda.current_stream(bitmap.device).cuda_stream
         err = lib.fa_level_counts(
             bitmap.data_ptr(), wb.data_ptr(), s_mat.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), t, f, m, int(k1), stream,
+            out.data_ptr(), scratch.data_ptr(), t, f, m, int(k1), code,
+            stream,
         )
     if err != 0:
-        raise RuntimeError(f"level_counts kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"level_counts kernel launch failed ({form} "
+                           f"form): CUDA error {err}")
     level_counts.launches += 1
+    level_counts.launches_by_form[form] += 1
     return out
 
 
 level_counts.launches = 0
+level_counts.launches_by_form = dict.fromkeys(FORMS, 0)

@@ -160,6 +160,204 @@ def test_k1_row_word_decomposition_matches_pallas(k, f):
     assert (want[3] == 0).all() and want.sum() > 0
 
 
+def _k1_dense_by_tiles(bitmap, wb, s, k1):
+    """K1's dense (tensor-core) form in numpy, as csrc/level_counts.cu
+    lays it out: B's bits sliced by transaction (bit i of word (f, w) =
+    B[32 w + i, f], T padded to 512 and F to 64), each row of exactly k1
+    items listed by item; per 128-row tile holding a live row (tiles of
+    padding rows only take no work), 256-column F slice and
+    128-transaction sub-tile, the ballot word of each (row, 32-transaction
+    group) (the AND of the row's item words, masked past T) expanded to
+    the 0/1 int8 tile common[128, 128], times the sub-tile of WB
+    transposed to [Fp, Tp] (T contiguous, the .col operand), in int32,
+    accumulated over T.  Returns the counts and the tiles visited."""
+    t, f = bitmap.shape
+    m = s.shape[0]
+    tp, fp = -(-t // 512) * 512, -(-f // 64) * 64
+    bits = np.zeros((fp, tp), dtype=np.uint64)
+    bits[:f, :t] = (bitmap != 0).T
+    bv = (bits.reshape(fp, tp // 32, 32)
+          << np.arange(32, dtype=np.uint64)).sum(axis=2).astype(np.uint32)
+    valid = np.zeros(tp, dtype=np.uint64)
+    valid[:t] = 1
+    valid_w = (valid.reshape(-1, 32)
+               << np.arange(32, dtype=np.uint64)).sum(axis=1).astype(np.uint32)
+    wbt = np.zeros((fp, tp), dtype=np.int8)
+    wbt[:f, :t] = wb.T
+    live = (s != 0).sum(axis=1) == k1
+    out = np.zeros((m, f), dtype=np.int32)
+    visited = []
+    for tile in range(-(-m // 128)):
+        rows = np.arange(tile * 128, min(m, tile * 128 + 128))
+        if not live[rows].any():
+            continue
+        visited.append(tile)
+        words = np.zeros((128, tp // 32), dtype=np.uint32)
+        for r in rows[live[rows]]:
+            words[r - tile * 128] = np.bitwise_and.reduce(
+                bv[np.flatnonzero(s[r])], axis=0, initial=0xFFFFFFFF)
+        words &= valid_w
+        common = ((words[:, :, None] >> np.arange(32, dtype=np.uint32))
+                  & 1).reshape(128, tp).astype(np.int8)
+        for f0 in range(0, fp, 256):
+            acc = np.zeros((128, min(256, fp - f0)), dtype=np.int32)
+            for t0 in range(0, tp, 128):
+                acc += (common[:, t0 : t0 + 128].astype(np.int32)
+                        @ wbt[f0 : f0 + 256, t0 : t0 + 128].T.astype(
+                            np.int32))
+            cols = min(f0 + 256, f) - f0
+            if cols > 0:
+                out[rows, f0 : f0 + cols] = acc[: len(rows), :cols]
+    return out, visited
+
+
+def _pallas_padded(bitmap, wb, s, k1):
+    """The Pallas kernel in interpret mode on T and M padded to its tile
+    multiples with zero rows (a zero prefix row never holds k1 >= 1
+    items), cropped back."""
+    t, f = bitmap.shape
+    m = s.shape[0]
+    tp, mp = -(-t // T_TILE) * T_TILE, -(-m // M_TILE) * M_TILE
+    pad = lambda x, n: np.concatenate(  # noqa: E731
+        [x, np.zeros((n - x.shape[0], f), dtype=np.int8)])
+    got = level_counts_pallas(
+        jnp.asarray(pad(bitmap, tp)), jnp.asarray(pad(wb, tp)),
+        jnp.asarray(pad(s, mp)), jnp.int32(k1), t_tile=T_TILE,
+        m_tile=M_TILE, interpret=True)
+    return np.asarray(got)[:m]
+
+
+def _k1_prefix_case(seed, t, m, f, k1, fill, held, n_live):
+    """A bitmap of about ``fill``, rows 0..n_live-1 prefixes of k1 items
+    from the first 16 columns (each planted in about ``held`` of the
+    transactions, so they are contained: every fifth row holds k1 - 1
+    items and never matches), the rest padding rows (one item in the
+    last column)."""
+    rng = np.random.default_rng(seed)
+    bitmap = (rng.random((t, f)) < fill).astype(np.int8)
+    s = np.zeros((m, f), dtype=np.int8)
+    s[:, f - 1] = 1
+    for i in range(n_live):
+        s[i] = 0
+        cols = rng.choice(16, size=k1 - 1 if i % 5 == 4 else k1,
+                          replace=False)
+        s[i, cols] = 1
+        bitmap[rng.random(t) < held, cols[:, None]] = 1
+    bitmap[:, f - 1] = 0
+    w = rng.integers(1, 128, size=t).astype(np.int64)
+    wb = (bitmap * w[:, None]).astype(np.int8)
+    return bitmap, w, wb, s
+
+
+@pytest.mark.parametrize(
+    "case, t, m, f, k1, fill, held, n_live",
+    [("sparse", 1024, 512, 256, 3, 0.03, 0.02, 300),
+     ("dense", 1024, 512, 256, 4, 0.45, 0.3, 512),
+     ("ragged", 1001, 300, 203, 2, 0.4, 0.2, 100)])
+def test_k1_dense_tile_decomposition_matches_pallas(case, t, m, f, k1, fill,
+                                                     held, n_live):
+    bitmap, w, wb, s = _k1_prefix_case(len(case), t, m, f, k1, fill, held,
+                                       n_live)
+    if case == "dense":
+        assert (bitmap != 0).mean() >= 0.4
+    got, visited = _k1_dense_by_tiles(bitmap, wb, s, k1)
+    want = _pallas_padded(bitmap, wb, s, k1)
+    assert (got == want).all()
+    assert (want == _expected(bitmap, w, s, k1 + 1)).all()
+    assert want[:n_live].sum() > 0 and (want[n_live:] == 0).all()
+    # Tiles of padding rows only take no work.
+    assert visited == list(range(-(-n_live // 128)))
+
+
+@pytest.mark.parametrize("f, cross", [(256, 0.0025), (384, 0.0105),
+                                      (768, 0.0065), (96, 0.0025)])
+def test_k1_form_rule_picks_each_side_of_its_crossover(f, cross):
+    # The crossover share at F: 0.8 % per dense slice over packed slice,
+    # less 0.55 % (the sweeps put it near 0.25 % at F = 256, 1.05 % at
+    # 384, 0.6 % at 768).
+    assert level_kernel.pick_form(cross * 1.01, f) == "dense"
+    assert level_kernel.pick_form(1.0, f) == "dense"
+    assert level_kernel.pick_form(cross * 0.99, f) == "packed"
+    assert level_kernel.pick_form(0.0, f) == "packed"
+    assert set(level_kernel.FORMS) == {"packed", "dense"}
+
+
+def test_k1_form_on_cpu_runs_the_plain_version_and_launches_nothing():
+    bitmap, w, wb, s = _case(11, 300, 40, 96, 3)
+    want = level_counts_plain(_t(bitmap), _t(wb), _t(s), 2)
+    before = (level_counts.launches, dict(level_counts.launches_by_form))
+    for form in (*level_kernel.FORMS, None):
+        got = level_counts(_t(bitmap), _t(wb), _t(s), 2, form=form)
+        assert torch.equal(got, want)
+    assert (level_counts.launches, level_counts.launches_by_form) == before
+    with pytest.raises(ValueError, match="form"):
+        level_counts(_t(bitmap), _t(wb), _t(s), 2, form="tensor")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a card as its device: enough for the
+    wrapper's checks, up to its launch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_k1_on_the_card_without_a_form_raises_before_launching(monkeypatch):
+    class NoGuard:
+        def __init__(self, device):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def no_launch(*_a, **_k):
+        raise AssertionError("reached the library without a form")
+
+    monkeypatch.setattr(torch.cuda, "device", NoGuard)
+    monkeypatch.setattr(level_kernel, "_lib", no_launch)
+    bitmap, w, wb, s = _case(12, 64, 8, 32, 3)
+    args = [torch.Tensor._make_subclass(_OnCard, _t(x))
+            for x in (bitmap, wb, s)]
+    before = (level_counts.launches, dict(level_counts.launches_by_form))
+    with pytest.raises(ValueError, match="needs its form"):
+        level_counts(*args, 2)
+    assert (level_counts.launches, level_counts.launches_by_form) == before
+
+
+@pytest.mark.parametrize("min_support, form", [(0.3, "dense"),
+                                               (0.002, "packed")])
+def test_level_loop_launches_k1_in_the_rules_form(min_support, form,
+                                                  monkeypatch):
+    # The level loop hands pick_form's choice for the mine's min support
+    # (min count over the transaction count) to each K1 launch.
+    from fastapriori_tpu_torch.config import MinerConfig
+    from fastapriori_tpu_torch.models import apriori as ap
+
+    seen = []
+    real = ap.level_counts
+
+    def recorded(*args, **kw):
+        seen.append(kw.get("form"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ap, "level_counts", recorded)
+    rng = np.random.default_rng(5)
+    lines = [" ".join(str(i) for i in range(1, 9) if rng.random() < 0.8)
+             + f" {100 + j % 40}" for j in range(400)]
+    miner = ap.FastApriori(config=MinerConfig(
+        min_support=min_support, engine="level", tail_fuse_rows=0),
+        device="cpu")
+    # The bitmap is at most 256 columns wide: one slice of each form.
+    assert all(level_kernel.pick_form(min_support, f) == form
+               for f in (64, 128, 256))
+    miner.run(lines)
+    assert seen and set(seen) == {form}
+
+
 def _match_case(seed, mb=64, f=128, r=256, k=4, density=0.15):
     """Baskets with padding rows (len 0), a rule table with padding rules
     (size > F) pointing at the all-zero column, and some baskets that no
