@@ -1285,7 +1285,7 @@ def capture_compare(in_dir: str, device, min_support: str) -> None:
                     ("preprocess", ("pass1_s", "pass2_s", "pack_s")),
                     ("bitmap_build", ("upload_wait_ms", "pair_issue_ms",
                                       "assemble_ms")),
-                    ("level k=2", ("pair_device_ms",)),
+                    ("level k=2", ("overlapped", "dispatches")),
                     ("fused_mine", ("m_cap", "levels", "packed_input")))
                 for key in keys if key in ev.get(phase, {})}))
     want = runs["capture"][0]

@@ -668,37 +668,44 @@ def _run_in_world(args, config, device: str, world, context) -> int:
     flight.reload_from_env()
     device_trace.enabled_by_env()
     trace.maybe_enable(bool(args.trace))
-    dom = quorum.active()
-    multi_rank = dom is not None and dom.nprocs > 1
-    flight.set_dump_prefix(args.output + (f"rank{dom.rank}."
-                                          if multi_rank else ""))
-    miner = FastApriori(config=config,
-                        context=_context(args, device, context))
-    if world is not None:
-        miner.metrics.emit(
-            "distributed", backend=world.backend, world=world.size,
-            rank=world.rank, device=str(miner.ctx.device),
-            local_shards=miner.ctx.local_txn_shards)
-    # Every rank up before any work: a peer that never starts is a
-    # classified PeerLost within the bound; a rank that waits here while
-    # a peer aborts the mesh meets it under the new epoch.
-    quorum.sync_or_rejoin("run.start", wait=True)
-    u_lines = read_dat(args.input + "U.dat")
+    # The run's root span holds everything from here to the export: the
+    # job's set-up, reading U.dat, both phases and the last rendezvous.
+    with trace.span("run", cmd="mine"):
+        with trace.span("job_setup"):
+            dom = quorum.active()
+            multi_rank = dom is not None and dom.nprocs > 1
+            flight.set_dump_prefix(args.output + (f"rank{dom.rank}."
+                                                  if multi_rank else ""))
+            miner = FastApriori(config=config,
+                                context=_context(args, device, context))
+            if world is not None:
+                miner.metrics.emit(
+                    "distributed", backend=world.backend, world=world.size,
+                    rank=world.rank, device=str(miner.ctx.device),
+                    local_shards=miner.ctx.local_txn_shards)
+            # Every rank up before any work: a peer that never starts is
+            # a classified PeerLost within the bound; a rank that waits
+            # here while a peer aborts the mesh meets it under the new
+            # epoch.
+            quorum.sync_or_rejoin("run.start", wait=True)
+        with trace.span("read_users") as sp:
+            u_lines = read_dat(args.input + "U.dat")
+            sp.update(lines=len(u_lines))
 
-    # --profile-dir captures both phases: K2, the recommend scan's
-    # kernel, runs in the second.
-    profile = (device_trace.capture(args.profile_dir, explicit=True)
-               if args.profile_dir else contextlib.nullcontext({}))
-    with trace.span("run", cmd="mine"), profile as captured:
-        _phases(args, config, device, miner, u_lines)
-    # The last rendezvous: no rank leaves while a peer still needs it.
-    quorum.sync_or_rejoin("run.end", wait=True)
-    if dom is not None:
-        _emit_quorum(miner.metrics, dom)
-    if captured.get("active"):
-        print(f"device trace written: {captured['trace']} "
-              f"({captured['device_events']} device events)",
-              file=sys.stderr)
+        # --profile-dir captures both phases: K2, the recommend scan's
+        # kernel, runs in the second.
+        profile = (device_trace.capture(args.profile_dir, explicit=True)
+                   if args.profile_dir else contextlib.nullcontext({}))
+        with profile as captured:
+            _phases(args, config, device, miner, u_lines)
+        # The last rendezvous: no rank leaves while a peer still needs it.
+        quorum.sync_or_rejoin("run.end", wait=True)
+        if dom is not None:
+            _emit_quorum(miner.metrics, dom)
+        if captured.get("active"):
+            print(f"device trace written: {captured['trace']} "
+                  f"({captured['device_events']} device events)",
+                  file=sys.stderr)
     if args.trace:
         path = trace.TRACER.export(quorum.rank_path(args.trace))
         print(f"trace written: {path} ({len(trace.TRACER.events())} events; "

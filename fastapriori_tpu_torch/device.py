@@ -413,16 +413,6 @@ class DeviceContext:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
 
-    def timing_event(self) -> Optional[torch.cuda.Event]:
-        """A timing event recorded now on the current stream (None off
-        CUDA); two of them give the device time between them once the
-        later one has passed."""
-        if self.device.type != "cuda":
-            return None
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
     @property
     def memory_bytes(self) -> int:
         """The device's memory for the fused engine's memory model: the

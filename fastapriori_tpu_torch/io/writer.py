@@ -23,13 +23,24 @@ none.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import (
+    Callable,
+    Dict,
+    Iterable,
+    Iterator,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 
+from fastapriori_tpu_torch.obs import trace
 from fastapriori_tpu_torch.reliability import failpoints
 
 MANIFEST_NAME = "MANIFEST.json"
@@ -68,34 +79,42 @@ def write_artifact_bytes(
     ``write.<name>`` may raise or truncate the physical bytes at byte N;
     the manifest entry ``manifest[name]`` records the full intended
     content (size and sha256), so a truncation is exactly what
-    resume-side validation rejects."""
+    resume-side validation rejects.  Traced as a ``write`` span (args
+    ``artifact``, ``bytes``) that covers the chunks' formatting, with a
+    ``fsync`` child from the flush to the rename."""
     site = "write." + name
-    failpoints.fire(site)
-    trunc = failpoints.truncation(site)
-    digest = hashlib.sha256()
-    intended = written = 0
-    local = "://" not in path
-    tmp = path + ".tmp" if local else path
-    f = _open_write_bytes(tmp)
-    try:
-        with f:
-            for chunk in chunks:
-                digest.update(chunk)
-                intended += len(chunk)
-                if trunc is not None:
-                    chunk = chunk[: max(trunc - written, 0)]
-                if chunk:
-                    f.write(chunk)
-                    written += len(chunk)
-            if local:
-                f.flush()
-                os.fsync(f.fileno())
-        if local:
-            os.replace(tmp, path)
-    except BaseException:
-        if local and os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    with trace.span("write", artifact=name) as sp:
+        failpoints.fire(site)
+        trunc = failpoints.truncation(site)
+        digest = hashlib.sha256()
+        intended = written = 0
+        local = "://" not in path
+        tmp = path + ".tmp" if local else path
+        f = _open_write_bytes(tmp)
+        try:
+            # The fsync span opens before the flush and closes after the
+            # file's close and the rename.
+            with contextlib.ExitStack() as durable:
+                with f:
+                    for chunk in chunks:
+                        digest.update(chunk)
+                        intended += len(chunk)
+                        if trunc is not None:
+                            chunk = chunk[: max(trunc - written, 0)]
+                        if chunk:
+                            f.write(chunk)
+                            written += len(chunk)
+                    sp.update(bytes=intended)
+                    if local:
+                        durable.enter_context(trace.span("fsync"))
+                        f.flush()
+                        os.fsync(f.fileno())
+                if local:
+                    os.replace(tmp, path)
+        except BaseException:
+            if local and os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
     if manifest is not None:
         manifest[name] = {"bytes": intended, "sha256": digest.hexdigest()}
     return path
@@ -167,6 +186,16 @@ def format_itemset_line(ranks: Iterable[int],
     return " ".join(freq_items[r] for r in sorted(ranks, reverse=True))
 
 
+def _sorted_lines(make: Callable[[], List[str]]) -> Iterator[str]:
+    """``make()``'s lines sorted lexicographically, each with its
+    newline: a generator, so the formatting and the sort run inside the
+    write's span."""
+    lines = make()
+    lines.sort()
+    for line in lines:
+        yield line + "\n"
+
+
 def save_freq_itemsets(
     output_prefix: str,
     freq_itemsets: Sequence[Tuple[frozenset, int]],
@@ -175,10 +204,10 @@ def save_freq_itemsets(
 ) -> str:
     """Write ``<output>freqItemset`` (Utils.scala:29-41) from ``(rank
     frozenset, count)`` pairs, lines sorted lexicographically."""
-    lines = [format_itemset_line(s, freq_items) for s, _ in freq_itemsets]
-    lines.sort()
     return write_artifact(
-        output_prefix + "freqItemset", (line + "\n" for line in lines),
+        output_prefix + "freqItemset",
+        _sorted_lines(lambda: [format_itemset_line(s, freq_items)
+                               for s, _ in freq_itemsets]),
         "freqItemset", manifest,
     )
 
@@ -191,11 +220,11 @@ def save_freq_itemsets_with_count(
 ) -> str:
     """Write ``<output>freqItems`` with counts as ``...[count]``
     (Utils.scala:51-63) from ``(rank frozenset, count)`` pairs."""
-    lines = [format_itemset_line(s, freq_items) + "[" + str(c) + "]"
-             for s, c in freq_itemsets]
-    lines.sort()
     return write_artifact(
-        output_prefix + "freqItems", (line + "\n" for line in lines),
+        output_prefix + "freqItems",
+        _sorted_lines(lambda: [
+            format_itemset_line(s, freq_items) + "[" + str(c) + "]"
+            for s, c in freq_itemsets]),
         "freqItems", manifest,
     )
 
@@ -214,28 +243,32 @@ def save_freq_itemsets_levels(
     ``<output>freqItems``, the same itemsets with ``[count]`` suffixes
     (the 1-itemsets' from ``item_counts``), the phase-1 resume
     artifact."""
-    lines: list = []
-    clines: list = []
-    for joined, cnts in _level_joined(levels, freq_items):
-        lines.extend(joined.tolist())
-        if with_counts_path:
-            clines.extend(np.char.add(
-                np.char.add(joined, "["),
+    joined: list = []  # each level's joined strings and counts
+
+    def itemsets() -> List[str]:
+        joined.extend(_level_joined(levels, freq_items))
+        lines: list = []
+        for strings, _ in joined:
+            lines.extend(strings.tolist())
+        lines.extend(freq_items)
+        return lines
+
+    def counted() -> List[str]:
+        lines: list = []
+        for strings, cnts in joined:
+            lines.extend(np.char.add(
+                np.char.add(strings, "["),
                 np.char.add(np.asarray(cnts).astype(np.str_), "]"),
             ).tolist())
-    lines.extend(freq_items)
-    lines.sort()
+        lines.extend(f"{tok}[{int(c)}]"
+                     for tok, c in zip(freq_items, np.asarray(item_counts)))
+        return lines
+
     path = output_prefix + "freqItemset"
-    write_artifact(
-        path, (line + "\n" for line in lines), "freqItemset", manifest
-    )
+    write_artifact(path, _sorted_lines(itemsets), "freqItemset", manifest)
     if with_counts_path:
-        clines.extend(f"{tok}[{int(c)}]"
-                      for tok, c in zip(freq_items, np.asarray(item_counts)))
-        clines.sort()
-        write_artifact(output_prefix + "freqItems",
-                       (line + "\n" for line in clines), "freqItems",
-                       manifest)
+        write_artifact(output_prefix + "freqItems", _sorted_lines(counted),
+                       "freqItems", manifest)
     return path
 
 
@@ -246,10 +279,10 @@ def save_recommends(
 ) -> str:
     """Write ``<output>recommends``: sorted by original row index, one
     recommended item (or "0") per line (Utils.scala:43-49)."""
+
+    def rows() -> Iterator[str]:
+        for _, item in sorted(recommends, key=lambda x: x[0]):
+            yield item + "\n"
+
     path = output_prefix + "recommends"
-    return write_artifact(
-        path,
-        (item + "\n" for _, item in sorted(recommends, key=lambda x: x[0])),
-        "recommends",
-        manifest,
-    )
+    return write_artifact(path, rows(), "recommends", manifest)

@@ -985,13 +985,16 @@ class FastApriori:
                         dev_blocks = uploader.gather(dev_futures)
                         dev_ws = uploader.gather(w_futures)
                         t_landed = time.perf_counter()
-                        start = ctx.timing_event()
-                        bitmap, packed, counts_dev = ctx.ingest_pair_miner(
-                            dev_blocks, dev_ws, t_pad_pre, min_count, f, cap,
-                            census, l3,
-                        )
+                        # The span holds the launch call alone, so the kernels
+                        # launched under it are the pair program's.
+                        with trace.span("pair_program", rows=t_pad_pre,
+                                        f=f):
+                            bitmap, packed, counts_dev = (
+                                ctx.ingest_pair_miner(
+                                    dev_blocks, dev_ws, t_pad_pre,
+                                    min_count, f, cap, census, l3,
+                                ))
                         pair_pre = {
-                            "events": (start, ctx.timing_event()),
                             "fetch": ctx.fetch_async(packed, "pair_pre"),
                             "counts_dev": counts_dev,
                             "cap": cap,
@@ -2065,12 +2068,6 @@ class FastApriori:
                     ctx.record_pair_cap(pair_pre["cap_key"], cap)
                     dispatches = 1
                 pair_pre["counts_dev"] = None  # free the [F, F] matrix
-                start, end = pair_pre["events"]
-                if start is not None:
-                    # The pair program's device time, from the uploads'
-                    # arrival to its packed output; the fetch has passed.
-                    m.update(pair_device_ms=round(
-                        start.elapsed_time(end), 3))
             elif ctx.n_devices > 1:
                 # Each transaction shard's Gram product, shard 0 adding
                 # the heavy remainder, then the count reduction.

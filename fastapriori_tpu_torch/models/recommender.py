@@ -51,6 +51,7 @@ import torch
 
 from fastapriori_tpu_torch.config import MinerConfig
 from fastapriori_tpu_torch.device import DeviceContext
+from fastapriori_tpu_torch.obs import trace
 from fastapriori_tpu_torch.ops.bitmap import build_bitmap, next_pow2, pad_axis
 from fastapriori_tpu_torch.ops.contain import (
     local_strided_match_scan,
@@ -289,9 +290,12 @@ class AssociationRules:
                 recs = self._device_first_match(baskets, m)
             else:
                 recs = self._host_first_match(baskets)
-        for rows, rec in zip(indexes, recs):
-            item = self.freq_items[rec] if rec >= 0 else "0"
-            out.extend((i, item) for i in rows)
+        # Each distinct basket's answer back to every user row that holds
+        # it: the other half of the dedup.
+        with trace.span("user_fanout", users=len(user_lines)):
+            for rows, rec in zip(indexes, recs):
+                item = self.freq_items[rec] if rec >= 0 else "0"
+                out.extend((i, item) for i in rows)
         return out
 
     def _host_first_match(self, baskets: List[np.ndarray]) -> List[int]:

@@ -2,12 +2,17 @@
 exported as Chrome trace-event JSON (counterpart:
 fastapriori_tpu/obs/trace.py).
 
-The tracer threads through the CLI's run and phases, the mine, every
-``MetricsLogger.timed`` section (preprocess, level, tail_fuse,
-fused_mine, counts_resolve, checkpoint, gen_rules, first_match ...), the
-device rule join's levels, every audited fetch (reliability/retry.py)
-and the block uploader's copies, and exports the Chrome trace-event JSON
-that Perfetto (ui.perfetto.dev) loads (``--trace out.trace.json``).
+The tracer threads through the CLI's run (from the tracer's enable to
+the export), its ``job_setup`` (context, miner, the first rendezvous),
+``read_users`` (``U.dat``) and phases, the mine, every
+``MetricsLogger.timed`` section (preprocess, bitmap_build, level,
+tail_fuse, fused_mine, counts_resolve, checkpoint, gen_rules,
+user_dedup, first_match ...), the pair program's launch
+(``pair_program``, inside ``bitmap_build``), every artifact write
+(``write``, with its ``fsync`` child; io/writer.py), the device rule
+join's levels, every audited fetch (reliability/retry.py) and the block
+uploader's copies, and exports the Chrome trace-event JSON that Perfetto
+(ui.perfetto.dev) loads (``--trace out.trace.json``).
 
 Contracts:
 

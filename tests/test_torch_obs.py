@@ -8,7 +8,10 @@ dumps (an injected watchdog timeout, the abandoned-thread cap, a prefix
 required); the MetricsLogger bound, ``phase_timer`` and ``timed`` as
 spans; the device-trace parser and capture; and the traced CLI of both
 packages on one seeded corpus: equal bytes, ``run`` -> ``phase`` ->
-``mine`` -> ``level`` with the same levels, valid traces."""
+``mine`` -> ``level`` with the same levels, valid traces; the CLI job's
+span frame (``job_setup``, ``read_users``, each ``write`` with its
+``fsync``, ``pair_program`` under ``bitmap_build``) and an untraced job
+recording nothing."""
 
 import ast
 import gzip
@@ -215,6 +218,17 @@ def test_tracer_disabled_records_nothing_and_is_cheap():
         with trace.span("x"):
             pass
     assert (time.perf_counter() - t0) / 50_000 < 10e-6
+
+
+def test_untraced_cli_job_records_nothing(traced_corpus, tmp_path):
+    """A CLI job without ``--trace`` or ``FA_TRACE``: every new section
+    (job_setup, read_users, write, fsync, pair_program) stays on the
+    no-op path."""
+    trace.reload_from_env()
+    assert torch_main([traced_corpus, str(tmp_path / "o") + "/",
+                       "--min-support", "0.02", "--platform", "cpu"]) == 0
+    assert not TRACER.enabled
+    assert TRACER.events() == []
 
 
 def test_tracer_event_cap_counts_drops():
@@ -830,7 +844,12 @@ def test_cli_profile_dir_on_the_cpu(tmp_path, capsys):
 # - "fetch.rec_match": the port scans on the device from 10^5 distinct
 #   basket x rule checks (models/recommender.py DEVICE_MIN_CHECKS), the
 #   JAX package from 3 * 10^7, so here only the port's scan fetches.
-ONLY_PORT = {"upload", "fetch.rec_match"}
+# - the job's frame, user and writer spans ("job_setup", "read_users",
+#   "user_fanout", "write", "fsync") and the pair program's launch
+#   ("pair_program"), which the port's benchmark reads and the JAX
+#   package does not open.
+ONLY_PORT = {"upload", "fetch.rec_match", "job_setup", "read_users",
+             "user_fanout", "write", "fsync", "pair_program"}
 ONLY_JAX: set = set()
 
 
@@ -914,3 +933,51 @@ def test_traced_cli_span_ids_repeat_across_identical_runs(
     if layout == "bitmap":
         assert "fa-upload_0" in roots
     assert ledger.summary() == {}
+
+
+def _job_spans(traced_corpus, out):
+    """One CLI job on the CPU recorded through ``FA_TRACE`` (the
+    benchmark's way: no export): its completed spans."""
+    assert torch_main([traced_corpus, out, "--min-support", "0.02",
+                       "--platform", "cpu"]) == 0
+    return [e for e in TRACER.events() if e["ph"] == "X"]
+
+
+def test_traced_cli_job_span_tree(traced_corpus, tmp_path, monkeypatch):
+    """The job's span frame: ``run`` holds every span of the main
+    thread, among them ``job_setup``, ``read_users`` and both phases;
+    each write has its artifact and one ``fsync`` child; the pair
+    program's launch sits under ``bitmap_build``; the tree repeats."""
+    monkeypatch.setenv("FA_TRACE", "1")
+    trace.reload_from_env()
+    trees = []
+    try:
+        for i in range(2):
+            spans = _job_spans(traced_corpus, str(tmp_path / str(i)) + "/")
+            trees.append(TRACER.span_tree())
+    finally:
+        monkeypatch.delenv("FA_TRACE")
+        trace.reload_from_env()
+    assert trees[0] == trees[1]
+    by_sid = {e["sid"]: e for e in spans}
+    main = [e for e in spans if e["thread"] == "main"]
+    assert [e["sid"] for e in main if e["parent"] is None] == ["main:run#0"]
+    for sid in ("job_setup#0", "read_users#0", "phase#0", "phase#1"):
+        assert by_sid[f"main:run#0/{sid}"]["parent"] == "main:run#0"
+    assert by_sid["main:run#0/read_users#0"]["args"]["lines"] == 500
+    assert by_sid["main:run#0/phase#1/user_fanout#0"]["args"]["users"] == 500
+    writes = [e for e in spans if e["name"] == "write"]
+    assert sorted(e["args"]["artifact"] for e in writes) == [
+        "MANIFEST.json", "MANIFEST.json", "freqItemset", "recommends"]
+    for w in writes:
+        assert w["parent"].startswith("main:run#0/phase#")
+        kids = [e for e in spans if e["parent"] == w["sid"]]
+        assert [e["name"] for e in kids] == ["fsync"]
+        assert w["args"]["bytes"] > 0
+    written = {e["args"]["artifact"]: e["args"]["bytes"] for e in writes
+               if e["args"]["artifact"] != "MANIFEST.json"}
+    for name, size in written.items():
+        assert os.path.getsize(tmp_path / "1" / name) == size
+    pair = [e for e in spans if e["name"] == "pair_program"]
+    assert pair, "the CPU path launches the pair program on this corpus"
+    assert all(by_sid[e["parent"]]["name"] == "bitmap_build" for e in pair)
