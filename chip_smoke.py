@@ -24,10 +24,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``engine_auto`` with choice level, because the level-3 candidate
    census from the ingest-overlapped pair program exceeds the fused
    engine's row-budget ceiling; then a ``tail_fuse`` from level 3, which
-   the pair program counted; K1 and K2 launch, K3 not.  The same CLI with
-   ``--engine fused`` (the same digests): one complete ``fused_mine`` at
-   16,384 rows over the resident bitmap; K2 launches once, K1 and K3
-   not.  The zero-flag CLI once more with ``FA_RULE_ENGINE=device`` set
+   the pair program counted with K1; K1 and K2 launch, K3 not.  The same
+   CLI with ``--engine fused`` (the same digests): one complete
+   ``fused_mine`` at 16,384 rows over the resident bitmap; K2 launches
+   once, K1 once per weight digit in the pair program's level 3 (which
+   the fused engine does not read), K3 not.  The zero-flag CLI once more with ``FA_RULE_ENGINE=device`` set
    for that call only (the same digests): the device rule engine (a
    ``rule_gen_engine`` device and a ``rule_gen_device`` event, no
    fallback) and K2 over the table built on the device (``first_match``
@@ -48,7 +49,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one thread (``"native": true, "pipelined": true, "capture": true`` and
    ``threads`` > 1 on the ``preprocess`` line); each kernel's launches
    must equal what the run's own ``level`` and ``first_match`` events
-   count; float32 matmuls must run in full precision (no TF32); one line
+   and ``bitmap_build``'s ``l3_digits`` count; float32 matmuls must run in full precision (no TF32); one line
    gives the run's peak device memory.
    Then each corpus goes once through the Python ingest (in the prep
    child) and once through the native one-call scan in-process: the
@@ -84,7 +85,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    inputs come from the same capture ingest at the same thread count, so
    their shapes are the counted run's).  K1's level-3 shape is checked
    and timed even when level 3 came from the pair program, labelled "not
-   on the path", so that its heaviest shape stays comparable.  At the
+   on the path", so that its heaviest shape stays comparable; the pair
+   program's own level-3 launch (``pair_l3_rows`` rows of the first
+   frequent pairs, zero rows past them) is replayed on the path, held
+   against the plain version and against the two float32 products per
+   chunk that counted level 3 before, and so is the same launch on the
+   benchmark's corpus (portbench's IBM Quest T10I4D100K, F = 1,024).  At
+   the
    heaviest launch, the kernel's, the plain version's and, for K1, a
    library formulation's times from CUDA events (for K2 also its device
    time from torch.profiler, which leaves out the host's launch
@@ -1130,14 +1137,27 @@ def ingest_compare(name: str, in_dir: str, min_support: str,
         f"arena build on {ingest_thread_count(None)}")
 
 
+def pair_l3_launches(fields: dict) -> int:
+    """K1's launches in the pair program's level 3: ``bitmap_build``'s
+    ``l3_digits`` (one per base-128 digit of the raw weights); none where
+    the program counted no level 3, or counted it with K1's plain version
+    (``l3_form`` plain: ``FA_NO_PALLAS``)."""
+    bb = fields.get("bitmap_build", {})
+    return (0 if bb.get("l3_form", "plain") == "plain"
+            else bb.get("l3_digits", 0))
+
+
 def expected_launches(fields: dict) -> dict:
     """Each kernel's launches as the run's own metrics count them: K1 or
     K3 (by the level events' engine) once per launch of each level that
-    ran through the level loop, K2 once per micro-batch of the device
-    first-match scan; none where the event says ``plain_kernels``
-    (``FA_NO_PALLAS``: the plain versions ran on the card)."""
+    ran through the level loop, K1 once per weight digit of the pair
+    program's level 3 (:func:`pair_l3_launches`), K2 once per
+    micro-batch of the device first-match scan; none where the event
+    says ``plain_kernels`` (``FA_NO_PALLAS``: the plain versions ran on
+    the card)."""
     level = sum(v.get("launches", 0) for k, v in fields.items()
                 if k.startswith("level k=") and not v.get("plain_kernels"))
+    level += pair_l3_launches(fields)
     vertical = "arena_build" in fields
     fm = fields.get("first_match", {})
     return {"level_counts": 0 if vertical else level,
@@ -1538,6 +1558,132 @@ def contained_pairs(bitmap, s_mat, k1: int) -> int:
     return pairs
 
 
+def pair_l3_measure(name: str, bitmap, w, pairs, p3: int, n_chunks: int,
+                    min_support: float, device) -> dict:
+    """The pair program's level-3 launch (ops/count.py
+    ``l3_threshold_pack``) replayed at its own shape: the [T, F] bitmap,
+    ``p3`` prefix rows holding the first frequent ``pairs`` in lex order
+    (zero rows past them, which K1 gives no work), and K1 once per
+    base-128 digit of the raw int32 weights ``w``, summed ``128^d ·
+    counts_d``.  Each form is held against K1's plain version and
+    against the two float32 products per transaction chunk that counted
+    level 3 before (``n_chunks`` chunks), and timed (CUDA events) beside
+    the bound: 2·F operations per contained (prefix, transaction) pair
+    and digit at the int8 rate, or the bytes (B, S and each digit's WB
+    read once, the counts written once), whichever is larger."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.models.apriori import weight_digit_count
+    from fastapriori_tpu_torch.ops.level_kernel import (
+        FORMS,
+        level_counts,
+        level_counts_plain,
+        pick_form,
+    )
+
+    t, f = bitmap.shape
+    live = min(pairs.shape[0], p3)
+    s_np = np.zeros((p3, f), dtype=np.int8)
+    s_np[np.arange(live), pairs[:live, 0]] = 1
+    s_np[np.arange(live), pairs[:live, 1]] = 1
+    s_mat = torch.from_numpy(s_np).to(device)
+    n_digits = weight_digit_count(int(w.max()))
+    wbs = [bitmap * ((w >> (7 * d)) & 127).to(torch.int8)[:, None]
+           for d in range(n_digits)]
+
+    def counted(fn):
+        out = None
+        for d, wb in enumerate(wbs):
+            part = fn(bitmap, wb, s_mat, 2)
+            out = part if out is None else out + part * 128**d
+        return out
+
+    def k1(form):
+        return counted(lambda *a: level_counts(*a, form=form))
+
+    def float32_products():
+        w_f, s_f, tc = w.float(), s_mat.float(), t // n_chunks
+        acc = torch.zeros((p3, f), dtype=torch.float32, device=device)
+        for c in range(n_chunks):
+            b_f = bitmap[c * tc : (c + 1) * tc].float()
+            common = ((b_f @ s_f.T) > 1.5).float()
+            acc += common.T @ (b_f * w_f[c * tc : (c + 1) * tc, None])
+        return acc.to(torch.int32)
+
+    want = counted(level_counts_plain)
+    errs = {form: require_equal(f"{name} ({form} form)", k1(form), want)
+            for form in FORMS}
+    errs["float32 products"] = require_equal(
+        f"{name} (the float32 products)", float32_products(), want)
+    ms_by_form = {form: time_ms(lambda: k1(form), iters=20)
+                  for form in FORMS}
+    plain_ms = time_ms(lambda: counted(level_counts_plain), iters=3,
+                       warmup=1)
+    products_ms = time_ms(float32_products, iters=5, warmup=1)
+    pairs_c = contained_pairs(bitmap, s_mat, 2)
+    bound_ms, bound_by = bound(
+        (1 + n_digits) * t * f + p3 * f + 4 * p3 * f,
+        2 * pairs_c * f * n_digits)
+    form = pick_form(min_support, f)
+    out = {"shape": [t, f], "M": p3, "live_rows": live, "digits": n_digits,
+           "form": form, "ms": ms_by_form[form], "ms_by_form": ms_by_form,
+           "plain_ms": plain_ms, "float32_products_ms": products_ms,
+           "n_chunks": n_chunks, "bound_ms": bound_ms, "bound_by": bound_by,
+           "contained_pairs": pairs_c,
+           "pair_share": pairs_c / max(1, live * t),
+           "max_abs_err": max(errs.values())}
+    log(f"{name}: K1 x {n_digits} at [{t} x {f}], M = {p3} ({live} live "
+        f"rows): {json.dumps(ms_by_form)} ms by form (the rule picks "
+        f"{form}), plain {plain_ms:.4f} ms, the two float32 products over "
+        f"{n_chunks} chunks {products_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); contained pairs {pairs_c}; max abs err "
+        f"{out['max_abs_err']}")
+    return out
+
+
+def quest_pair_l3(device) -> dict:
+    """The pair program's level-3 launch on the benchmark's corpus
+    (portbench/configs/t10i4d100k.json, the IBM Quest procedure of
+    portbench/gen.py at seed 1, min support 0.0025), where F pads to
+    1,024: the corpus mined through the API's pipelined capture ingest
+    for its arrays and pair level, then :func:`pair_l3_measure` at the
+    pair program's shape."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from portbench import gen
+
+    from fastapriori_tpu_torch.models.apriori import txn_multiple
+    from fastapriori_tpu_torch.ops.bitmap import build_bitmap_csr
+
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "t10i4d100k.json")) as fh:
+        qcfg = json.load(fh)
+    in_dir = os.path.join(WORK, "quest")
+    os.makedirs(in_dir, exist_ok=True)
+    with open(os.path.join(in_dir, "D.dat"), "wb") as fh:
+        fh.write(gen.make_inputs(qcfg, 1)["D.dat"])
+    cfg, data, levels, miner = mine(in_dir, device,
+                                    repr(float(qcfg["min_support"])))
+    fields = record_fields(miner.metrics.records)
+    n_chunks = max(1, -(-data.n_raw // cfg.level_txn_chunk))
+    b_np = build_bitmap_csr(data.basket_indices, data.basket_offsets,
+                            data.num_items, txn_multiple(cfg, n_chunks),
+                            cfg.item_tile)
+    w = np.zeros(b_np.shape[0], dtype=np.int32)
+    w[: data.total_count] = data.weights
+    log(f"quest corpus: N {data.n_raw}, F {data.num_items}, bitmap "
+        f"{list(b_np.shape)}, pairs {levels[0][0].shape[0]}; bitmap_build "
+        f"{json.dumps(fields.get('bitmap_build'))}")
+    return pair_l3_measure(
+        "pair program level 3, quest corpus",
+        torch.from_numpy(b_np).to(device), torch.from_numpy(w).to(device),
+        levels[0][0], cfg.pair_l3_rows, n_chunks,
+        data.min_count / max(1, data.n_raw), device)
+
+
 def k1_measure(cfg, data, levels, device, fields) -> dict:
     """Phase 5, K1: every level-count launch of the main path replayed at
     its own shapes in each of the two forms (each held against the plain
@@ -1613,6 +1759,18 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
             off_path.append(ms[picked])
         if best is None or m > best[0].shape[0]:
             best = (s_mat, k1, k in on_path)
+    # The pair program's level 3, on the path when the counted run's
+    # pair program counted it with K1.
+    pair_l3 = None
+    if pair_l3_launches(fields):
+        pair_l3 = pair_l3_measure(
+            "pair program level 3", bitmap,
+            torch.from_numpy(w.astype(np.int32)).to(device), levels[0][0],
+            fields["bitmap_build"]["l3_rows"], n_chunks, min_support,
+            device)
+        per_launch.append(pair_l3["ms"])
+        for form in FORMS:
+            by_form[form].append(pair_l3["ms_by_form"][form])
     sums = {form: sum(v) for form, v in by_form.items()}
     log(f"K1 bitmap [{t} x {f}], fill {fill:.6f}, min support "
         f"{min_support:.6f}; per launch: {json.dumps(launches)}")
@@ -1676,7 +1834,7 @@ def k1_measure(cfg, data, levels, device, fields) -> dict:
             "ms_all_launches_by_form": sums, "per_launch_ms": per_launch,
             "heaviest_on_path": on_path, "fill": fill,
             "min_support": min_support, "device_ms_by_kernel": by_kernel,
-            "per_launch_ms_not_on_path": off_path}
+            "per_launch_ms_not_on_path": off_path, "pair_l3": pair_l3}
 
 
 # K1's crossover sweeps: contained-pair shares set at the heaviest launch
@@ -2661,15 +2819,17 @@ def observability_phase(in_dir: str, k_in: str, card: str) -> dict:
             f"{(ws[1] + ws[2]) / 2:.4f} s, min {ws[0]:.4f}, max {ws[-1]:.4f} "
             f"over {len(ws)} warm runs")
     # (b) --trace and --profile-dir together: the span tree, and K1 x 7
+    # in the level loop (and once per weight digit in the pair program)
     # and K2 x 1 in the device trace.
     path = os.path.join(WORK, "t10.trace.json")
     launches, fields, summary = profiled_run(
         "traced main path", in_dir, MIN_SUPPORT, digests, trace_path=path)
     require_launches("traced main path", launches, fields,
                      ran=("level_counts", "first_match"))
-    if (launches["level_counts"], launches["first_match"]) != (7, 1):
+    if (launches["level_counts"] - pair_l3_launches(fields),
+            launches["first_match"]) != (7, 1):
         raise SystemExit(f"traced main path: launches {launches}, expected "
-                         f"K1 x 7 and K2 x 1")
+                         f"K1 x 7 in the level loop and K2 x 1")
     out["t10_trace_events"] = require_span_tree("traced main path", path,
                                                 fields)
     out["t10_device_ms_by_stage"] = log_device_stages("traced main path",
@@ -4075,8 +4235,8 @@ def quorum_event(case: str, rep: dict) -> dict:
 def mixed_launches(fields: dict) -> dict:
     """K1, K3 and K2 launches as the run's events count them, each
     level event by its own engine (a vertical mine clamped to the bitmap
-    layout counts both)."""
-    k1 = k3 = 0
+    layout counts both), and the pair program's K1 launches."""
+    k1, k3 = pair_l3_launches(fields), 0
     for key, v in fields.items():
         if key.startswith("level k=") and not v.get("plain_kernels"):
             if v.get("engine") == "vertical":
@@ -4699,6 +4859,7 @@ def run(t_start: float) -> int:
     k1 = k1_measure(cfg, data, levels, device, main_fields)
     require_replayed("K1 main path", k1, main_launches["level_counts"])
     k1["launches_by_form"] = main_fields["k1_forms"]
+    k1["pair_l3_quest"] = quest_pair_l3(device)
     k1["crossover"] = k1_crossover(device)
     if api_k1 != main_launches["level_counts"]:
         raise SystemExit(f"K1: the level API path launched {api_k1} times, "

@@ -36,11 +36,12 @@ class MinerConfig:
     # Candidates and prefix rows per level-count launch.
     level_cand_cap: int = 1 << 18
     level_prefix_cap: int = 1 << 14
-    # Transaction-axis chunk of the level-3 fold's membership and count
-    # matmuls (ops/count.py ``l3_threshold_pack``): the pipelined ingest
-    # pads the transaction axis to whole chunks of about this many raw
-    # transactions, bounding the fold's [chunk, pair_l3_rows] float32
-    # intermediate.
+    # Transaction-axis chunk of the bitmap layout's folds: the bitmap's
+    # transaction axis is padded to whole chunks of about this many raw
+    # transactions, which the tail fold and the fused engine over the
+    # resident bitmap count chunk by chunk, bounding their [chunk, rows]
+    # membership intermediates.  The pair program's level 3 counts with
+    # K1 (ops/count.py ``l3_threshold_pack``) and does not chunk.
     level_txn_chunk: int = 1 << 14
     # Survivor budget of the on-device pair threshold (ops/count.py
     # ``pair_threshold_pack``): the packed fetch holds 2 * pair_cap + 2
@@ -50,9 +51,10 @@ class MinerConfig:
     pair_cap: int = 1 << 14
     # Level 3 inside the ingest-overlapped pair program (ops/count.py
     # ``l3_threshold_pack``): pair_l3_rows frequent pairs are counted as
-    # prefixes, pair_l3_cap level-3 survivors are extracted.  More pairs
-    # or more survivors fall back to K1 for level 3 and remember the
-    # grown budgets; 0 rows turns the fold off.
+    # K1's prefix rows (the rows past the true pair count are padding K1
+    # skips on the device), pair_l3_cap level-3 survivors are extracted.
+    # More pairs or more survivors fall back to the level loop for level
+    # 3 and remember the grown budgets; 0 rows turns the fold off.
     pair_l3_rows: int = 1 << 13
     pair_l3_cap: int = 1 << 14
     # Deferred survivor counts (models/apriori.py ``_level_loop``): each

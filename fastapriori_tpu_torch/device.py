@@ -30,6 +30,7 @@ CUDA device and no such request, :func:`resolve_device` raises
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -45,6 +46,10 @@ from fastapriori_tpu_torch.ops.count import (
     l3_threshold_pack,
     local_pair_regather,
     pair_threshold_pack,
+)
+from fastapriori_tpu_torch.ops.level_kernel import (
+    level_counts,
+    level_counts_plain,
 )
 from fastapriori_tpu_torch.ops.vertical import assemble_arena
 from fastapriori_tpu_torch.ops.vertical_kernel import lane_plane_mask
@@ -464,7 +469,7 @@ class DeviceContext:
         num_items: int,
         cap: int,
         census: bool,
-        l3: Optional[Tuple[int, int, int]] = None,
+        l3: Optional[Tuple[int, int, int, str]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """From the uploaded packed blocks to ``(bitmap int8[t_pad, F],
         packed pair output, counts int32[F, F])`` in one sequence of
@@ -473,9 +478,11 @@ class DeviceContext:
         the raw weights (exact while every count < 2^24: the caller gates
         on ``n_raw``; so no weight-digit split and no heavy-row
         correction, which the host is still assembling), then
-        ops/count.py ``pair_threshold_pack``.  ``l3=(p3, cap3,
-        n_chunks)`` appends ``l3_threshold_pack``'s level 3, cut from the
-        same mask.  ``counts`` stays on the device for an overflow
+        ops/count.py ``pair_threshold_pack``.  ``l3=(p3, cap3, n_digits,
+        form)`` appends ``l3_threshold_pack``'s level 3, cut from the
+        same mask and counted by K1 in ``form`` once per weight digit
+        (``"plain"``: K1's plain version on the card, ``FA_NO_PALLAS``).
+        ``counts`` stays on the device for an overflow
         :meth:`pair_regather`."""
         pk = torch.cat(list(blocks)) if len(blocks) > 1 else blocks[0]
         w = torch.cat(list(ws)) if len(ws) > 1 else ws[0]
@@ -491,11 +498,13 @@ class DeviceContext:
         packed = pair_threshold_pack(counts, min_count, num_items, cap,
                                      census)
         if l3 is not None:
-            p3, cap3, n_chunks = l3
+            p3, cap3, n_digits, form = l3
+            count_fn = (level_counts_plain if form == "plain" else
+                        functools.partial(level_counts, form=form))
             mask = frequent_pair_mask(counts, min_count, num_items)
             packed = torch.cat([packed, l3_threshold_pack(
-                bitmap, w_f, mask, packed[2 * cap], min_count, num_items,
-                p3, cap3, n_chunks,
+                bitmap, w, mask, packed[2 * cap], min_count, num_items,
+                p3, cap3, n_digits, count_fn,
             )])
         return bitmap, packed, counts
 

@@ -961,7 +961,9 @@ class FastApriori:
                 # on the device while the host assembles the weights
                 # below.  Its float32 Gram is exact while every count <
                 # 2^24, and its packed output's int32 flat indexes need
-                # F_pad² < 2^31.
+                # F_pad² < 2^31.  Its level 3 counts with K1, one launch
+                # per base-128 digit of the largest weight, in the form
+                # the level loop would pick: both known on the host.
                 if n_raw < 2**24 and f_pad * f_pad < 2**31:
                     t_pad_pre = pad_axis(sum(len(bw) for _, _, bw in blocks),
                                          multiple)
@@ -979,7 +981,14 @@ class FastApriori:
                                  cap)
                         cap3 = max(cfg.pair_l3_cap,
                                    ctx.pair_cap_hint(l3_keys[1]) or 0)
-                        l3 = (p3, cap3, n_chunks)
+                        n_digits = weight_digit_count(max(
+                            (int(bw.max()) for _, _, bw in blocks
+                             if len(bw)), default=0))
+                        form = ("plain" if ctx.plain_kernels() else
+                                pick_form(min_count / max(1, n_raw), f_pad))
+                        l3 = (p3, cap3, n_digits, form)
+                        m.update(l3_form=form, l3_digits=n_digits,
+                                 l3_rows=p3)
                     t_issue = time.perf_counter()
                     with ctx.sync_free():
                         dev_blocks = uploader.gather(dev_futures)
@@ -1598,7 +1607,7 @@ class FastApriori:
                 int(out[2 * cap + 1]),
             )
             if pair_pre["l3"] is not None:
-                p3, cap3, _ = pair_pre["l3"]
+                p3, cap3 = pair_pre["l3"][:2]
                 base = 2 * cap + 2
                 pair_pre["l3_host"] = (
                     out[base : base + cap3],

@@ -34,12 +34,14 @@ transaction shards: ``_psum_if`` (:func:`dense_psum`),
 Weights enter the int8 kernel as base-128 digits (ops/bitmap.py).  The
 engine runs the single low digit ``w % 128`` for every row and adds the
 exact remainder of the few rows with multiplicity >= 128 through the
-heavy-row corrections (float64 matmuls over those rows only).
+heavy-row corrections (float64 matmuls over those rows only).  The pair
+program's level 3 (:func:`l3_threshold_pack`) runs before the host has
+split the weights: it launches K1 once per digit of the raw weights.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -171,49 +173,50 @@ def pair_threshold_pack(
 
 def l3_threshold_pack(
     bitmap: torch.Tensor,  # [T, F] int8 0/1
-    w_f: torch.Tensor,  # [T] float32 raw weights
+    w: torch.Tensor,  # [T] int32 raw weights
     mask: torch.Tensor,  # [F, F] bool frequent-pair mask
     n2: torch.Tensor,  # () int32 true survivor count
     min_count: int,
     num_items: int,
     p3: int,  # pair slots counted as prefixes
     cap3: int,  # level-3 survivor budget
-    n_chunks: int,  # transaction chunks; T is a multiple
+    n_digits: int,  # base-128 digits of the largest weight
+    count_fn: Callable[..., torch.Tensor],  # K1: (bitmap, wb, s_mat, k1)
 ) -> torch.Tensor:
     """Level 3 inside the pair program.  The first ``p3`` pair survivors
     of ``mask`` (the slots :func:`pair_threshold_pack` extracts, in the
-    same row-major order) are prefix rows; per chunk of transactions a
-    membership product finds the rows holding both items, and a count
-    product sums their weights for every extension z at once.
-    Candidates need z > y with (x, z) and (y, z) frequent: the prefix
-    join and the subset prune.  The survivors come out row-major in
-    (pair slot, z), which over a lex-sorted pair level is lex order in
-    (x, y, z).
+    same row-major order) are prefix rows of two items, and K1
+    (``count_fn``: ops/level_kernel.py ``level_counts`` with its form, or
+    its plain version) counts every extension z of each at once, one
+    launch per base-128 digit of the weights, summed ``128^d · counts_d``
+    in int32 (exact: every count is below the caller's ``n_raw < 2^24``
+    gate).  Slots past ``n2`` are zero rows, which K1 takes as padding:
+    its device-side tile list drops the tiles made only of them, with no
+    host read of ``n2``.  Candidates need z > y with (x, z) and (y, z)
+    frequent: the prefix join and the subset prune.  The survivors come
+    out row-major in (pair slot, z), which over a lex-sorted pair level
+    is lex order in (x, y, z).
 
-    float32 products, exact under the caller's ``n_raw < 2^24`` gate
-    (membership values are at most 2, counts at most n_raw; TF32 off).
     Returns int32 ``[flat3[cap3] | counts3[cap3] | n3]`` with ``flat3 =
     pair_slot * F + z``, valid only when ``n2 <= p3`` and ``n3 <= cap3``:
-    the caller checks both after the fetch and counts level 3 with K1
-    otherwise."""
-    t, f = bitmap.shape
+    the caller checks both after the fetch and counts level 3 with the
+    level loop otherwise."""
+    f = bitmap.shape[1]
     dev = bitmap.device
-    tc = t // n_chunks
     xy = _first_set(mask, p3)
     x, y = xy[:, 0], xy[:, 1]
     slot_valid = torch.arange(p3, device=dev) < n2
-    # Pair one-hot rows (rows of the identity); slots past n2 are zero
-    # and reach no membership 2.
-    eye = torch.eye(f, dtype=torch.float32, device=dev)
+    # Pair one-hot rows (rows of the identity, x < y); slots past n2 are
+    # zero rows.
+    eye = torch.eye(f, dtype=torch.int8, device=dev)
     s2 = (eye.index_select(0, x) + eye.index_select(0, y)) * slot_valid[
         :, None]
-    counts3_f = torch.zeros((p3, f), dtype=torch.float32, device=dev)
-    for c in range(n_chunks):
-        b_f = bitmap[c * tc : (c + 1) * tc].to(torch.float32)
-        member = b_f @ s2.T  # [tc, p3], values 0, 1 or 2
-        common = (member > 1.5).to(torch.float32)
-        counts3_f += common.T @ (b_f * w_f[c * tc : (c + 1) * tc, None])
-    counts3 = counts3_f.to(torch.int32)
+    counts3 = None
+    for d in range(n_digits):
+        digit = (w if d == 0 else w >> (7 * d)) & 127
+        part = count_fn(bitmap, bitmap * digit.to(torch.int8)[:, None], s2,
+                        2)
+        counts3 = part if d == 0 else counts3 + part * 128**d
     col = torch.arange(f, device=dev)
     cand = (
         mask.index_select(0, x)  # (x, z) frequent

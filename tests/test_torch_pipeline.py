@@ -29,12 +29,16 @@ from fastapriori_tpu.parallel.mesh import DeviceContext as JaxContext
 from fastapriori_tpu_torch import native as port_native
 from fastapriori_tpu_torch.cli import main as torch_main
 from fastapriori_tpu_torch.config import MinerConfig
+from fastapriori_tpu_torch import device as device_mod
 from fastapriori_tpu_torch.device import DeviceContext
 from fastapriori_tpu_torch.io.reader import tokenize_line
-from fastapriori_tpu_torch.models.apriori import FastApriori
+from fastapriori_tpu_torch.models.apriori import (
+    FastApriori,
+    weight_digit_count,
+)
 from fastapriori_tpu_torch.ops import bitmap as tbitmap
 from fastapriori_tpu_torch.ops import count as tcount
-from fastapriori_tpu_torch.ops.level_kernel import level_counts
+from fastapriori_tpu_torch.ops.level_kernel import FORMS, level_counts
 from test_torch_e2e import JAX_FLAGS, _write_inputs
 from test_vertical import _sparse_corpus, _t10i4_shaped
 
@@ -131,6 +135,10 @@ def test_capture_ingest_matches_jax(tmp_path, blocks, threads, retain_csr):
                 "pair_overlapped", "upload_bytes"):
         assert bb[key] == jbb[key], key
     assert bb["heavy_rows"] > 0 and bb["pair_overlapped"]
+    # The pair program's level 3: K1 once per digit of the raw weights
+    # (the level engine's one digit and heavy rows apart).
+    assert bb["l3_digits"] == 2 and bb["digits"] == 1
+    assert bb["l3_form"] in FORMS and bb["l3_rows"] == 1 << 13
     for k in (2, 3):
         (lv,) = _events(miner, "level", k=k)
         assert lv["overlapped"] and lv["dispatches"] == 0
@@ -155,11 +163,11 @@ def test_pipeline_off_runs_the_one_call_scan(tmp_path):
     _data_equal(data, one_call)
 
 
-def _counts_case(seed, f=128, n_items=100, t=300):
+def _counts_case(seed, f=128, n_items=100, t=300, w_hi=40):
     rng = np.random.default_rng(seed)
     b = (rng.random((t, f)) < 0.3).astype(np.int8)
     b[:, n_items:] = 0
-    w = rng.integers(1, 40, size=t).astype(np.int32)
+    w = rng.integers(1, w_hi, size=t).astype(np.int32)
     counts = (b.T.astype(np.int64) @ (b * w[:, None]).astype(np.int64))
     return b, w, counts.astype(np.int32)
 
@@ -195,29 +203,93 @@ def test_pair_triangles_match_jax(density):
     assert got.dtype == torch.int32 and int(got) == want > 0
 
 
-@pytest.mark.parametrize("p3, cap3", [(64, 8), (4096, 4096), (16, 4096)])
-def test_l3_threshold_pack_matches_jax(p3, cap3):
-    b, w, counts = _counts_case(2, t=384)
+@pytest.mark.parametrize("p3, cap3, w_hi, n_items, digits", [
+    pytest.param(64, 8, 40, 100, 1, id="64-8"),
+    pytest.param(4096, 4096, 40, 100, 1, id="4096-4096"),
+    pytest.param(16, 4096, 40, 100, 1, id="16-4096"),
+    # Weights of two and three base-128 digits: one K1 launch each.
+    pytest.param(4096, 4096, 2000, 100, 2, id="two-digits"),
+    pytest.param(4096, 4096, 40000, 100, 3, id="three-digits"),
+    # At most 780 frequent pairs in 8,192 slots: mostly padding rows.
+    pytest.param(8192, 4096, 40, 40, 1, id="mostly-padding"),
+    # n2 > p3 and n3 > cap3 with weights of two digits.
+    pytest.param(64, 8, 2000, 100, 2, id="both-overflow-two-digits"),
+])
+def test_l3_threshold_pack_matches_jax(p3, cap3, w_hi, n_items, digits):
+    b, w, counts = _counts_case(2, t=384, n_items=n_items, w_hi=w_hi)
     # About the mean support of a triple: most pairs are frequent.
-    min_count = 230
+    min_count = 230 * w_hi // 40
+    cap = max(4096, p3)
     pair = jcount.pair_threshold_pack(
-        jnp.asarray(counts), jnp.int32(min_count), jnp.int32(100), 4096,
+        jnp.asarray(counts), jnp.int32(min_count), jnp.int32(n_items), cap,
         True)
-    mask = jcount.frequent_pair_mask(jnp.asarray(counts),
-                                     jnp.int32(min_count), jnp.int32(100))
+    mask = jcount.frequent_pair_mask(
+        jnp.asarray(counts), jnp.int32(min_count), jnp.int32(n_items))
     want = np.asarray(jcount.l3_threshold_pack(
         jnp.asarray(b), jnp.asarray(w, dtype=jnp.float32), mask,
-        pair[:4096], pair[2 * 4096], jnp.int32(min_count), jnp.int32(100),
-        p3, cap3, 3))
+        pair[:cap], pair[2 * cap], jnp.int32(min_count),
+        jnp.int32(n_items), p3, cap3, 3))
     t_counts = torch.from_numpy(counts)
-    t_pair = tcount.pair_threshold_pack(t_counts, min_count, 100, 4096, True)
+    t_pair = tcount.pair_threshold_pack(t_counts, min_count, n_items, cap,
+                                        True)
+    assert weight_digit_count(int(w.max())) == digits
     got = tcount.l3_threshold_pack(
-        torch.from_numpy(b), torch.from_numpy(w).float(),
-        tcount.frequent_pair_mask(t_counts, min_count, 100),
-        t_pair[2 * 4096], min_count, 100, p3, cap3, 3,
+        torch.from_numpy(b), torch.from_numpy(w),
+        tcount.frequent_pair_mask(t_counts, min_count, n_items),
+        t_pair[2 * cap], min_count, n_items, p3, cap3, digits, level_counts,
     ).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, want)
     assert want[-1] > 8  # level-3 survivors, past the smallest budget
+    if p3 == 8192:
+        assert 10 * int(t_pair[2 * cap]) < p3
+
+
+@pytest.mark.parametrize("w_hi, digits", [(40, 1), (2000, 2), (40000, 3)])
+def test_pair_program_level3_runs_k1_once_per_digit(monkeypatch, w_hi,
+                                                     digits):
+    """The pair program's level 3 (device.py ``ingest_pair_miner``) from
+    two uploaded packed blocks with tail padding: K1 once per base-128
+    digit of the raw weights, and the level-3 section equal to the
+    weighted supports computed in float64."""
+    b, w, counts = _counts_case(5, t=384, w_hi=w_hi)
+    min_count = 230 * w_hi // 40
+    cap, p3, cap3, t_pad = 8192, 8192, 1 << 16, 416
+    calls = []
+
+    def counting(*args, **kw):
+        calls.append(kw["form"])
+        return level_counts(*args, **kw)
+
+    monkeypatch.setattr(device_mod, "level_counts", counting)
+    pk = np.packbits(b, axis=1)
+    bitmap, packed, dev_counts = DeviceContext("cpu").ingest_pair_miner(
+        [torch.from_numpy(pk[:200]), torch.from_numpy(pk[200:])],
+        [torch.from_numpy(w[:200]), torch.from_numpy(w[200:])],
+        t_pad, min_count, 100, cap, True,
+        (p3, cap3, weight_digit_count(int(w.max())), "dense"),
+    )
+    assert calls == ["dense"] * digits
+    assert bitmap.shape == (t_pad, 128) and not bitmap[384:].any()
+    assert np.array_equal(dev_counts.numpy(), counts)
+    out = packed.numpy()
+    n2 = int(out[2 * cap])
+    assert 0 < n2 <= p3
+    # The float64 formula: Σ_t w_t B[t, x] B[t, y] B[t, z] over the
+    # frequent pairs in row-major order, then the prune and threshold.
+    pairs = np.argwhere(np.triu(counts >= min_count, k=1)
+                        & (np.arange(128) < 100))
+    bw = b.astype(np.float64) * w[:, None]
+    want = np.stack([(bw[:, x] * b[:, y]) @ b for x, y in pairs])
+    mask = np.zeros((128, 128), bool)
+    mask[pairs[:, 0], pairs[:, 1]] = True
+    cand = (mask[pairs[:, 0]] & mask[pairs[:, 1]]
+            & (np.arange(128)[None, :] > pairs[:, 1:2]))
+    surv = np.argwhere(cand & (want >= min_count))
+    l3 = out[2 * cap + 2:]
+    n3 = int(l3[2 * cap3])
+    assert n3 == len(surv) > 8
+    assert np.array_equal(l3[:n3], surv[:, 0] * 128 + surv[:, 1])
+    assert np.array_equal(l3[cap3 : cap3 + n3], want[surv[:, 0], surv[:, 1]])
 
 
 @pytest.mark.parametrize("t, f", [(1, 8), (37, 128), (300, 384)])
