@@ -2235,13 +2235,19 @@ class FastApriori:
             n_chunks = max(1, -(-(t_pad // ctx.txn_shards)
                                 // PAIR_TXN_CHUNK))
             # Exact in float32 while every count < 2^24 (the bitmap
-            # engine's gate); k >= 3 counts are integer popcounts.
-            parts = [
-                vertical_pair_local(a, p, scales, n_chunks,
-                                    fast_f32=data.n_raw < 2**24)
-                for a, p in zip(ctx.txn_parts(arenas), ctx.txn_parts(planes))]
-            idx, cnt, n2, dispatches, rinfo = self._pair_level_mesh(
-                parts, data.min_count, f, f_pad, t_pad, red, vertical=True)
+            # engine's gate); k >= 3 counts are integer popcounts.  The
+            # span holds the pair products and their threshold, so the
+            # kernels launched under it are the vertical pair phase's.
+            with trace.span("vertical_pairs", f=f, lanes=t_pad // 32,
+                            chunks=n_chunks):
+                parts = [
+                    vertical_pair_local(a, p, scales, n_chunks,
+                                        fast_f32=data.n_raw < 2**24)
+                    for a, p in zip(ctx.txn_parts(arenas),
+                                    ctx.txn_parts(planes))]
+                idx, cnt, n2, dispatches, rinfo = self._pair_level_mesh(
+                    parts, data.min_count, f, f_pad, t_pad, red,
+                    vertical=True)
             if ctx.txn_shards > 1:
                 m.update(**rinfo)
             del parts
@@ -2887,12 +2893,17 @@ class FastApriori:
             for t in range(ctx.local_txn_shards):
                 i = t * c_shards + c
                 if vertical:
-                    got = count(table[i], weights[i], scales, pcs[t], cis[t],
-                                chunk, lane_tile)
                     nl = table[i].shape[1]
-                    stats["launches"] += 1
-                    stats["vops"] += vertical_level_word_ops(
+                    vops = vertical_level_word_ops(
                         1, p_sh, s, b - a, len(scales), nl)
+                    # One span per K3 launch: the kernels launched under
+                    # it are that launch's.
+                    with trace.span("vertical_count", k=s + 1,
+                                    candidates=b - a, lanes=nl, vops=vops):
+                        got = count(table[i], weights[i], scales, pcs[t],
+                                    cis[t], chunk, lane_tile)
+                    stats["launches"] += 1
+                    stats["vops"] += vops
                     stats["member_bytes_saved"] += vertical_member_bytes(
                         1, p_sh, nl)
                 else:

@@ -8,7 +8,10 @@ the export), its ``job_setup`` (context, miner, the first rendezvous),
 ``MetricsLogger.timed`` section (preprocess, bitmap_build, level,
 tail_fuse, fused_mine, counts_resolve, checkpoint, gen_rules,
 user_dedup, first_match ...), the pair program's launch
-(``pair_program``, inside ``bitmap_build``), every artifact write
+(``pair_program``, inside ``bitmap_build``), the vertical engine's pair
+phase (``vertical_pairs``, inside level 2's ``level``) and each of its
+K3 launches (``vertical_count``, inside its ``level``, with ``k``,
+``candidates``, ``lanes`` and ``vops``), every artifact write
 (``write``, with its ``fsync`` child; io/writer.py), the device rule
 join's levels, every audited fetch (reliability/retry.py) and the block
 uploader's copies, and exports the Chrome trace-event JSON that Perfetto
