@@ -98,7 +98,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    overhead), and the least time the card could take for the same work
    (K3's counted two ways).  On each path's baskets, the recommender's
    host scan against its device path from one basket up, around its
-   switch point (``DEVICE_MIN_CHECKS``).
+   switch point (``DEVICE_MIN_CHECKS``).  The vertical engine's arena
+   build on the card (``build_arena``, in K3's library) against the
+   host builder and its plain version, bit for bit, on the benchmark's
+   T20 cell corpus, the kosarak-shape corpus and a ragged case, each
+   timed beside its pinned CSR upload, the host build and its bound.
 8. The rule phase on each corpus, in-process (``rule_compare``): the
    device rule engine's arrays against the host engine's, element for
    element and confidences bitwise, its joins under
@@ -871,11 +875,15 @@ def phase_metrics(stderr_text: str) -> tuple:
 def kernel_launches() -> dict:
     from fastapriori_tpu_torch.ops.level_kernel import level_counts
     from fastapriori_tpu_torch.ops.match_kernel import first_match
-    from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts
+    from fastapriori_tpu_torch.ops.vertical_kernel import (
+        build_arena,
+        vertical_counts,
+    )
 
     return {"level_counts": level_counts,
             "first_match": first_match,
-            "vertical_counts": vertical_counts}
+            "vertical_counts": vertical_counts,
+            "build_arena": build_arena}
 
 
 T10 = {"n_txns": 100_000, "n_items": 1000, "avg_txn_len": 10, "seed": 2017,
@@ -1147,14 +1155,24 @@ def pair_l3_launches(fields: dict) -> int:
             else bb.get("l3_digits", 0))
 
 
+def arena_launches(fields: dict) -> int:
+    """The arena kernel's launches as the run's ``arena_build`` events
+    count them: one per event built on the card, none where the event
+    says ``plain_kernels``."""
+    return sum(1 for k, v in fields.items()
+               if k.split(" #")[0] == "arena_build"
+               and v.get("built") == "device" and not v.get("plain_kernels"))
+
+
 def expected_launches(fields: dict) -> dict:
     """Each kernel's launches as the run's own metrics count them: K1 or
     K3 (by the level events' engine) once per launch of each level that
     ran through the level loop, K1 once per weight digit of the pair
     program's level 3 (:func:`pair_l3_launches`), K2 once per
-    micro-batch of the device first-match scan; none where the event
-    says ``plain_kernels`` (``FA_NO_PALLAS``: the plain versions ran on
-    the card)."""
+    micro-batch of the device first-match scan, the arena kernel once
+    per arena built on the card (:func:`arena_launches`); none where
+    the event says ``plain_kernels`` (``FA_NO_PALLAS``: the plain
+    versions ran on the card)."""
     level = sum(v.get("launches", 0) for k, v in fields.items()
                 if k.startswith("level k=") and not v.get("plain_kernels"))
     level += pair_l3_launches(fields)
@@ -1163,7 +1181,17 @@ def expected_launches(fields: dict) -> dict:
     return {"level_counts": 0 if vertical else level,
             "vertical_counts": level if vertical else 0,
             "first_match": fm.get("launches", 0)
-            if fm.get("device") and not fm.get("plain_kernels") else 0}
+            if fm.get("device") and not fm.get("plain_kernels") else 0,
+            "build_arena": arena_launches(fields)}
+
+
+def require_arena_on_card(name: str, fields: dict) -> None:
+    """Every arena the run built was built on the card."""
+    hosted = {k: v.get("built") for k, v in fields.items()
+              if k.split(" #")[0] == "arena_build"
+              and v.get("built") != "device"}
+    if hosted:
+        raise SystemExit(f"{name}: arenas not built on the card: {hosted}")
 
 
 def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
@@ -1171,8 +1199,9 @@ def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
     kernel of ``ran`` must have launched."""
     want = expected_launches(fields)
     if launches != want:
-        raise SystemExit(f"{name}: launches {launches} != the run's level "
-                         f"and first_match events' {want}")
+        raise SystemExit(f"{name}: launches {launches} != the run's level, "
+                         f"first_match and arena_build events' {want}")
+    require_arena_on_card(name, fields)
     for k in ran:
         if launches[k] <= 0:
             raise SystemExit(f"{name}: kernel {k} never launched")
@@ -2123,6 +2152,106 @@ def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:
             "ms_all_launches": sum(per_launch), "per_launch_ms": per_launch}
 
 
+def t20_cell_data(device):
+    """The benchmark cell ``t20n10k-vertical-batch``'s corpus (portbench's
+    IBM Quest T20.I6.D100K over 10,000 ids, one seed) mined through the
+    API at the cell's min support, as :func:`mine` mines kosarak: the
+    pipelined capture ingest's CompressedData with its basket CSR, the
+    cell's own arena shape."""
+    from portbench import gen
+
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "t20i6d100k-n10k.json")) as f:
+        cfg = json.load(f)
+    in_dir = os.path.join(WORK, "t20in")
+    os.makedirs(in_dir, exist_ok=True)
+    path = os.path.join(in_dir, "D.dat")
+    with open(path, "wb") as f:
+        f.write(gen.make_inputs(cfg, 4300002227)["D.dat"])
+    return mine(in_dir, device, repr(cfg["min_support"]))[1]
+
+
+def arena_measure(device, corpora: dict) -> dict:
+    """The vertical engine's arena build on the card (ops/vertical_kernel.py
+    ``build_arena``, the kernel in csrc/vertical_counts.cu) against the
+    host builder (ops/vertical.py ``build_tid_arena_csr``, uploaded) and
+    against its plain version on the card, bit for bit, on each of
+    ``corpora`` (name -> CompressedData with its CSR) and a ragged small
+    case; for each, the kernel's time (CUDA events, 20 calls), the CSR's
+    pinned upload (host wall to the copy's end, 20 calls), the host
+    builder's wall with its upload, and the bound: the CSR read and the
+    arena written once at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from fastapriori_tpu_torch.device import DeviceContext
+    from fastapriori_tpu_torch.ops.vertical import (
+        arena_shape,
+        build_tid_arena_csr,
+    )
+    from fastapriori_tpu_torch.ops.vertical_kernel import (
+        build_arena,
+        build_arena_plain,
+    )
+
+    rng = np.random.default_rng(23)
+    sizes = rng.integers(0, 9, size=1001)  # empty baskets too
+    ragged = (np.concatenate([np.sort(rng.choice(300, size=n, replace=False))
+                              for n in sizes]).astype(np.int32),
+              np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64), 300)
+    cases = {name: (d.basket_indices, d.basket_offsets, d.num_items)
+             for name, d in corpora.items()}
+    cases["ragged"] = ragged
+    ctx = DeviceContext(device)
+    out = {}
+    for name, (indices, offsets, n_items) in cases.items():
+        t = len(offsets) - 1
+        t0 = time.perf_counter()
+        arena_np, f_pad, t_pad = build_tid_arena_csr(indices, offsets,
+                                                     n_items)
+        want = torch.from_numpy(arena_np.view(np.int32)).to(device)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        nl = t_pad // 32
+        if (f_pad, t_pad) != arena_shape(t, n_items):
+            raise SystemExit(f"arena build {name}: arena_shape disagrees")
+        got, csr_bytes = ctx.build_tid_arena_on_device(indices, offsets,
+                                                       n_items, f_pad, nl)
+        require_equal(f"arena build {name}", got, want)
+        # Copies: the ingest's arrays are read-only.
+        idx = torch.from_numpy(np.array(indices)).to(device)
+        off = torch.from_numpy(np.array(offsets)).to(device)
+        require_equal(f"arena build {name} (plain on the card)",
+                      build_arena_plain(idx, off, f_pad, nl), want)
+
+        def upload():
+            return [torch.from_numpy(x).pin_memory().to(device,
+                                                        non_blocking=True)
+                    for x in (indices, offsets)]
+
+        upload()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            upload()
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3 / 20
+        ms = time_ms(lambda: build_arena(idx, off, n_items, f_pad, nl), 20)
+        arena_bytes = (f_pad + 1) * nl * 4
+        bound_ms, _ = bound(csr_bytes + arena_bytes, 0)
+        out[name] = {"shape": [f_pad + 1, nl], "transactions": t,
+                     "pairs": int(indices.size), "csr_bytes": csr_bytes,
+                     "arena_bytes": arena_bytes, "ms": round(ms, 4),
+                     "pinned_upload_ms": round(upload_ms, 4),
+                     "host_build_and_upload_ms": round(host_ms, 4),
+                     "bound_ms": round(bound_ms, 6),
+                     "x_bound": round(ms / bound_ms, 2),
+                     "max_abs_err": 0}
+        log(f"arena build {name}: {json.dumps(out[name])}")
+        del got, want, idx, off
+    return out
+
+
 def require_rule_engine(name: str, fields: dict, device: bool) -> None:
     """A CLI run's rule phase took the engine it should: with
     ``FA_RULE_ENGINE=device`` the device engine (a ``rule_gen_engine``
@@ -2672,7 +2801,7 @@ def reliability_phases(in_dir: str, k_in: str, main_fields: dict,
         {"recommends": REC_SHA256}, ingest=False,
         extra_args=("--resume-from", p1 + "/"))
     if (launches["first_match"] != 1 or launches["level_counts"]
-            or launches["vertical_counts"]
+            or launches["vertical_counts"] or launches["build_arena"]
             or any(k.startswith(("preprocess", "level k=")) for k in fields)):
         raise SystemExit(f"phase-1 resume: launches {launches}, events "
                          f"{sorted(fields)}: expected K2 once and no mining")
@@ -2696,7 +2825,8 @@ def reliability_phases(in_dir: str, k_in: str, main_fields: dict,
 KERNEL_SYMBOLS = {"level_counts": ("level_counts_packed",
                                     "level_counts_dense"),
                   "first_match": ("first_match_kernel",),
-                  "vertical_counts": ("vertical_counts_kernel",)}
+                  "vertical_counts": ("vertical_counts_kernel",),
+                  "build_arena": ("arena_scatter_kernel",)}
 
 
 def traced_kernel_calls(summary: dict) -> dict:
@@ -2936,11 +3066,13 @@ def require_scan_launches(name: str, launches: dict, dispatched: int,
     want = dispatched if kernel else 0
     bad = launches["first_match"] != want or (kernel and want < 2)
     if not mined:
-        bad = bad or launches["level_counts"] or launches["vertical_counts"]
+        bad = (bad or launches["level_counts"] or launches["vertical_counts"]
+               or launches["build_arena"])
     if bad:
         raise SystemExit(f"{name}: launches {launches}, the states counted "
                          f"{dispatched} scan dispatches"
-                         + ("" if mined else "; K1 and K3 must not launch"))
+                         + ("" if mined else "; K1, K3 and the arena kernel "
+                            "must not launch"))
 
 
 def require_serve_launches(name: str, launches: dict, st: dict,
@@ -3510,7 +3642,7 @@ def proc_host_run(box: dict, prefix: str, big_prefix: str, in_dir: str,
         got = row.get("launches", {})
         want_k2 = row.get("scan_dispatches_total", -1)
         bad = (got.get("first_match", 0) < 2 or got.get("level_counts")
-               or got.get("vertical_counts"))
+               or got.get("vertical_counts") or got.get("build_arena"))
         if h is hosts[1]:
             bad = bad or got.get("first_match") != want_k2
         if bad:
@@ -3966,9 +4098,10 @@ import torch
 from fastapriori_tpu_torch import cli
 from fastapriori_tpu_torch.ops.level_kernel import level_counts
 from fastapriori_tpu_torch.ops.match_kernel import first_match
-from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts
+from fastapriori_tpu_torch.ops.vertical_kernel import (
+    build_arena, vertical_counts)
 kernels = {"level_counts": level_counts, "first_match": first_match,
-           "vertical_counts": vertical_counts}
+           "vertical_counts": vertical_counts, "build_arena": build_arena}
 for line in sys.stdin:
     req = json.loads(line)
     saved = dict(os.environ)
@@ -4093,10 +4226,11 @@ from fastapriori_tpu_torch import cli
 from fastapriori_tpu_torch.obs import flight
 from fastapriori_tpu_torch.ops.level_kernel import level_counts
 from fastapriori_tpu_torch.ops.match_kernel import first_match
-from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts
+from fastapriori_tpu_torch.ops.vertical_kernel import (
+    build_arena, vertical_counts)
 from fastapriori_tpu_torch.reliability import failpoints, ledger
 kernels = {"level_counts": level_counts, "first_match": first_match,
-           "vertical_counts": vertical_counts}
+           "vertical_counts": vertical_counts, "build_arena": build_arena}
 torch.zeros(1, device="cuda:0")
 state = {}
 def reply(rc):
@@ -4245,7 +4379,8 @@ def mixed_launches(fields: dict) -> dict:
                 k1 += v.get("launches", 0)
     fm = fields.get("first_match", {})
     return {"level_counts": k1, "vertical_counts": k3,
-            "first_match": fm.get("launches", 0) if fm.get("device") else 0}
+            "first_match": fm.get("launches", 0) if fm.get("device") else 0,
+            "build_arena": arena_launches(fields)}
 
 
 def require_clamped_launches(name: str, got: dict, fields: dict,
@@ -4258,9 +4393,11 @@ def require_clamped_launches(name: str, got: dict, fields: dict,
     exact = got == want if not failed_level else (
         got["level_counts"] == want["level_counts"]
         and got["first_match"] == want["first_match"]
+        and got["build_arena"] == want["build_arena"]
         and got["vertical_counts"] > want["vertical_counts"])
     if not exact or got["vertical_counts"] < 1 or got["level_counts"] < 1:
         raise SystemExit(f"{name}: launches {got}, events {want}")
+    require_arena_on_card(name, fields)
     log(f"{name}: launches {got}, events {want}")
 
 
@@ -4878,6 +5015,8 @@ def run(t_start: float) -> int:
         {"mine_engine": "vertical"}, kdata, klevels, device)
     k3 = k3_measure(kcfg, kdata, klevels, device, clock)
     require_replayed("K3 vertical path", k3, vert_launches["vertical_counts"])
+    arena = arena_measure(device, {"t20n10k": t20_cell_data(device),
+                                   "kosarak": kdata})
     del kcfg, kdata, klevels
 
     # Phase 8: a lattice above the auto floor, where auto itself takes
@@ -4946,6 +5085,8 @@ def run(t_start: float) -> int:
          "launches": vert_launches["vertical_counts"],
          "path": "kosarak_vertical",
          "launches_by_path": by_path("vertical_counts"), **k3,
+         "arena_launches_by_path": by_path("build_arena"),
+         "arena_build_by_path": arena,
          "measured_by_path": {
              "kosarak_vertical": k3,
              "kosarak_vertical_mesh_s2_api":

@@ -54,6 +54,27 @@
 //   cost a check and no block, long rows do not hold up a wave, and warps
 //   running together share a lane chunk of the arena and planes in L1.
 // - Ragged NL, P and C are masked; nothing needs to divide a tile.
+//
+// Beside K3, the same library builds K3's input: the tid-lane arena from
+// the basket CSR (fa_build_arena; it replaces the host sort and reduce of
+// ops/vertical.py `build_tid_arena_csr` and its upload, and no TPU
+// kernel: the JAX package builds the arena on the host too).  For each
+// transaction t and each item i of it, bit t % 32 of arena[i, t / 32] is
+// set; the item rows are zero elsewhere and row f_pad is all ones.
+// What bounds it: the CSR read once (4 bytes an item, 8 a basket) and the
+// arena written once, some 27 MB at the T20 cell's shape, 8 us at
+// 3.35 TB/s.  The design:
+// - a fill kernel writes the arena's zero rows and its all-ones row in
+//   one coalesced pass;
+// - in the scatter kernel a warp owns one lane word, its 32 consecutive
+//   transactions, one a lane, so no other warp writes that column of the
+//   arena.  Each lane walks its basket's items in order (the ingest sorts
+//   them); at each step the warp takes the least current item
+//   (__reduce_min_sync), the lanes holding it (a ballot) are exactly the
+//   word's bits for that item, and one lane ORs them into global memory
+//   with one atomic; those lanes move on.  So a word costs one atomic
+//   per distinct item in it, not one per (basket, item) pair, and the
+//   result does not depend on the order in which warps run.
 
 #include <cassert>
 #include <cstdint>
@@ -200,6 +221,49 @@ vertical_counts_kernel(const uint32_t* __restrict__ arena,
   }
 }
 
+constexpr int kBuildThreads = 256;
+constexpr int kBuildWarps = kBuildThreads / 32;
+constexpr int kNoItem = 0x7fffffff;   // a finished lane's item
+
+// arena[0 .. f_pad * NL) = 0, arena[f_pad * NL .. (f_pad + 1) * NL) = ~0.
+__global__ void arena_fill_kernel(uint32_t* __restrict__ arena,
+                                  size_t zero_words, size_t words) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t w = (size_t)blockIdx.x * blockDim.x + threadIdx.x; w < words;
+       w += stride)
+    arena[w] = w < zero_words ? 0u : kFull;
+}
+
+// Warp w sets the bits of lane word w: lane j holds transaction 32 w + j.
+__global__ void __launch_bounds__(kBuildThreads)
+arena_scatter_kernel(const int32_t* __restrict__ indices,
+                     const int64_t* __restrict__ offsets,
+                     uint32_t* arena, int T, int NL, int num_items) {
+  const int word = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (word >= NL) return;  // whole warps: NL is uniform across the warp
+  const int t = word * 32 + lane;
+  int64_t p = 0, end = 0;
+  if (t < T) {
+    p = offsets[t];
+    end = offsets[t + 1];
+  }
+  int cur = p < end ? __ldg(indices + p) : kNoItem;
+  for (;;) {
+    const int least = __reduce_min_sync(kFull, cur);
+    if (least == kNoItem) break;
+    const unsigned bits = __ballot_sync(kFull, cur == least);
+    if (cur == least) {
+      if (lane == __ffs(bits) - 1) {
+        assert(least >= 0 && least < num_items);
+        atomicOr(arena + (size_t)least * NL + word, bits);
+      }
+      ++p;
+      cur = p < end ? __ldg(indices + p) : kNoItem;
+    }
+  }
+}
+
 }  // namespace
 
 // scratch: P + 3 int32, 8-byte aligned (the work counter, then the run
@@ -233,5 +297,37 @@ extern "C" int fa_vertical_counts(const void* arena, const void* planes,
       (const uint32_t*)arena, (const uint32_t*)planes,
       (const uint32_t*)lane_mask, (const int32_t*)pc, (const int32_t*)cand,
       start, counter, (int32_t*)out, f_pad, NL, P, K, items);
+  return (int)cudaGetLastError();
+}
+
+// The tid-lane arena [f_pad + 1, NL] (uint32 words) from the basket CSR:
+// indices [offsets[T]] int32 item ids in [0, num_items), ascending within
+// each basket for one atomic per (item, word); offsets [T + 1] int64.
+// Needs num_items < f_pad and T <= 32 NL.  Launches on `stream` and
+// returns cudaGetLastError() (0 = launched).
+extern "C" int fa_build_arena(const void* indices, const void* offsets,
+                              void* arena, int T, int num_items, int f_pad,
+                              int NL, void* stream) {
+  if (T < 0 || NL < 0 || num_items < 0 || f_pad <= num_items ||
+      (long long)T > 32LL * NL)
+    return (int)cudaErrorInvalidValue;
+  if (NL == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t zero_words = (size_t)f_pad * NL;
+  const size_t words = zero_words + NL;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  size_t fill_blocks = (words + kBuildThreads - 1) / kBuildThreads;
+  if (fill_blocks > (size_t)sms * 16) fill_blocks = (size_t)sms * 16;
+  arena_fill_kernel<<<(unsigned)fill_blocks, kBuildThreads, 0, st>>>(
+      (uint32_t*)arena, zero_words, words);
+  if (T > 0) {
+    const int words_with_bits = (T + 31) / 32;
+    arena_scatter_kernel<<<(words_with_bits + kBuildWarps - 1) / kBuildWarps,
+                           kBuildThreads, 0, st>>>(
+        (const int32_t*)indices, (const int64_t*)offsets, (uint32_t*)arena,
+        T, NL, num_items);
+  }
   return (int)cudaGetLastError();
 }

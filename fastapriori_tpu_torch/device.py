@@ -1,7 +1,8 @@
 """Device placement (counterpart: the one-process part of
 fastapriori_tpu/parallel/mesh.py ``DeviceContext`` — the mesh of shard
 devices (parallel/mesh.py) with its placements, upload,
-the vertical engine's arena and plane uploads, fetch, the ingest-
+the vertical engine's arena build on the card, its arena and plane
+uploads, fetch, the ingest-
 overlapped pair program ``ingest_pair_miner``, its overflow
 ``pair_regather``, the remembered pair budgets, the fused engine's
 memos (``fused_m_cap_hint``, ``fused_failed``, ``auto_level``) with the
@@ -52,7 +53,11 @@ from fastapriori_tpu_torch.ops.level_kernel import (
     level_counts_plain,
 )
 from fastapriori_tpu_torch.ops.vertical import assemble_arena
-from fastapriori_tpu_torch.ops.vertical_kernel import lane_plane_mask
+from fastapriori_tpu_torch.ops.vertical_kernel import (
+    build_arena,
+    build_arena_plain,
+    lane_plane_mask,
+)
 from fastapriori_tpu_torch.parallel import mesh
 from fastapriori_tpu_torch.parallel.mesh import Mesh, resolve_devices
 from fastapriori_tpu_torch.reliability import failpoints, retry
@@ -593,6 +598,36 @@ class DeviceContext:
         f_pad = arena_np.shape[0] - 1
         return assemble_arena(dev, f_pad, arena_np.shape[1], self.device), \
             payload
+
+    def build_tid_arena_on_device(
+        self, indices: np.ndarray, offsets: np.ndarray, num_items: int,
+        f_pad: int, nl: int, plain: bool = False,
+    ) -> Tuple[torch.Tensor, int]:
+        """The vertical engine's int32 ``[f_pad+1, nl]`` arena built on
+        this context's device from the basket CSR (ops/vertical_kernel.py
+        ``build_arena``), equal bit for bit to :meth:`upload_tid_arena`
+        of ops/vertical.py ``build_tid_arena_csr``'s arena.  On CUDA the
+        CSR goes up through pinned memory, non-blocking on the current
+        stream, and the kernel launches behind it: the host does not
+        wait for the device.  ``plain`` (the caller's
+        :meth:`plain_kernels`) builds with the plain version on the
+        card.  Returns ``(arena, csr_bytes)``, the bytes of the CSR
+        uploaded."""
+        cuda = self.device.type == "cuda"
+        # One copy of the CSR into (pinned) host memory: the ingest's
+        # arrays are read-only, which torch.from_numpy warns about.
+        idx, off = (torch.empty(len(x), dtype=dtype, pin_memory=cuda)
+                    for x, dtype in ((indices, torch.int32),
+                                     (offsets, torch.int64)))
+        idx.numpy()[:] = indices
+        off.numpy()[:] = offsets
+        csr_bytes = idx.numel() * 4 + off.numel() * 8
+        if cuda:
+            idx, off = (x.to(self.device, non_blocking=True)
+                        for x in (idx, off))
+            if plain:
+                return build_arena_plain(idx, off, f_pad, nl), csr_bytes
+        return build_arena(idx, off, num_items, f_pad, nl), csr_bytes
 
     def upload_lane_planes(self, planes_np: np.ndarray) -> torch.Tensor:
         """The uint32 ``[B, NL]`` weight bit-planes as int32 (the same

@@ -164,6 +164,7 @@ from fastapriori_tpu_torch.ops.level_kernel import (
 )
 from fastapriori_tpu_torch.ops.vertical import (
     PAIR_TXN_CHUNK,
+    arena_shape,
     build_tid_arena_csr,
     compress_arena,
     vertical_level_local,
@@ -2168,8 +2169,11 @@ class FastApriori:
         """Vertical (Eclat-style) mining: the tid-lane arena and weight
         bit-planes on the device, the pair phase as a Gram product over
         unpacked lane chunks, then the level loop the bitmap engine uses,
-        counting with K3.  Resume levels (:meth:`set_resume_levels`) skip
-        the pair phase."""
+        counting with K3.  On a CUDA context the arena is built on the
+        card from the basket CSR (device.py
+        ``build_tid_arena_on_device``); elsewhere on the host and
+        uploaded, dense or compressed.  Resume levels
+        (:meth:`set_resume_levels`) skip the pair phase."""
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
@@ -2186,27 +2190,50 @@ class FastApriori:
             multiple = 32 * ctx.local_txn_shards
             if multi:
                 multiple = self._local_pad(data, multiple)
-            arena_np, f_pad, t_pad = build_tid_arena_csr(
-                data.basket_indices, data.basket_offsets, f,
-                multiple, cfg.item_tile, n_threads=n_threads,
-            )
+            on_card = ctx.platform == "cuda"
+            if on_card:
+                f_pad, t_pad = arena_shape(len(data.basket_offsets) - 1, f,
+                                           multiple, cfg.item_tile)
+            else:
+                arena_np, f_pad, t_pad = build_tid_arena_csr(
+                    data.basket_indices, data.basket_offsets, f,
+                    multiple, cfg.item_tile, n_threads=n_threads,
+                )
             planes_np, scales = weight_bit_planes(
                 np.asarray(data.weights, dtype=np.int64), t_pad,
                 min_planes=(data.shard.max_weight.bit_length() if multi
                             else 1),
             )
+            nl = t_pad // 32
             t_pad *= ctx.world
-            # Census first; the bucket fill and the device scatter only
-            # when the compressed upload is at most half the dense one
-            # (the dense arena across processes, as in the JAX package).
-            _, payload, seg_stats = compress_arena(arena_np, f_pad,
-                                                   build=False)
-            use_compressed = not multi and payload * 2 <= arena_np.nbytes
-            buckets = (
-                compress_arena(arena_np, f_pad)[0] if use_compressed else None
-            )
-            arena, upload_bytes = ctx.upload_tid_arena(arena_np, buckets)
-            w_planes = ctx.upload_lane_planes(planes_np)
+            if on_card:
+                # The planes first: their pageable copy waits for the
+                # stream, where the arena kernel would be queued.  The
+                # arena is built on the card from the CSR, so no census:
+                # its occupancy would cost the host a wait.
+                w_planes = ctx.upload_lane_planes(planes_np)
+                plain = ctx.plain_kernels()
+                arena, csr_bytes = ctx.build_tid_arena_on_device(
+                    data.basket_indices, data.basket_offsets, f, f_pad, nl,
+                    plain=plain)
+                upload_bytes, use_compressed = csr_bytes, False
+                if plain:
+                    m.update(plain_kernels=True)
+            else:
+                # Census first; the bucket fill and the device scatter
+                # only when the compressed upload is at most half the
+                # dense one (the dense arena across processes, as in the
+                # JAX package).
+                _, payload, seg_stats = compress_arena(arena_np, f_pad,
+                                                       build=False)
+                use_compressed = (not multi
+                                  and payload * 2 <= arena_np.nbytes)
+                buckets = (compress_arena(arena_np, f_pad)[0]
+                           if use_compressed else None)
+                arena, upload_bytes = ctx.upload_tid_arena(arena_np, buckets)
+                w_planes = ctx.upload_lane_planes(planes_np)
+                csr_bytes = 0
+                m.update(occupancy=seg_stats["occupancy"])
             # Each shard's lane block on its device (the arena itself on
             # one shard); K3's lane plane mask per block.
             arenas = ctx.shard_lanes(arena)
@@ -2219,8 +2246,9 @@ class FastApriori:
             m.update(
                 shape=[f_pad + 1, t_pad // 32],
                 planes=len(scales),
+                built="device" if on_card else "host",
                 compressed=use_compressed,
-                occupancy=seg_stats["occupancy"],
+                csr_bytes=csr_bytes,
                 upload_bytes=upload_bytes + planes_np.nbytes,
                 threads=n_threads,
             )

@@ -23,6 +23,8 @@ same bits (torch's unsigned 32-bit type lacks the operations needed).
 
 The arena build's reduce pass can be split over host threads
 (:func:`build_tid_arena_csr` ``n_threads``, the ingest's thread count).
+On a CUDA device the engine builds the same arena on the card instead
+(ops/vertical_kernel.py ``build_arena``, at :func:`arena_shape`'s shape).
 """
 
 from __future__ import annotations
@@ -75,6 +77,16 @@ def weight_bit_planes(
 _ARENA_THREAD_MIN_RUNS = 1 << 16
 
 
+def arena_shape(t: int, num_items: int, txn_multiple: int = 32,
+                item_multiple: int = 128) -> Tuple[int, int]:
+    """``(f_pad, t_pad)`` of the arena over ``t`` transactions and
+    ``num_items`` items: ``t_pad = pad_axis(t, lcm(txn_multiple, 32))``
+    and ``f_pad = pad_axis(num_items + 1, item_multiple)``, so row
+    ``f_pad - 1`` is always an all-zero item row."""
+    mult = txn_multiple * 32 // math.gcd(txn_multiple, 32)
+    return pad_axis(num_items + 1, item_multiple), pad_axis(t, mult)
+
+
 def build_tid_arena_csr(
     indices: np.ndarray,
     offsets: np.ndarray,
@@ -84,19 +96,17 @@ def build_tid_arena_csr(
     n_threads: int = 1,
 ) -> Tuple[np.ndarray, int, int]:
     """The dense tid-lane arena from the basket CSR: returns
-    ``(arena uint32[f_pad+1, NL], f_pad, t_pad)`` with
-    ``t_pad = pad_axis(T, lcm(txn_multiple, 32))`` and row ``f_pad`` all
-    ones.  One sorted segment-reduce (``np.bitwise_or.reduceat`` over the
-    (item, lane) runs) builds every item's lanes.
+    ``(arena uint32[f_pad+1, NL], f_pad, t_pad)`` at
+    :func:`arena_shape`'s shape, with row ``f_pad`` all ones.  One
+    sorted segment-reduce (``np.bitwise_or.reduceat`` over the (item,
+    lane) runs) builds every item's lanes.
 
     ``n_threads > 1`` splits the reduceat pass over a thread pool from
     :data:`_ARENA_THREAD_MIN_RUNS` runs on: runs are independent and
     write disjoint arena slots, so the split is a run-aligned partition
     of the sorted stream, with identical output (each run stays whole)."""
     t = len(offsets) - 1
-    mult = txn_multiple * 32 // math.gcd(txn_multiple, 32)
-    t_pad = pad_axis(t, mult)
-    f_pad = pad_axis(num_items + 1, item_multiple)
+    f_pad, t_pad = arena_shape(t, num_items, txn_multiple, item_multiple)
     nl = t_pad // 32
     arena = np.zeros((f_pad + 1, nl), dtype=np.uint32)
     if t > 0 and len(indices) > 0:

@@ -32,6 +32,11 @@ attribute counts kernel launches.  The kernel reads plane words only
 where :func:`lane_plane_mask` says a plane is non-zero, a mask derived on
 the device once per planes upload; the run starts of the candidates are
 derived by the launch itself.
+
+The same library builds K3's input, the tid-lane arena, from the basket
+CSR: :func:`build_arena` launches that kernel for CUDA tensors and runs
+:func:`build_arena_plain` for CPU tensors; both equal ops/vertical.py
+``build_tid_arena_csr`` bit for bit.
 """
 
 from __future__ import annotations
@@ -269,3 +274,86 @@ def vertical_counts(
 
 
 vertical_counts.launches = 0
+
+
+def build_arena_plain(indices: torch.Tensor, offsets: torch.Tensor,
+                      f_pad: int, nl: int) -> torch.Tensor:
+    """The tid-lane arena from the basket CSR in plain PyTorch: int32
+    ``[f_pad + 1, nl]`` with bit ``t % 32`` of ``[i, t // 32]`` set for
+    each item ``i`` of transaction ``t`` and row ``f_pad`` all ones, the
+    words of ops/vertical.py ``build_tid_arena_csr``.  Each distinct
+    (item, transaction) pair is one bit of one word, so the OR of a
+    word's bits is their sum, taken in int64 and wrapped to int32."""
+    dev = indices.device
+    flat = torch.zeros((f_pad + 1) * nl, dtype=torch.int64, device=dev)
+    t = offsets.shape[0] - 1
+    if t > 0 and indices.numel():
+        rows = torch.repeat_interleave(
+            torch.arange(t, device=dev), offsets[1:] - offsets[:-1])
+        pairs = torch.unique(indices.long() * (32 * nl) + rows)
+        flat.index_add_(0, pairs // 32, torch.ones_like(pairs) << (pairs % 32))
+    arena = torch.where(flat >= 2**31, flat - 2**32, flat).to(
+        torch.int32).view(f_pad + 1, nl)
+    arena[f_pad] = -1
+    return arena
+
+
+def _arena_fn():
+    fn = build.load("vertical_counts").fa_build_arena
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def build_arena(indices: torch.Tensor, offsets: torch.Tensor, num_items: int,
+                f_pad: int, nl: int) -> torch.Tensor:
+    """The tid-lane arena int32 ``[f_pad + 1, nl]`` on the tensors'
+    device from the basket CSR (``indices`` int32 item ids in
+    ``[0, num_items)``, ascending within each basket as the ingest
+    writes them; ``offsets`` int64 ``[T + 1]``): the CUDA kernel for
+    CUDA tensors, launched on the current stream with no host wait, and
+    :func:`build_arena_plain` for CPU tensors, where an item outside
+    ``[0, num_items)`` raises ValueError (the kernel asserts it on the
+    device).  ``f_pad`` and ``nl`` are the caller's, as ops/vertical.py
+    ``arena_shape`` gives them; ``build_arena.launches`` counts kernel
+    launches."""
+    for name, x, dtype in (("indices", indices, torch.int32),
+                           ("offsets", offsets, torch.int64)):
+        if x.dtype != dtype or x.dim() != 1:
+            raise ValueError(f"{name} must be a 1-D {dtype} tensor, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if offsets.device != indices.device:
+        raise ValueError(f"offsets on {offsets.device}, indices on "
+                         f"{indices.device}")
+    t = offsets.shape[0] - 1
+    if t < 0 or not 0 <= num_items < f_pad or nl < 0 or t > 32 * nl:
+        raise ValueError(f"{t} transactions, {num_items} items do not fit "
+                         f"an arena of f_pad {f_pad}, {nl} lanes")
+    if 32 * nl >= 2**31:
+        raise ValueError(f"{nl} lanes hold 2^31 transactions or more")
+    if indices.device.type == "cpu":
+        if indices.numel() and not (
+                (indices >= 0) & (indices < num_items)).all():
+            raise ValueError(f"indices must lie in [0, {num_items})")
+        return build_arena_plain(indices, offsets, f_pad, nl)
+    if indices.device.type != "cuda":
+        raise ValueError(f"the arena builds on cuda or cpu, not "
+                         f"{indices.device}")
+    with torch.cuda.device(indices.device):
+        indices, offsets = indices.contiguous(), offsets.contiguous()
+        arena = torch.empty((f_pad + 1, nl), dtype=torch.int32,
+                            device=indices.device)
+        stream = torch.cuda.current_stream(indices.device).cuda_stream
+        err = _arena_fn()(indices.data_ptr(), offsets.data_ptr(),
+                          arena.data_ptr(), t, num_items, f_pad, nl, stream)
+    if err != 0:
+        raise RuntimeError(f"arena build kernel launch failed: CUDA error "
+                           f"{err}")
+    build_arena.launches += 1
+    return arena
+
+
+build_arena.launches = 0

@@ -13,7 +13,12 @@ mode), with exact equality: every output is an integer count or a byte.
 - the engine with ``mine_engine="vertical"`` against the JAX engine at
   ``num_devices=1`` and the port's own bitmap engine; the auto rule; the
   strict ``FA_MINE_ENGINE`` parse; the CLI's bytes; and the digests of
-  chip_smoke.py's vertical path, recomputed with the JAX CLI.
+  chip_smoke.py's vertical path, recomputed with the JAX CLI;
+- the arena built from the CSR on the device (ops/vertical_kernel.py
+  ``build_arena``, its plain version here) against the host builder bit
+  for bit; the engine's choice between the two builds by its context's
+  device; the bitmap path never reaching it; and the benchmark's
+  ``arena_build_device_ms`` reader.
 """
 
 import hashlib
@@ -34,12 +39,15 @@ from fastapriori_tpu.ops.pallas_vertical import vertical_counts_pallas
 from fastapriori_tpu_torch import InputError
 from fastapriori_tpu_torch.cli import main as torch_main
 from fastapriori_tpu_torch.config import MinerConfig
+from fastapriori_tpu_torch import device as torch_device
 from fastapriori_tpu_torch.device import DeviceContext
 from fastapriori_tpu_torch.models import apriori as tv_apriori
 from fastapriori_tpu_torch.models.apriori import FastApriori
 from fastapriori_tpu_torch.ops import vertical as tv
 from fastapriori_tpu_torch.ops import vertical_kernel
+from fastapriori_tpu_torch.ops import build as kernel_build
 from fastapriori_tpu_torch.ops.vertical_kernel import (
+    build_arena,
     lane_plane_mask,
     vertical_counts,
     vertical_counts_plain,
@@ -49,6 +57,8 @@ from fastapriori_tpu_torch.utils.datagen import (
     generate_transactions,
     generate_user_baskets,
 )
+from portbench import gen
+from portbench.tests import records
 from test_torch_e2e import JAX_FLAGS, _cli_three_ways, _write_inputs
 from test_vertical import (
     _deep_lattice,
@@ -519,3 +529,235 @@ def test_chip_smoke_vertical_digests_are_the_jax_packages(tmp_path,
                        ("recommends", corpus["rec_sha256"])):
         got = hashlib.sha256((tmp_path / "out_jax" / name).read_bytes())
         assert got.hexdigest() == want
+
+
+# ---------------------------------------------------------------------------
+# the arena built from the CSR on the device
+
+
+def _t20_config(**cut):
+    """The T20 cell's configuration (Quest T20.I6 over 10,000 ids) with
+    ``cut`` laid over it."""
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "t20i6d100k-n10k.json")) as f:
+        cfg = json.load(f)
+    cfg.update(cut)
+    return cfg
+
+
+def _t20_inputs(tmp_path):
+    """The T20 cell's inputs at a small size, written under ``in/``, and
+    the cell's min support."""
+    cfg = _t20_config(n_txns=1500, n_users=200)
+    made = gen.make_inputs(cfg, 4300002227)
+    d = tmp_path / "in"
+    d.mkdir()
+    for name in ("D.dat", "U.dat"):
+        (d / name).write_bytes(made[name])
+    return str(d) + "/", float(cfg["min_support"])
+
+
+def _arena_case(name):
+    """``(indices, offsets, num_items, txn_multiple)`` of one case."""
+    if name == "t20":
+        cfg = _t20_config(n_txns=700, n_users=1)
+        rows = gen.make_inputs(cfg, 11)["D.dat"].decode().splitlines()
+        data = preprocess([r.split() for r in rows],
+                          float(cfg["min_support"]))
+        return (data.basket_indices, data.basket_offsets, data.num_items,
+                32)
+    if name == "empty":
+        return np.empty(0, np.int32), np.zeros(1, np.int64), 7, 32
+    t, n_items, max_len, mult = {
+        "ragged": (45, 20, 6, 32), "mult64": (130, 50, 9, 64),
+        "mult96": (200, 300, 4, 96), "unused": (300, 400, 3, 32),
+        "every-basket": (77, 12, 5, 32)}[name]
+    indices, offsets = _csr(t, t, n_items // 3 if name == "unused"
+                            else n_items, max_len)
+    if name == "unused":
+        indices = indices * 3  # two ids in three never occur
+    if name == "every-basket":
+        # Item 4 joins every basket that lacks it.
+        rows = [sorted(set(indices[a:b].tolist()) | {4})
+                for a, b in zip(offsets[:-1], offsets[1:])]
+        indices = np.concatenate(rows)
+        offsets = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    return indices.astype(np.int32), offsets.astype(np.int64), n_items, mult
+
+
+@pytest.mark.parametrize("case", ["empty", "ragged", "mult64", "mult96",
+                                  "unused", "every-basket", "t20"])
+def test_build_arena_plain_matches_the_host_builder(case):
+    """The port's shape rule, its host builder and the plain device build
+    all give the JAX package's arena, bit for bit."""
+    indices, offsets, n_items, mult = _arena_case(case)
+    want, f_pad, t_pad = jv.build_tid_arena_csr(indices, offsets, n_items,
+                                                mult)
+    assert tv.arena_shape(len(offsets) - 1, n_items, mult) == (f_pad, t_pad)
+    host, *host_shape = tv.build_tid_arena_csr(indices, offsets, n_items,
+                                               mult)
+    assert host_shape == [f_pad, t_pad]
+    assert host.tobytes() == want.tobytes()
+    got = build_arena(_t(indices), _t(offsets), n_items, f_pad, t_pad // 32)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert got.numpy().tobytes() == want.tobytes()
+    if case == "every-basket":
+        assert (want[4, : (len(offsets) - 1) // 32] == 0xFFFFFFFF).all()
+    if case == "t20":
+        assert len(offsets) - 1 > 32 and (want[:f_pad] >> 31).any()
+    ctx = DeviceContext("cpu")
+    arena, csr_bytes = ctx.build_tid_arena_on_device(
+        indices, offsets, n_items, f_pad, t_pad // 32)
+    assert arena.numpy().tobytes() == want.tobytes()
+    assert csr_bytes == indices.size * 4 + offsets.size * 8
+
+
+def test_build_arena_refuses_what_breaks_its_contract():
+    indices, offsets = _csr(5, 40, 10, 4)
+    ok = (_t(indices), _t(offsets), 10, 128, 2)
+    build_arena(*ok)
+    with pytest.raises(ValueError, match="indices must lie"):
+        build_arena(_t(indices), _t(offsets), 5, 128, 2)
+    with pytest.raises(ValueError, match="do not fit"):
+        build_arena(_t(indices), _t(offsets), 10, 128, 1)  # 40 > 32 lanes
+    with pytest.raises(ValueError, match="do not fit"):
+        build_arena(_t(indices), _t(offsets), 128, 128, 2)  # no zero row
+    with pytest.raises(ValueError, match="int64"):
+        build_arena(_t(indices), _t(offsets.astype(np.int32)), 10, 128, 2)
+
+
+def _arena_events(err):
+    return [json.loads(x) for x in err.splitlines()
+            if x.startswith("{") and '"arena_build"' in x]
+
+
+def _run_cli(in_dir, out_dir, min_support):
+    return torch_main([in_dir, out_dir, "--min-support", repr(min_support),
+                       "--platform", "cpu", "--metrics"])
+
+
+def test_mine_vertical_builds_on_the_host_on_a_cpu_context(
+        tmp_path, monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(DeviceContext, "build_tid_arena_on_device",
+                        lambda self, *a: calls.append(a))
+    monkeypatch.setenv("FA_MINE_ENGINE", "vertical")
+    in_dir, ms = _t20_inputs(tmp_path)
+    assert _run_cli(in_dir, str(tmp_path / "out") + "/", ms) == 0
+    (ev,) = _arena_events(capsys.readouterr().err)
+    assert ev["built"] == "host" and ev["csr_bytes"] == 0
+    assert {"compressed", "occupancy", "upload_bytes"} <= set(ev)
+    assert not calls
+
+
+class _CardView(DeviceContext):
+    """A CPU context that reads as a CUDA one: it shares the real
+    context's state, and its arena build runs the plain version on the
+    CPU tensors."""
+
+    platform = property(lambda self: "cuda")
+
+
+def test_mine_vertical_builds_on_the_card_on_a_cuda_context(
+        tmp_path, monkeypatch, capsys):
+    """The vertical engine over a CUDA context takes the device build
+    alone (no host build, census or compressed upload) and writes the
+    host path's bytes."""
+    monkeypatch.setenv("FA_MINE_ENGINE", "vertical")
+    in_dir, ms = _t20_inputs(tmp_path)
+    host_out = str(tmp_path / "host") + "/"
+    assert _run_cli(in_dir, host_out, ms) == 0
+    (host_ev,) = _arena_events(capsys.readouterr().err)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host builder ran on a CUDA context")
+
+    built = []
+    real_build = DeviceContext.build_tid_arena_on_device
+    real_mine = FastApriori._mine_vertical
+
+    def on_card_build(self, *args, **kwargs):
+        built.append((args[2:], kwargs))
+        return real_build(self, *args, **kwargs)
+
+    def on_card_mine(self, data):
+        ctx = self.ctx
+        view = object.__new__(_CardView)
+        view.__dict__ = ctx.__dict__
+        self.ctx = view
+        try:
+            return real_mine(self, data)
+        finally:
+            self.ctx = ctx
+
+    monkeypatch.setattr(tv_apriori, "build_tid_arena_csr", refuse)
+    monkeypatch.setattr(tv_apriori, "compress_arena", refuse)
+    monkeypatch.setattr(DeviceContext, "upload_tid_arena", refuse)
+    monkeypatch.setattr(DeviceContext, "build_tid_arena_on_device",
+                        on_card_build)
+    monkeypatch.setattr(FastApriori, "_mine_vertical", on_card_mine)
+    card_out = str(tmp_path / "card") + "/"
+    assert _run_cli(in_dir, card_out, ms) == 0
+    (ev,) = _arena_events(capsys.readouterr().err)
+    assert ev["built"] == "device" and ev["compressed"] is False
+    assert "occupancy" not in ev and "plain_kernels" not in ev
+    assert ev["shape"] == host_ev["shape"] and len(built) == 1
+    (n_items, f_pad, nl), kwargs = built[0]
+    assert kwargs == {"plain": False}
+    assert [f_pad + 1, nl] == ev["shape"]
+    assert ev["csr_bytes"] > 0
+    assert ev["upload_bytes"] == ev["csr_bytes"] + ev["planes"] * nl * 4
+    for name in ("freqItemset", "recommends"):
+        with open(host_out + name, "rb") as a, open(card_out + name,
+                                                    "rb") as b:
+            assert a.read() == b.read()
+
+
+def test_bitmap_path_never_reaches_the_device_arena_build(
+        tmp_path, monkeypatch, capsys):
+    """A T10-shaped job takes the bitmap layout: no device arena build
+    and no ``arena_build`` event.  The ``build.load`` half of the guard
+    bites only where kernel libraries load, on the card; chip_smoke.py
+    holds the arena kernel's launch count to the vertical runs' events
+    there."""
+    calls = []
+
+    def record(name):
+        return lambda *a, **k: calls.append(name)
+
+    monkeypatch.delenv("FA_MINE_ENGINE", raising=False)
+    monkeypatch.setattr(vertical_kernel, "build_arena", record("kernel"))
+    monkeypatch.setattr(torch_device, "build_arena", record("kernel"))
+    monkeypatch.setattr(DeviceContext, "build_tid_arena_on_device",
+                        record("context"))
+    monkeypatch.setattr(kernel_build, "load", record("load"))
+    inp = _write_inputs(tmp_path, [" ".join(x) for x in _t10i4_shaped()],
+                        ["1 2", "3"])
+    assert _run_cli(inp, str(tmp_path / "out_torch") + "/", 0.03) == 0
+    err = capsys.readouterr().err
+    assert '"bitmap_build"' in err and not _arena_events(err)
+    assert calls == []
+
+
+class _ReaderRun:
+    def __init__(self, spans, jobs, trace_):
+        self.records = {"jobs": jobs, "spans": spans, "trace": trace_}
+
+
+def test_arena_build_device_ms_reads_the_kernels_under_arena_build():
+    read = records.reader("arena_build_device_ms").read
+    jobs = [(0.0, 10.0), (10.0, 20.0)]
+    rows = [("arena_build", 1.0, 2.0), ("level", 2.0, 4.0),
+            ("arena_build", 11.0, 12.0), ("level", 12.0, 14.0)]
+    ops = [("kernel", 1.2, 0.010), ("kernel", 1.4, 0.020),
+           ("gpu_memcpy", 1.1, 0.300),   # the CSR's copy, not a kernel
+           ("kernel", 3.0, 0.500),       # level 2
+           ("kernel", 11.5, 0.030)]
+    got = read(_ReaderRun(records.spans(rows), jobs,
+                          records.device_trace(ops)))
+    assert got == pytest.approx((0.010 + 0.020 + 0.030) * 1e3 / 2)
+    # None without a kernel under arena_build, or without the span.
+    assert read(_ReaderRun(records.spans(rows), jobs, records.device_trace(
+        [op for op in ops if op[0] != "kernel" or op[1] == 3.0]))) is None
+    assert read(_ReaderRun(records.spans(rows[1::2]), jobs,
+                           records.device_trace(ops))) is None
