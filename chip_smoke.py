@@ -99,10 +99,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (K3's counted two ways).  On each path's baskets, the recommender's
    host scan against its device path from one basket up, around its
    switch point (``DEVICE_MIN_CHECKS``).  The vertical engine's arena
-   build on the card (``build_arena``, in K3's library) against the
-   host builder and its plain version, bit for bit, on the benchmark's
-   T20 cell corpus, the kosarak-shape corpus and a ragged case, each
-   timed beside its pinned CSR upload, the host build and its bound.
+   build on the card (``build_arena``, in K3's library) against its
+   plain version on the CPU and on the card, bit for bit, on the
+   benchmark's T20 cell corpus, the kosarak-shape corpus and a ragged
+   case, each timed beside its pinned CSR upload and its bound.
 8. The rule phase on each corpus, in-process (``rule_compare``): the
    device rule engine's arrays against the host engine's, element for
    element and confidences bitwise, its joins under
@@ -789,8 +789,7 @@ def k3_quick_checks(device, rng) -> None:
     the top two planes full; sums wrap alike mod 2^32 in the kernel and
     its plain version), rows without candidates and a row with 150, the
     zero column as an extension, a prefix whose AND is empty everywhere,
-    and a lane chunk whose planes above 0 are all zero; and the compressed
-    arena upload against the dense one."""
+    and a lane chunk whose planes above 0 are all zero."""
     import numpy as np
     import torch
 
@@ -836,17 +835,6 @@ def k3_quick_checks(device, rng) -> None:
             )
             require_equal(f"vertical_counts ragged B={n_planes} K={k}",
                           vertical_counts(*args), vertical_counts_plain(*args))
-    # The compressed arena upload (sparse corpora) lands the same words
-    # as the dense one, top bits included.
-    from fastapriori_tpu_torch.device import DeviceContext
-    from fastapriori_tpu_torch.ops.vertical import compress_arena
-
-    sparse = arena * (rng.random(arena.shape) < 0.01)
-    sparse[f_pad] = 0xFFFFFFFF
-    ctx = DeviceContext(device)
-    dense, _ = ctx.upload_tid_arena(sparse)
-    packed, _ = ctx.upload_tid_arena(sparse, compress_arena(sparse, f_pad)[0])
-    require_equal("compressed arena upload", packed, dense)
 
 
 def phase_metrics(stderr_text: str) -> tuple:
@@ -1125,10 +1113,7 @@ def ingest_compare(name: str, in_dir: str, min_support: str,
     Python ingest in the prep child (``python``: its wall and
     :func:`ingest_digests`): every field of the two CompressedData must
     be equal (dtypes included)."""
-    from fastapriori_tpu_torch.preprocess import (
-        ingest_thread_count,
-        preprocess_file,
-    )
+    from fastapriori_tpu_torch.preprocess import preprocess_file
 
     t0 = time.perf_counter()
     nat = preprocess_file(os.path.join(in_dir, "D.dat"), float(min_support),
@@ -1141,8 +1126,7 @@ def ingest_compare(name: str, in_dir: str, min_support: str,
                              f"the Python ingest's")
     log(f"ingest {name}: python {python['python_s']:.3f} s (prep child), "
         f"native {nat_s:.3f} s, equal arrays ({nat.total_count} baskets, "
-        f"{nat.num_items} items); the native scan runs on 1 thread, the "
-        f"arena build on {ingest_thread_count(None)}")
+        f"{nat.num_items} items); the native scan runs on 1 thread")
 
 
 def pair_l3_launches(fields: dict) -> int:
@@ -1157,11 +1141,11 @@ def pair_l3_launches(fields: dict) -> int:
 
 def arena_launches(fields: dict) -> int:
     """The arena kernel's launches as the run's ``arena_build`` events
-    count them: one per event built on the card, none where the event
-    says ``plain_kernels``."""
+    count them: one per event, none where the event says
+    ``plain_kernels``."""
     return sum(1 for k, v in fields.items()
                if k.split(" #")[0] == "arena_build"
-               and v.get("built") == "device" and not v.get("plain_kernels"))
+               and not v.get("plain_kernels"))
 
 
 def expected_launches(fields: dict) -> dict:
@@ -1170,7 +1154,7 @@ def expected_launches(fields: dict) -> dict:
     ran through the level loop, K1 once per weight digit of the pair
     program's level 3 (:func:`pair_l3_launches`), K2 once per
     micro-batch of the device first-match scan, the arena kernel once
-    per arena built on the card (:func:`arena_launches`); none where
+    per arena built (:func:`arena_launches`); none where
     the event says ``plain_kernels`` (``FA_NO_PALLAS``: the plain
     versions ran on the card)."""
     level = sum(v.get("launches", 0) for k, v in fields.items()
@@ -1185,15 +1169,6 @@ def expected_launches(fields: dict) -> dict:
             "build_arena": arena_launches(fields)}
 
 
-def require_arena_on_card(name: str, fields: dict) -> None:
-    """Every arena the run built was built on the card."""
-    hosted = {k: v.get("built") for k, v in fields.items()
-              if k.split(" #")[0] == "arena_build"
-              and v.get("built") != "device"}
-    if hosted:
-        raise SystemExit(f"{name}: arenas not built on the card: {hosted}")
-
-
 def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
     """The counted launches must be what the run's metrics say, and each
     kernel of ``ran`` must have launched."""
@@ -1201,7 +1176,6 @@ def require_launches(name: str, launches: dict, fields: dict, ran) -> None:
     if launches != want:
         raise SystemExit(f"{name}: launches {launches} != the run's level, "
                          f"first_match and arena_build events' {want}")
-    require_arena_on_card(name, fields)
     for k in ran:
         if launches[k] <= 0:
             raise SystemExit(f"{name}: kernel {k} never launched")
@@ -2049,8 +2023,9 @@ def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:
     import numpy as np
     import torch
 
+    from fastapriori_tpu_torch.device import DeviceContext
     from fastapriori_tpu_torch.ops.vertical import (
-        build_tid_arena_csr,
+        arena_shape,
         weight_bit_planes,
     )
     from fastapriori_tpu_torch.ops.vertical_kernel import (
@@ -2061,12 +2036,13 @@ def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:
         vertical_counts_plain,
     )
 
-    arena_np, f_pad, t_pad = build_tid_arena_csr(
-        data.basket_indices, data.basket_offsets, data.num_items, 32,
-        cfg.item_tile)
+    f_pad, t_pad = arena_shape(len(data.basket_offsets) - 1,
+                               data.num_items, 32, cfg.item_tile)
     planes_np, scales = weight_bit_planes(
         np.asarray(data.weights, dtype=np.int64), t_pad)
-    arena = torch.from_numpy(arena_np.view(np.int32)).to(device)
+    arena, _ = DeviceContext(device).build_tid_arena_on_device(
+        data.basket_indices, data.basket_offsets, data.num_items, f_pad,
+        t_pad // 32)
     planes = torch.from_numpy(planes_np.view(np.int32)).to(device)
     per_launch, best = [], None
     for k, prefix_cols, cand_np in level_launches(cfg, levels, f_pad):
@@ -2082,7 +2058,7 @@ def k3_measure(cfg, data, levels, device, clock_mhz: float) -> dict:
     log(f"K3 per launch (ms): {json.dumps(per_launch)}, all launches "
         f"{sum(per_launch):.4f} ms")
     prefix_cols, cand_np, k, args = best
-    nl, n_planes = arena_np.shape[1], len(scales)
+    nl, n_planes = arena.shape[1], len(scales)
     p, width = prefix_cols.shape
     got = vertical_counts(*args)
     want = vertical_counts_plain(*args, cand_chunk=cfg.vertical_cand_chunk)
@@ -2173,22 +2149,17 @@ def t20_cell_data(device):
 
 def arena_measure(device, corpora: dict) -> dict:
     """The vertical engine's arena build on the card (ops/vertical_kernel.py
-    ``build_arena``, the kernel in csrc/vertical_counts.cu) against the
-    host builder (ops/vertical.py ``build_tid_arena_csr``, uploaded) and
-    against its plain version on the card, bit for bit, on each of
+    ``build_arena``, the kernel in csrc/vertical_counts.cu) against its
+    plain version on the CPU and on the card, bit for bit, on each of
     ``corpora`` (name -> CompressedData with its CSR) and a ragged small
     case; for each, the kernel's time (CUDA events, 20 calls), the CSR's
-    pinned upload (host wall to the copy's end, 20 calls), the host
-    builder's wall with its upload, and the bound: the CSR read and the
-    arena written once at 3.35 TB/s."""
+    pinned upload (host wall to the copy's end, 20 calls), and the bound:
+    the CSR read and the arena written once at 3.35 TB/s."""
     import numpy as np
     import torch
 
     from fastapriori_tpu_torch.device import DeviceContext
-    from fastapriori_tpu_torch.ops.vertical import (
-        arena_shape,
-        build_tid_arena_csr,
-    )
+    from fastapriori_tpu_torch.ops.vertical import arena_shape
     from fastapriori_tpu_torch.ops.vertical_kernel import (
         build_arena,
         build_arena_plain,
@@ -2206,21 +2177,16 @@ def arena_measure(device, corpora: dict) -> dict:
     out = {}
     for name, (indices, offsets, n_items) in cases.items():
         t = len(offsets) - 1
-        t0 = time.perf_counter()
-        arena_np, f_pad, t_pad = build_tid_arena_csr(indices, offsets,
-                                                     n_items)
-        want = torch.from_numpy(arena_np.view(np.int32)).to(device)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        f_pad, t_pad = arena_shape(t, n_items)
         nl = t_pad // 32
-        if (f_pad, t_pad) != arena_shape(t, n_items):
-            raise SystemExit(f"arena build {name}: arena_shape disagrees")
+        # Copies: the ingest's arrays are read-only.
+        idx_cpu = torch.from_numpy(np.array(indices))
+        off_cpu = torch.from_numpy(np.array(offsets))
+        want = build_arena_plain(idx_cpu, off_cpu, f_pad, nl).to(device)
         got, csr_bytes = ctx.build_tid_arena_on_device(indices, offsets,
                                                        n_items, f_pad, nl)
         require_equal(f"arena build {name}", got, want)
-        # Copies: the ingest's arrays are read-only.
-        idx = torch.from_numpy(np.array(indices)).to(device)
-        off = torch.from_numpy(np.array(offsets)).to(device)
+        idx, off = idx_cpu.to(device), off_cpu.to(device)
         require_equal(f"arena build {name} (plain on the card)",
                       build_arena_plain(idx, off, f_pad, nl), want)
 
@@ -2243,12 +2209,11 @@ def arena_measure(device, corpora: dict) -> dict:
                      "pairs": int(indices.size), "csr_bytes": csr_bytes,
                      "arena_bytes": arena_bytes, "ms": round(ms, 4),
                      "pinned_upload_ms": round(upload_ms, 4),
-                     "host_build_and_upload_ms": round(host_ms, 4),
                      "bound_ms": round(bound_ms, 6),
                      "x_bound": round(ms / bound_ms, 2),
                      "max_abs_err": 0}
         log(f"arena build {name}: {json.dumps(out[name])}")
-        del got, want, idx, off
+        del got, want, idx, off, idx_cpu, off_cpu
     return out
 
 
@@ -4397,7 +4362,6 @@ def require_clamped_launches(name: str, got: dict, fields: dict,
         and got["vertical_counts"] > want["vertical_counts"])
     if not exact or got["vertical_counts"] < 1 or got["level_counts"] < 1:
         raise SystemExit(f"{name}: launches {got}, events {want}")
-    require_arena_on_card(name, fields)
     log(f"{name}: launches {got}, events {want}")
 
 

@@ -164,9 +164,8 @@ class MinerConfig:
     # port has the one-shard join only; a value above 1 (or
     # FA_RULE_SHARDS above 1) is an InputError.
     rule_shards: int = 0
-    # Host threads for the native ingest and the arena build's reduce
-    # pass.  None = one thread per core; FA_INGEST_THREADS overrides,
-    # strictly parsed.
+    # Host threads for the native ingest.  None = one thread per core;
+    # FA_INGEST_THREADS overrides, strictly parsed.
     ingest_threads: Optional[int] = None
     # Pipelined capture ingest (models/apriori.py
     # ``_run_file_pipelined_capture``): one native call cuts D.dat into

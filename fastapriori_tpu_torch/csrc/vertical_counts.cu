@@ -56,9 +56,9 @@
 // - Ragged NL, P and C are masked; nothing needs to divide a tile.
 //
 // Beside K3, the same library builds K3's input: the tid-lane arena from
-// the basket CSR (fa_build_arena; it replaces the host sort and reduce of
-// ops/vertical.py `build_tid_arena_csr` and its upload, and no TPU
-// kernel: the JAX package builds the arena on the host too).  For each
+// the basket CSR (fa_build_arena; it replaces a host sort and reduce and
+// its upload, and no TPU kernel: the JAX package builds the arena on the
+// host).  For each
 // transaction t and each item i of it, bit t % 32 of arena[i, t / 32] is
 // set; the item rows are zero elsewhere and row f_pad is all ones.
 // What bounds it: the CSR read once (4 bytes an item, 8 a basket) and the

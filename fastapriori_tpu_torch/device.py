@@ -52,7 +52,6 @@ from fastapriori_tpu_torch.ops.level_kernel import (
     level_counts,
     level_counts_plain,
 )
-from fastapriori_tpu_torch.ops.vertical import assemble_arena
 from fastapriori_tpu_torch.ops.vertical_kernel import (
     build_arena,
     build_arena_plain,
@@ -314,8 +313,8 @@ class DeviceContext:
         into this process's ``local_txn_shards`` contiguous blocks, each
         on its shard's device: the per-position list (``[x]`` itself on
         one shard).  In a multi-process world ``x`` holds this process's
-        lanes (the JAX package's ``upload_tid_arena_local`` and
-        ``upload_lane_planes_local``)."""
+        lanes (as the JAX package's lane-local arena and plane
+        uploads)."""
         if self.mesh.n_devices == 1:
             return [x]
         t_sh = self.local_txn_shards
@@ -574,39 +573,14 @@ class DeviceContext:
         handle (waits for its fetch)."""
         return handle.result()
 
-    def upload_tid_arena(
-        self, arena_np: np.ndarray, buckets=None
-    ) -> Tuple[torch.Tensor, int]:
-        """Place the vertical engine's uint32 ``[f_pad+1, NL]`` arena as
-        an int32 tensor with the same bits (the one-device subset of
-        fastapriori_tpu/parallel/mesh.py ``upload_tid_arena``).
-        ``buckets``: its index-compressed form (ops/vertical.py
-        ``compress_arena``), uploaded and scattered into the dense arena
-        on the device; None uploads the dense arena.  Returns ``(arena,
-        upload_bytes)``."""
-        if buckets is None:
-            return self.upload(arena_np.view(np.int32)), arena_np.nbytes
-        dev = [
-            (self.upload(ids), self.upload(segs),
-             self.upload(words.view(np.int32)))
-            for ids, segs, words in buckets
-        ]
-        payload = sum(
-            ids.nbytes + segs.nbytes + words.nbytes
-            for ids, segs, words in buckets
-        )
-        f_pad = arena_np.shape[0] - 1
-        return assemble_arena(dev, f_pad, arena_np.shape[1], self.device), \
-            payload
-
     def build_tid_arena_on_device(
         self, indices: np.ndarray, offsets: np.ndarray, num_items: int,
         f_pad: int, nl: int, plain: bool = False,
     ) -> Tuple[torch.Tensor, int]:
         """The vertical engine's int32 ``[f_pad+1, nl]`` arena built on
         this context's device from the basket CSR (ops/vertical_kernel.py
-        ``build_arena``), equal bit for bit to :meth:`upload_tid_arena`
-        of ops/vertical.py ``build_tid_arena_csr``'s arena.  On CUDA the
+        ``build_arena``: the kernel on a card, its plain version on the
+        CPU), the JAX package's host-built arena bit for bit.  On CUDA the
         CSR goes up through pinned memory, non-blocking on the current
         stream, and the kernel launches behind it: the host does not
         wait for the device.  ``plain`` (the caller's

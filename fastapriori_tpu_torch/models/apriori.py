@@ -165,8 +165,6 @@ from fastapriori_tpu_torch.ops.level_kernel import (
 from fastapriori_tpu_torch.ops.vertical import (
     PAIR_TXN_CHUNK,
     arena_shape,
-    build_tid_arena_csr,
-    compress_arena,
     vertical_level_local,
     vertical_level_word_ops,
     vertical_member_bytes,
@@ -330,6 +328,17 @@ def density_from_tables(n_raw: int, num_items: int, occ_total: float) -> float:
     if num_items <= 0 or n_raw <= 0:
         return 1.0
     return float(occ_total) / (float(n_raw) * num_items)
+
+
+def auto_layout(num_items: int, density: float, cfg) -> str:
+    """The layout auto picks: vertical on sparse wide-item corpora, at
+    least ``cfg.vertical_min_items`` frequent items and a density (see
+    :func:`density_from_tables`) of at most ``cfg.vertical_density_max``;
+    else bitmap.  The pass-1 probe and the mine both decide by it."""
+    if (num_items >= cfg.vertical_min_items
+            and density <= cfg.vertical_density_max):
+        return "vertical"
+    return "bitmap"
 
 
 def split_weights(
@@ -748,14 +757,9 @@ class FastApriori:
             return "bitmap"
         if req == "vertical":
             return req
-        cfg = self.config
-        density = density_from_tables(n_raw, num_items, occ_total)
-        if (
-            num_items >= cfg.vertical_min_items
-            and density <= cfg.vertical_density_max
-        ):
-            return "vertical"
-        return "bitmap"
+        return auto_layout(
+            num_items, density_from_tables(n_raw, num_items, occ_total),
+            self.config)
 
     def _emit_mine_engine(self, layout: str, requested: str, density: float,
                           **extra) -> None:
@@ -1466,16 +1470,13 @@ class FastApriori:
     def _mine_engine(self, data: CompressedData) -> Tuple[str, str, float]:
         """Resolve the layout for this mine: returns ``(engine,
         requested, density)`` with engine "bitmap" or "vertical".  Auto
-        picks vertical on sparse wide-item corpora: at least
-        ``vertical_min_items`` frequent items and a density (see
-        :func:`density_from_tables`) of at most ``vertical_density_max``.
-        Data without the basket CSR stays bitmap under auto; a forced
-        vertical then raises InputError.  A cand mesh stays bitmap too (the
-        vertical engine shards lanes over a 1-D mesh only): quietly under
-        auto, with a ``mine_engine_fallback`` event and a cascade walk
-        when forced, as in the JAX package."""
+        decides by :func:`auto_layout`.  Data without the basket CSR stays
+        bitmap under auto; a forced vertical then raises InputError.  A
+        cand mesh stays bitmap too (the vertical engine shards lanes over
+        a 1-D mesh only): quietly under auto, with a
+        ``mine_engine_fallback`` event and a cascade walk when forced, as
+        in the JAX package."""
         req = self._requested_mine_engine()
-        cfg = self.config
         density = density_from_tables(
             data.n_raw, data.num_items, float(np.sum(data.item_counts))
         )
@@ -1498,12 +1499,9 @@ class FastApriori:
             return "bitmap", req, density
         if self._quorum_left_vertical(req):
             return "bitmap", req, density
-        if req == "vertical" or (
-            data.num_items >= cfg.vertical_min_items
-            and density <= cfg.vertical_density_max
-        ):
+        if req == "vertical":
             return "vertical", req, density
-        return "bitmap", req, density
+        return auto_layout(data.num_items, density, self.config), req, density
 
     def _pair_level(self, counts, min_count: int, f: int, cap_key: tuple,
                     site: str, census: Optional[torch.Tensor] = None,
@@ -2169,17 +2167,15 @@ class FastApriori:
         """Vertical (Eclat-style) mining: the tid-lane arena and weight
         bit-planes on the device, the pair phase as a Gram product over
         unpacked lane chunks, then the level loop the bitmap engine uses,
-        counting with K3.  On a CUDA context the arena is built on the
-        card from the basket CSR (device.py
-        ``build_tid_arena_on_device``); elsewhere on the host and
-        uploaded, dense or compressed.  Resume levels
+        counting with K3.  The arena is built on the context's device
+        from the basket CSR (device.py ``build_tid_arena_on_device``: the
+        kernel on a card, its plain version on the CPU).  Resume levels
         (:meth:`set_resume_levels`) skip the pair phase."""
         cfg = self.config
         ctx = self.ctx
         f = data.num_items
         quorum.sync("mine.start")
         resume = self._take_resume(data)
-        n_threads = ingest_thread_count(cfg.ingest_threads)
         multi = self._multi(data)
         with self.metrics.timed("arena_build") as m:
             # Lanes split evenly over the transaction shards: lane block s
@@ -2190,15 +2186,8 @@ class FastApriori:
             multiple = 32 * ctx.local_txn_shards
             if multi:
                 multiple = self._local_pad(data, multiple)
-            on_card = ctx.platform == "cuda"
-            if on_card:
-                f_pad, t_pad = arena_shape(len(data.basket_offsets) - 1, f,
-                                           multiple, cfg.item_tile)
-            else:
-                arena_np, f_pad, t_pad = build_tid_arena_csr(
-                    data.basket_indices, data.basket_offsets, f,
-                    multiple, cfg.item_tile, n_threads=n_threads,
-                )
+            f_pad, t_pad = arena_shape(len(data.basket_offsets) - 1, f,
+                                       multiple, cfg.item_tile)
             planes_np, scales = weight_bit_planes(
                 np.asarray(data.weights, dtype=np.int64), t_pad,
                 min_planes=(data.shard.max_weight.bit_length() if multi
@@ -2206,34 +2195,15 @@ class FastApriori:
             )
             nl = t_pad // 32
             t_pad *= ctx.world
-            if on_card:
-                # The planes first: their pageable copy waits for the
-                # stream, where the arena kernel would be queued.  The
-                # arena is built on the card from the CSR, so no census:
-                # its occupancy would cost the host a wait.
-                w_planes = ctx.upload_lane_planes(planes_np)
-                plain = ctx.plain_kernels()
-                arena, csr_bytes = ctx.build_tid_arena_on_device(
-                    data.basket_indices, data.basket_offsets, f, f_pad, nl,
-                    plain=plain)
-                upload_bytes, use_compressed = csr_bytes, False
-                if plain:
-                    m.update(plain_kernels=True)
-            else:
-                # Census first; the bucket fill and the device scatter
-                # only when the compressed upload is at most half the
-                # dense one (the dense arena across processes, as in the
-                # JAX package).
-                _, payload, seg_stats = compress_arena(arena_np, f_pad,
-                                                       build=False)
-                use_compressed = (not multi
-                                  and payload * 2 <= arena_np.nbytes)
-                buckets = (compress_arena(arena_np, f_pad)[0]
-                           if use_compressed else None)
-                arena, upload_bytes = ctx.upload_tid_arena(arena_np, buckets)
-                w_planes = ctx.upload_lane_planes(planes_np)
-                csr_bytes = 0
-                m.update(occupancy=seg_stats["occupancy"])
+            # The planes first: on a card their pageable copy waits for
+            # the stream, where the arena kernel would be queued.
+            w_planes = ctx.upload_lane_planes(planes_np)
+            plain = ctx.plain_kernels()
+            arena, csr_bytes = ctx.build_tid_arena_on_device(
+                data.basket_indices, data.basket_offsets, f, f_pad, nl,
+                plain=plain)
+            if plain:
+                m.update(plain_kernels=True)
             # Each shard's lane block on its device (the arena itself on
             # one shard); K3's lane plane mask per block.
             arenas = ctx.shard_lanes(arena)
@@ -2246,11 +2216,8 @@ class FastApriori:
             m.update(
                 shape=[f_pad + 1, t_pad // 32],
                 planes=len(scales),
-                built="device" if on_card else "host",
-                compressed=use_compressed,
                 csr_bytes=csr_bytes,
-                upload_bytes=upload_bytes + planes_np.nbytes,
-                threads=n_threads,
+                upload_bytes=csr_bytes + planes_np.nbytes,
             )
         red = self._reduce_setup(data, t_pad, heavy=False)
         if resume:

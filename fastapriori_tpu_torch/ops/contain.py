@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from fastapriori_tpu_torch.ops.bitmap import next_pow2, pad_axis
-from fastapriori_tpu_torch.ops.count import unpack_bits_msb
+from fastapriori_tpu_torch.ops.count import pack_bits_msb, unpack_bits_msb
 from fastapriori_tpu_torch.ops.match_kernel import NO_MATCH, first_match
 from fastapriori_tpu_torch.parallel import hier, mesh
 
@@ -128,14 +128,6 @@ def frac_less24(pn, pd, cn, cd) -> torch.Tensor:
     most 2^-53 apart, so the double order is the rational order, and the
     48-bit cross products compare it exactly in int64."""
     return pn.long() * cd.long() < cn.long() * pd.long()
-
-
-def pack_bits_msb(mask: torch.Tensor) -> torch.Tensor:
-    """Bool ``[C]`` (C a multiple of 8) -> uint8 ``[C // 8]``, MSB first
-    (``numpy.packbits``'s layout)."""
-    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=mask.device)
-    return (mask.reshape(-1, 8).to(torch.int32) << shifts).sum(1).to(
-        torch.uint8)
 
 
 def _join_prune(mat, cnts, valid, psorted, porder, pcnts, np_real,

@@ -11,9 +11,10 @@ bit-planes packed the same way, ``w_t = Σ_b 2^b · bit_b``, so a weighted
 support is ``Σ_b 2^b · popcount(inter & plane_b)``: exact for any weight,
 with no digit split and no heavy-row correction.
 
-On the host the arena and the planes are ``uint32`` arrays, word for word
-the JAX package's; on the device they are ``int32`` tensors with the
-same bits (torch's unsigned 32-bit type lacks the operations needed).
+On the host the planes are ``uint32`` arrays, word for word the JAX
+package's; on the device the arena and the planes are ``int32`` tensors
+with the same bits (torch's unsigned 32-bit type lacks the operations
+needed).
 
 - k = 2: every pair is a candidate, so the pair phase is a Gram product
   over lane chunks unpacked to 0/1 bits (:func:`vertical_pair_local`).
@@ -21,10 +22,10 @@ same bits (torch's unsigned 32-bit type lacks the operations needed).
   (ops/vertical_kernel.py, which also holds the JAX module's
   ``_prefix_and`` and ``_popcount_weighted`` beside K3's plain version).
 
-The arena build's reduce pass can be split over host threads
-(:func:`build_tid_arena_csr` ``n_threads``, the ingest's thread count).
-On a CUDA device the engine builds the same arena on the card instead
-(ops/vertical_kernel.py ``build_arena``, at :func:`arena_shape`'s shape).
+The arena is built on the device from the basket CSR, at
+:func:`arena_shape`'s shape (ops/vertical_kernel.py ``build_arena``: the
+CUDA kernel on a card, its plain version on the CPU), with the words of
+the JAX package's host builder.
 """
 
 from __future__ import annotations
@@ -35,10 +36,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from fastapriori_tpu_torch.ops.bitmap import next_pow2, pad_axis
+from fastapriori_tpu_torch.ops.bitmap import pad_axis
 from fastapriori_tpu_torch.ops.vertical_kernel import vertical_counts
-
-ONES_WORD = np.uint32(0xFFFFFFFF)
 
 # Transactions per chunk of the pair phase's unpacked [f_pad, chunk] bit
 # matrix (the JAX package's level_txn_chunk default).
@@ -46,7 +45,7 @@ PAIR_TXN_CHUNK = 1 << 14
 
 
 # ---------------------------------------------------------------------------
-# host-side arena construction
+# host-side shapes and planes
 
 
 def weight_bit_planes(
@@ -72,11 +71,6 @@ def weight_bit_planes(
     return planes, [1 << b for b in range(b_planes)]
 
 
-# Below this many (item, lane) runs the thread-pool split of the
-# reduceat pass costs more in pool setup than it saves.
-_ARENA_THREAD_MIN_RUNS = 1 << 16
-
-
 def arena_shape(t: int, num_items: int, txn_multiple: int = 32,
                 item_multiple: int = 128) -> Tuple[int, int]:
     """``(f_pad, t_pad)`` of the arena over ``t`` transactions and
@@ -85,145 +79,6 @@ def arena_shape(t: int, num_items: int, txn_multiple: int = 32,
     ``f_pad - 1`` is always an all-zero item row."""
     mult = txn_multiple * 32 // math.gcd(txn_multiple, 32)
     return pad_axis(num_items + 1, item_multiple), pad_axis(t, mult)
-
-
-def build_tid_arena_csr(
-    indices: np.ndarray,
-    offsets: np.ndarray,
-    num_items: int,
-    txn_multiple: int = 32,
-    item_multiple: int = 128,
-    n_threads: int = 1,
-) -> Tuple[np.ndarray, int, int]:
-    """The dense tid-lane arena from the basket CSR: returns
-    ``(arena uint32[f_pad+1, NL], f_pad, t_pad)`` at
-    :func:`arena_shape`'s shape, with row ``f_pad`` all ones.  One
-    sorted segment-reduce (``np.bitwise_or.reduceat`` over the (item,
-    lane) runs) builds every item's lanes.
-
-    ``n_threads > 1`` splits the reduceat pass over a thread pool from
-    :data:`_ARENA_THREAD_MIN_RUNS` runs on: runs are independent and
-    write disjoint arena slots, so the split is a run-aligned partition
-    of the sorted stream, with identical output (each run stays whole)."""
-    t = len(offsets) - 1
-    f_pad, t_pad = arena_shape(t, num_items, txn_multiple, item_multiple)
-    nl = t_pad // 32
-    arena = np.zeros((f_pad + 1, nl), dtype=np.uint32)
-    if t > 0 and len(indices) > 0:
-        rows = np.repeat(
-            np.arange(t, dtype=np.int64), np.diff(offsets).astype(np.int64)
-        )
-        word = rows // 32
-        bit = (np.uint32(1) << (rows % 32).astype(np.uint32)).astype(
-            np.uint32
-        )
-        key = indices.astype(np.int64) * nl + word
-        order = np.argsort(key, kind="stable")
-        skey = key[order]
-        bit_sorted = bit[order]
-        uniq, start = np.unique(skey, return_index=True)
-        flat = arena.reshape(-1)
-        n_runs = len(uniq)
-        if n_threads > 1 and n_runs >= _ARENA_THREAD_MIN_RUNS:
-            from concurrent.futures import ThreadPoolExecutor
-
-            # Thread j owns runs [lo, hi): its reduceat sees every element
-            # of its runs (the next thread's first run starts at
-            # start[hi]) and its scatter targets are its own uniq slots.
-            bounds = [(n_runs * j) // n_threads for j in range(n_threads + 1)]
-            end = np.concatenate(
-                [start[1:], np.asarray([len(skey)], dtype=start.dtype)]
-            )
-
-            def _reduce(j):
-                lo, hi = bounds[j], bounds[j + 1]
-                if lo >= hi:
-                    return
-                base = start[lo]
-                flat[uniq[lo:hi]] = np.bitwise_or.reduceat(
-                    bit_sorted[base : end[hi - 1]], start[lo:hi] - base
-                )
-
-            with ThreadPoolExecutor(n_threads,
-                                    thread_name_prefix="fa-arena") as pool:
-                list(pool.map(_reduce, range(n_threads)))
-        else:
-            flat[uniq] = np.bitwise_or.reduceat(bit_sorted, start)
-    arena[f_pad, :] = ONES_WORD
-    return arena, f_pad, t_pad
-
-
-def compress_arena(
-    arena: np.ndarray, f_pad: int, build: bool = True
-) -> Tuple[list, int, dict]:
-    """Index-compressed, pow2-bucketed form of the arena's item rows:
-    items grouped by the pow2 bucket of their non-empty lane count, each
-    bucket ``(item_ids int32[nb'], seg_idx int32[nb', S_b], words
-    uint32[nb', S_b])`` with ``nb'`` pow2-padded (padding rows target the
-    identity row ``f_pad`` at segment 0 with word 0, and a row's unused
-    slots hold segment 0 with word 0).  Returns ``(buckets,
-    payload_bytes, stats)``; ``build=False`` returns the payload estimate
-    and stats without filling the buckets, so the caller can decide
-    dense-vs-compressed first."""
-    nl = arena.shape[1]
-    if build:
-        items, segs = np.nonzero(arena[:f_pad])
-        counts = np.bincount(items, minlength=f_pad)
-        n_active = int(items.size)
-    else:
-        counts = np.count_nonzero(arena[:f_pad], axis=1)
-        n_active = int(counts.sum())
-    stats = {
-        "active_lanes": n_active,
-        "occupancy": round(float(n_active) / max(f_pad * nl, 1), 6),
-        "max_item_lanes": int(counts.max()) if counts.size else 0,
-    }
-    buckets = []
-    active = np.flatnonzero(counts)
-    if active.size == 0:
-        return buckets, 0, stats
-    pows = np.array([next_pow2(int(c)) for c in counts[active]])
-    sizes = sorted(set(pows.tolist()))
-    # Per bucket: nb' int32 ids + nb'·S_b (int32 seg_idx + uint32 word).
-    payload = sum(
-        next_pow2(int((pows == s_b).sum())) * (4 + 8 * s_b)
-        for s_b in sizes
-    )
-    if not build:
-        return buckets, payload, stats
-    run_start = np.concatenate([[0], np.cumsum(counts[active])[:-1]])
-    for s_b in sizes:
-        sel = np.flatnonzero(pows == s_b)
-        nb = next_pow2(sel.size)
-        ids = np.full(nb, f_pad, dtype=np.int32)
-        seg_idx = np.zeros((nb, s_b), dtype=np.int32)
-        words = np.zeros((nb, s_b), dtype=np.uint32)
-        for j, ai in enumerate(sel):
-            item = int(active[ai])
-            lo = run_start[ai]
-            n = counts[item]
-            ids[j] = item
-            seg_idx[j, :n] = segs[lo : lo + n]
-            words[j, :n] = arena[item, segs[lo : lo + n]]
-        buckets.append((ids, seg_idx, words))
-    return buckets, payload, stats
-
-
-def assemble_arena(buckets, f_pad: int, nl: int, device) -> torch.Tensor:
-    """Device-side inverse of :func:`compress_arena` over uploaded
-    buckets ``(ids int32, seg_idx int32, words int32)``: the dense int32
-    ``[f_pad+1, NL]`` arena.  Each real (item, segment) pair appears once
-    and has a non-zero word, so writing exactly the non-zero words by
-    plain assignment lands every lane (a max-scatter, as the JAX package
-    does, would drop words with the top bit set, which read as negative
-    in int32); the identity row is set to all ones last."""
-    arena = torch.zeros((f_pad + 1, nl), dtype=torch.int32, device=device)
-    for ids, seg_idx, words in buckets:
-        real = words != 0
-        rows = ids[:, None].expand_as(seg_idx)
-        arena[rows[real].long(), seg_idx[real].long()] = words[real]
-    arena[f_pad] = -1
-    return arena
 
 
 # ---------------------------------------------------------------------------

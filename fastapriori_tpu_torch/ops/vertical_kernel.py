@@ -35,8 +35,8 @@ derived by the launch itself.
 
 The same library builds K3's input, the tid-lane arena, from the basket
 CSR: :func:`build_arena` launches that kernel for CUDA tensors and runs
-:func:`build_arena_plain` for CPU tensors; both equal ops/vertical.py
-``build_tid_arena_csr`` bit for bit.
+:func:`build_arena_plain` for CPU tensors; both equal the JAX package's
+host builder (fastapriori_tpu/ops/vertical.py) bit for bit.
 """
 
 from __future__ import annotations
@@ -281,7 +281,7 @@ def build_arena_plain(indices: torch.Tensor, offsets: torch.Tensor,
     """The tid-lane arena from the basket CSR in plain PyTorch: int32
     ``[f_pad + 1, nl]`` with bit ``t % 32`` of ``[i, t // 32]`` set for
     each item ``i`` of transaction ``t`` and row ``f_pad`` all ones, the
-    words of ops/vertical.py ``build_tid_arena_csr``.  Each distinct
+    words of the JAX package's host builder.  Each distinct
     (item, transaction) pair is one bit of one word, so the OR of a
     word's bits is their sum, taken in int64 and wrapped to int32."""
     dev = indices.device

@@ -227,8 +227,7 @@ def _use_native(native: Optional[bool], size_hint: int) -> bool:
 
 
 def ingest_thread_count(configured: Optional[int]) -> int:
-    """Host threads for the arena build's reduce pass (and the
-    ``n_threads`` of the native block ingest): the
+    """Host threads of the native block ingest (its ``n_threads``): the
     ``FA_INGEST_THREADS`` environment variable (strictly parsed: a value
     that is not a positive integer is an InputError) over the config,
     over one thread per core."""

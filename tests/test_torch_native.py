@@ -1,8 +1,7 @@
 """The port's native ingest (fastapriori_tpu_torch/csrc/preprocess.cc
 through native/loader.py), its Python ingest and the JAX package's native
 loader give the same arrays, array for array and in the same order; the
-native candidate join and the threaded arena build equal the JAX
-package's; the library is built by ops/build.py under a tag that names
+native candidate join equals the JAX package's; the library is built by ops/build.py under a tag that names
 the host; and the engine choice fails loudly.
 
 The port's library builds with g++ on this machine (tier-1); so does the
@@ -21,9 +20,6 @@ from fastapriori_tpu.models.candidates import (
 )
 from fastapriori_tpu.native import loader as jax_loader
 from fastapriori_tpu.native import native_available as jax_native_available
-from fastapriori_tpu.ops.vertical import (
-    build_tid_arena_csr as jax_build_tid_arena_csr,
-)
 from fastapriori_tpu_torch import native as port_native
 from fastapriori_tpu_torch.config import MinerConfig
 from fastapriori_tpu_torch.errors import InputError
@@ -35,7 +31,6 @@ from fastapriori_tpu_torch.models.candidates import (
 )
 from fastapriori_tpu_torch.native import loader
 from fastapriori_tpu_torch.ops import build
-from fastapriori_tpu_torch.ops import vertical as port_vertical
 from fastapriori_tpu_torch.preprocess import (
     NATIVE_MIN_LINES,
     ingest_thread_count,
@@ -337,31 +332,6 @@ def test_candidate_stream_matches_jax_native_and_numpy(which):
         assert np.array_equal(g, w) and np.array_equal(n, w)
     if which == 0:
         assert got[0].size == 120 * 119 // 2
-
-
-@pytest.mark.parametrize("min_runs", [None, 1])
-def test_threaded_arena_matches_jax_and_one_thread(monkeypatch, min_runs):
-    rng = np.random.default_rng(2)
-    t = 60_000 if min_runs is None else 3000
-    sizes = rng.integers(2, 12, size=t)
-    indices = np.concatenate([np.sort(rng.choice(400, size=s, replace=False))
-                              for s in sizes]).astype(np.int32)
-    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    if min_runs is not None:
-        monkeypatch.setattr(port_vertical, "_ARENA_THREAD_MIN_RUNS", min_runs)
-    else:  # the real threshold: enough (item, lane) runs to split
-        nl = -(-t // 32)
-        runs = np.unique(indices.astype(np.int64) * nl
-                         + np.repeat(np.arange(t), sizes) // 32).size
-        assert runs >= port_vertical._ARENA_THREAD_MIN_RUNS
-    one = port_vertical.build_tid_arena_csr(indices, offsets, 400)
-    four = port_vertical.build_tid_arena_csr(indices, offsets, 400,
-                                             n_threads=4)
-    ref = jax_build_tid_arena_csr(indices, offsets, 400, n_threads=4)
-    assert one[1:] == four[1:] == ref[1:]
-    assert four[0].dtype == ref[0].dtype == np.uint32
-    assert np.array_equal(four[0], one[0])
-    assert np.array_equal(four[0], ref[0])
 
 
 def test_ingest_thread_count_is_strict(monkeypatch):

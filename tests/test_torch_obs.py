@@ -46,7 +46,6 @@ from fastapriori_tpu_torch.obs.trace import (
     Tracer,
     validate_chrome_trace,
 )
-from fastapriori_tpu_torch.ops import vertical as tv
 from fastapriori_tpu_torch.preprocess import preprocess
 from fastapriori_tpu_torch.reliability import (
     failpoints,
@@ -907,13 +906,11 @@ def test_traced_cli_matches_the_jax_cli(traced_corpus, tmp_path, capsys):
 @pytest.mark.parametrize("layout", ["bitmap", "vertical"])
 def test_traced_cli_span_ids_repeat_across_identical_runs(
         layout, traced_corpus, tmp_path, monkeypatch):
-    """The port's threads (the uploader, the arena build's pool, the
-    watchdog's workers) leave the span tree of two identical runs
-    equal."""
+    """The port's threads (the uploader, the watchdog's workers) leave
+    the span tree of two identical runs equal."""
     monkeypatch.setenv("FA_MINE_ENGINE", layout)
     monkeypatch.setenv("FA_INGEST_THREADS", "3")
     monkeypatch.setenv("FA_DISPATCH_TIMEOUT_S", "60")
-    monkeypatch.setattr(tv, "_ARENA_THREAD_MIN_RUNS", 1)
     watchdog.reload_from_env()
     trees = []
     try:

@@ -3,7 +3,7 @@ reference paths that run on this JAX version (one device, the XLA
 vertical engine, and the Pallas kernel called directly in interpret
 mode), with exact equality: every output is an integer count or a byte.
 
-- the host arena build, weight bit-planes and compressed upload word for
+- the arena built on a CPU context and the weight bit-planes word for
   word against fastapriori_tpu/ops/vertical.py;
 - K3's plain version (ops/vertical_kernel.py) against
   ``vertical_counts_pallas(..., interpret=True)`` and the XLA
@@ -15,9 +15,9 @@ mode), with exact equality: every output is an integer count or a byte.
   strict ``FA_MINE_ENGINE`` parse; the CLI's bytes; and the digests of
   chip_smoke.py's vertical path, recomputed with the JAX CLI;
 - the arena built from the CSR on the device (ops/vertical_kernel.py
-  ``build_arena``, its plain version here) against the host builder bit
-  for bit; the engine's choice between the two builds by its context's
-  device; the bitmap path never reaching it; and the benchmark's
+  ``build_arena``, its plain version here) against the JAX package's
+  host builder bit for bit; the engine's one build on a CPU and on a
+  CUDA context; the bitmap path never reaching it; and the benchmark's
   ``arena_build_device_ms`` reader.
 """
 
@@ -86,7 +86,7 @@ def _csr(seed, t, n_items, max_len):
 
 
 # ---------------------------------------------------------------------------
-# host layer: arena, planes, compressed upload
+# host layer: shape, planes; the arena built on a CPU context
 
 
 @pytest.mark.parametrize(
@@ -96,35 +96,22 @@ def _csr(seed, t, n_items, max_len):
 )
 def test_arena_planes_and_upload_match_jax(t, n_items, max_len):
     indices, offsets = _csr(t, t, n_items, max_len)
-    arena, f_pad, t_pad = tv.build_tid_arena_csr(indices, offsets, n_items)
-    want, jf, jt = jv.build_tid_arena_csr(indices, offsets, n_items)
-    assert (f_pad, t_pad) == (jf, jt)
-    assert arena.dtype == np.uint32 and arena.tobytes() == want.tobytes()
+    want, f_pad, t_pad = jv.build_tid_arena_csr(indices, offsets, n_items)
+    assert tv.arena_shape(t, n_items) == (f_pad, t_pad)
+    ctx = DeviceContext("cpu")
+    arena, csr_bytes = ctx.build_tid_arena_on_device(
+        indices, offsets, n_items, f_pad, t_pad // 32)
+    assert arena.dtype == torch.int32
+    assert arena.numpy().tobytes() == want.tobytes()
+    assert csr_bytes == indices.size * 4 + offsets.size * 8
     # Words with the top bit set (tid 31 of a lane) are the ones an int32
     # view reads as negative.
-    assert (arena[:f_pad] >= np.uint32(1 << 31)).any()
+    assert (want[:f_pad] >= np.uint32(1 << 31)).any()
 
     weights = np.random.default_rng(t).integers(1, 700, size=t)
     planes, scales = tv.weight_bit_planes(weights, t_pad)
     jplanes, jscales = jv.weight_bit_planes(weights, t_pad)
     assert scales == jscales and planes.tobytes() == jplanes.tobytes()
-
-    buckets, payload, stats = tv.compress_arena(arena, f_pad)
-    jbuckets, jpayload, jstats = jv.compress_arena(want, f_pad)
-    assert (payload, stats) == (jpayload, jstats)
-    assert len(buckets) == len(jbuckets)
-    for got_b, want_b in zip(buckets, jbuckets):
-        for x, y in zip(got_b, want_b):
-            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
-    assert tv.compress_arena(arena, f_pad, build=False)[1:] == (payload,
-                                                                stats)
-
-    ctx = DeviceContext("cpu")
-    for bk in (buckets, None):
-        dev, nbytes = ctx.upload_tid_arena(arena, bk)
-        assert dev.dtype == torch.int32
-        assert dev.numpy().tobytes() == want.tobytes()
-        assert nbytes == (payload if bk is not None else arena.nbytes)
     assert ctx.upload_lane_planes(planes).numpy().tobytes() == \
         jplanes.tobytes()
 
@@ -330,7 +317,7 @@ def test_k3_listed_lane_decomposition_matches_pallas(n_planes):
 @pytest.mark.parametrize("n_chunks", [1, 4])
 def test_vertical_pair_local_matches_jax(fast_f32, n_chunks):
     indices, offsets = _csr(3, 1200, 90, 8)
-    arena, f_pad, t_pad = tv.build_tid_arena_csr(indices, offsets, 90)
+    arena, f_pad, t_pad = jv.build_tid_arena_csr(indices, offsets, 90)
     weights = np.random.default_rng(4).integers(1, 300, size=1200)
     planes, scales = tv.weight_bit_planes(weights, t_pad)
     _, want = jv.vertical_pair_local(
@@ -408,7 +395,10 @@ def test_vertical_engine_metrics(capsys, monkeypatch):
     assert 0 < by["mine_engine"]["density"] < 1
     arena = by["arena_build"]
     assert arena["planes"] == 9 and arena["shape"][0] == 129
-    assert {"compressed", "occupancy", "upload_bytes", "wall_ms"} <= set(arena)
+    assert {"csr_bytes", "upload_bytes", "wall_ms"} <= set(arena)
+    assert not {"built", "compressed", "occupancy", "threads"} & set(arena)
+    assert arena["upload_bytes"] == arena["csr_bytes"] + 9 * (
+        arena["shape"][1] * 4) and arena["csr_bytes"] > 0
     levels = [e for e in events if e["event"] == "level"]
     assert levels[0]["engine"] == "vertical" and len(levels) >= 3
     assert all(e["launches"] >= 1 for e in levels[1:])
@@ -568,6 +558,14 @@ def _arena_case(name):
                 32)
     if name == "empty":
         return np.empty(0, np.int32), np.zeros(1, np.int64), 7, 32
+    if name == "60k":
+        rng = np.random.default_rng(2)
+        sizes = rng.integers(2, 12, size=60_000)
+        indices = np.concatenate([np.sort(rng.choice(400, size=s,
+                                                     replace=False))
+                                  for s in sizes])
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        return indices.astype(np.int32), offsets.astype(np.int64), 400, 32
     t, n_items, max_len, mult = {
         "ragged": (45, 20, 6, 32), "mult64": (130, 50, 9, 64),
         "mult96": (200, 300, 4, 96), "unused": (300, 400, 3, 32),
@@ -586,18 +584,14 @@ def _arena_case(name):
 
 
 @pytest.mark.parametrize("case", ["empty", "ragged", "mult64", "mult96",
-                                  "unused", "every-basket", "t20"])
+                                  "unused", "every-basket", "t20", "60k"])
 def test_build_arena_plain_matches_the_host_builder(case):
-    """The port's shape rule, its host builder and the plain device build
-    all give the JAX package's arena, bit for bit."""
+    """The port's shape rule and the plain device build give the JAX
+    package's host-built arena, bit for bit."""
     indices, offsets, n_items, mult = _arena_case(case)
     want, f_pad, t_pad = jv.build_tid_arena_csr(indices, offsets, n_items,
                                                 mult)
     assert tv.arena_shape(len(offsets) - 1, n_items, mult) == (f_pad, t_pad)
-    host, *host_shape = tv.build_tid_arena_csr(indices, offsets, n_items,
-                                               mult)
-    assert host_shape == [f_pad, t_pad]
-    assert host.tobytes() == want.tobytes()
     got = build_arena(_t(indices), _t(offsets), n_items, f_pad, t_pad // 32)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert got.numpy().tobytes() == want.tobytes()
@@ -638,16 +632,27 @@ def _run_cli(in_dir, out_dir, min_support):
 
 def test_mine_vertical_builds_on_the_host_on_a_cpu_context(
         tmp_path, monkeypatch, capsys):
+    """A CPU context, whose device is the host, builds its arena the
+    card's way: one call of the context's device build (the plain
+    version here), and the event's fields are the card path's."""
     calls = []
-    monkeypatch.setattr(DeviceContext, "build_tid_arena_on_device",
-                        lambda self, *a: calls.append(a))
+    real_build = DeviceContext.build_tid_arena_on_device
+
+    def counted(self, *args, **kwargs):
+        calls.append((args[2:], kwargs))
+        return real_build(self, *args, **kwargs)
+
+    monkeypatch.setattr(DeviceContext, "build_tid_arena_on_device", counted)
     monkeypatch.setenv("FA_MINE_ENGINE", "vertical")
     in_dir, ms = _t20_inputs(tmp_path)
     assert _run_cli(in_dir, str(tmp_path / "out") + "/", ms) == 0
     (ev,) = _arena_events(capsys.readouterr().err)
-    assert ev["built"] == "host" and ev["csr_bytes"] == 0
-    assert {"compressed", "occupancy", "upload_bytes"} <= set(ev)
-    assert not calls
+    ((n_items, f_pad, nl), kwargs), = calls
+    assert kwargs == {"plain": False}
+    assert ev["shape"] == [f_pad + 1, nl] and ev["csr_bytes"] > 0
+    assert ev["upload_bytes"] == ev["csr_bytes"] + ev["planes"] * nl * 4
+    assert not {"built", "compressed", "occupancy", "threads",
+                "plain_kernels", "shards"} & set(ev)
 
 
 class _CardView(DeviceContext):
@@ -661,16 +666,13 @@ class _CardView(DeviceContext):
 def test_mine_vertical_builds_on_the_card_on_a_cuda_context(
         tmp_path, monkeypatch, capsys):
     """The vertical engine over a CUDA context takes the device build
-    alone (no host build, census or compressed upload) and writes the
-    host path's bytes."""
+    once, with the kernel (not ``plain``), and writes the JAX CLI's
+    bytes on the same inputs."""
     monkeypatch.setenv("FA_MINE_ENGINE", "vertical")
     in_dir, ms = _t20_inputs(tmp_path)
-    host_out = str(tmp_path / "host") + "/"
-    assert _run_cli(in_dir, host_out, ms) == 0
-    (host_ev,) = _arena_events(capsys.readouterr().err)
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("the host builder ran on a CUDA context")
+    jax_out = str(tmp_path / "jax") + "/"
+    assert jax_main([in_dir, jax_out, "--min-support", repr(ms),
+                     *JAX_FLAGS]) == 0
 
     built = []
     real_build = DeviceContext.build_tid_arena_on_device
@@ -690,27 +692,24 @@ def test_mine_vertical_builds_on_the_card_on_a_cuda_context(
         finally:
             self.ctx = ctx
 
-    monkeypatch.setattr(tv_apriori, "build_tid_arena_csr", refuse)
-    monkeypatch.setattr(tv_apriori, "compress_arena", refuse)
-    monkeypatch.setattr(DeviceContext, "upload_tid_arena", refuse)
     monkeypatch.setattr(DeviceContext, "build_tid_arena_on_device",
                         on_card_build)
     monkeypatch.setattr(FastApriori, "_mine_vertical", on_card_mine)
     card_out = str(tmp_path / "card") + "/"
+    capsys.readouterr()
     assert _run_cli(in_dir, card_out, ms) == 0
     (ev,) = _arena_events(capsys.readouterr().err)
-    assert ev["built"] == "device" and ev["compressed"] is False
-    assert "occupancy" not in ev and "plain_kernels" not in ev
-    assert ev["shape"] == host_ev["shape"] and len(built) == 1
+    assert "plain_kernels" not in ev and len(built) == 1
     (n_items, f_pad, nl), kwargs = built[0]
     assert kwargs == {"plain": False}
     assert [f_pad + 1, nl] == ev["shape"]
     assert ev["csr_bytes"] > 0
     assert ev["upload_bytes"] == ev["csr_bytes"] + ev["planes"] * nl * 4
     for name in ("freqItemset", "recommends"):
-        with open(host_out + name, "rb") as a, open(card_out + name,
-                                                    "rb") as b:
-            assert a.read() == b.read()
+        with open(jax_out + name, "rb") as a, open(card_out + name,
+                                                   "rb") as b:
+            want = a.read()
+            assert want and b.read() == want
 
 
 def test_bitmap_path_never_reaches_the_device_arena_build(

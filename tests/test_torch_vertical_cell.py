@@ -142,7 +142,7 @@ def test_vertical_spans_one_per_k3_launch(tmp_path, monkeypatch, capsys,
         assert a["lanes"] == arena["shape"][1]
     (build,) = [e for e in spans if e["name"] == "arena_build"]
     assert build["args"]["upload_bytes"] == arena["upload_bytes"] > 0
-    assert build["args"]["compressed"] is arena["compressed"]
+    assert build["args"]["csr_bytes"] == arena["csr_bytes"] > 0
 
 
 @pytest.mark.parametrize("engine", ["auto", "level"])
