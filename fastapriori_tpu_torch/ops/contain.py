@@ -53,8 +53,8 @@ KEY_PAD = 2**63 - 1
 
 
 def rule_key_bits(f: int) -> int:
-    """Bits per item rank in the packed row keys (rules/gen.py
-    ``_row_keys`` packs its host keys at the same widths)."""
+    """Bits per item rank in the device rule engine's packed row keys
+    (:func:`pack_rank_keys`)."""
     return 8 if f <= 256 else (16 if f <= 65536 else 32)
 
 

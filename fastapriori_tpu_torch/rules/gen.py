@@ -241,61 +241,22 @@ def _pick_rule_engine(mats, context, config, metrics=None) -> str:
     return "device"
 
 
-def _rows_view(m: np.ndarray) -> np.ndarray:
-    """View an int32 [N, K] matrix as N comparable composite scalars."""
-    m = np.ascontiguousarray(m)
-    return m.view([("", m.dtype)] * m.shape[1]).ravel()
-
-
-def _row_keys(m: np.ndarray, f: int) -> np.ndarray:
-    """Sortable scalar key per row, ordered like lexicographic row order:
-    packed into uint64 when the row fits 8 bytes at the item-axis byte
-    width, else the structured-view fallback."""
-    n, w = m.shape
-    bits = 8 if f <= 256 else (16 if f <= 65536 else 32)
-    if w * bits > 64:
-        return _rows_view(m)
-    shifts = ((w - 1 - np.arange(w, dtype=np.uint64)) * np.uint64(bits))
-    return np.bitwise_or.reduce(
-        m.astype(np.uint64) << shifts[None, :], axis=1
-    )
-
-
-def _deleted_row_keys(m: np.ndarray, f: int) -> Optional[np.ndarray]:
-    """``out[:, e] == _row_keys(np.delete(m, e, axis=1), f)`` for every
-    column e, in O(k) array passes: deleting column e shifts the packed
-    fields before it down one slot and keeps the fields after it.  None
-    when the (k-1)-wide rows don't fit uint64."""
-    n, k = m.shape
-    bits = 8 if f <= 256 else (16 if f <= 65536 else 32)
-    if (k - 1) * bits > 64 or k < 2:
-        return None
-    b = np.uint64(bits)
-    mu = m.astype(np.uint64)
-    j = np.arange(k, dtype=np.uint64)
-    a = mu[:, : k - 1] << ((np.uint64(k - 2) - j[: k - 1]) * b)[None, :]
-    out = np.zeros((n, k), dtype=np.uint64)
-    np.cumsum(a, axis=1, out=out[:, 1:])
-    np.multiply(
-        mu[:, 1:],
-        np.uint64(1) << (((np.uint64(k - 1) - j[1:]) * b))[None, :],
-        out=a,
-    )
-    del mu
-    out[:, : k - 1] += np.cumsum(a[:, ::-1], axis=1)[:, ::-1]
-    return out
-
-
 def _lookup_rows(
     sorted_keys: np.ndarray, order: np.ndarray, keys: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(position-in-original-order, found) for each key row."""
+    """(position-in-original-order, found) for each key."""
     pos = np.searchsorted(sorted_keys, keys)
     found = np.zeros(len(keys), dtype=bool)
     inb = pos < len(sorted_keys)
     found[inb] = sorted_keys[pos[inb]] == keys[inb]
     safe = np.minimum(pos, max(len(sorted_keys) - 1, 0))
     return (order[safe] if len(order) else safe), found
+
+
+def _key_table(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(sorted keys, order)`` for :func:`_lookup_rows`."""
+    order = np.argsort(keys)
+    return keys[order], order
 
 
 def _level_tables(
@@ -324,11 +285,22 @@ def _closure_error(k: int) -> InputError:
 
 
 def _rule_arrays_host(
-    mats: Dict[int, Tuple[np.ndarray, np.ndarray]]
+    mats: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    stats: Optional[dict] = None,
 ) -> List[RuleArrays]:
     """Raw rule generation + dominance prune over the size-grouped tables;
     survivors per antecedent size as ``(ant int32 [N, w], cons int32 [N],
-    conf f64 [N])``."""
+    conf f64 [N])``.  ``stats``, when given, receives ``key_searches``:
+    the rows searched over all levels, the prefix chains included.
+
+    Each row R of the j-itemset table has one integer key built from the
+    level below, ``key(R) = id(R[:j-1]) * f + R[j-1]``, where ``id`` is a
+    row's index in its own table and the empty prefix's id is 0.  A key
+    is below ``N_{j-1} * f < 2^62``, so one int64 search serves every
+    width and every f.  For a k-itemset S, the prefix ``S[:k-1]`` is
+    found by a chain of searches from level 1; the antecedent ``S -
+    {S[e]}``, e < k-1, has the prefix ``S[:k-1] - {S[e]}``, whose row the
+    level below already found for deleting column e of ``S[:k-1]``."""
     f = 1 + max(
         (int(mat.max()) for mat, _ in mats.values() if mat.size), default=0
     )
@@ -339,42 +311,63 @@ def _rule_arrays_host(
     raw: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
     parent_rows: Dict[int, np.ndarray] = {}  # k -> int32 [k, N_k]
     n_sets: Dict[int, int] = {}
+    tables: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}  # j -> sorted keys
+    if 1 in mats:
+        tables[1] = _key_table(mats[1][0][:, 0].astype(np.int64))
+    searches = 0
+
+    def find(j: int, keys: np.ndarray, mat: np.ndarray, cols) -> np.ndarray:
+        # The rows of the j-itemset table holding ``keys``; a miss is the
+        # missing subset ``mat[:, cols]`` of a k-itemset.
+        nonlocal searches
+        searches += keys.size
+        idx, found = _lookup_rows(*tables[j], keys)
+        if not found.all():
+            bad = mat[int(np.argmin(found))][cols].tolist()
+            raise InputError(
+                f"itemset table is not downward-closed: {sorted(bad)} "
+                f"(ranks), a subset of a {mat.shape[1]}-itemset, is "
+                "missing from the table — the mining output is incomplete"
+            )
+        return idx
+
     for k in sorted(mats):
         if k < 2:
             continue
         if k - 1 not in mats:
             raise _closure_error(k)
         mat, cnts = mats[k]
-        pmat, pcnts = mats[k - 1]
-        n_sets[k] = mat.shape[0]
-        n_sets[k - 1] = pmat.shape[0]
-        pview = _row_keys(pmat, f)
-        porder = np.argsort(pview)
-        psorted = pview[porder]
+        pcnts = mats[k - 1][1]
+        n = mat.shape[0]
+        n_sets[k] = n
+        n_sets[k - 1] = mats[k - 1][0].shape[0]
+        m64 = mat.astype(np.int64)
+        cols = np.arange(k)
+        rows_e = np.empty((k, n), dtype=np.int32)
+        pid = np.zeros(n, dtype=np.int64)
+        for j in range(1, k):
+            pid = find(j, pid * f + m64[:, j - 1], mat, cols[:j])
+        rows_e[k - 1] = pid
+        for e in range(k - 1):
+            pre = (parent_rows[k - 1][e, pid].astype(np.int64) if k > 2
+                   else np.zeros(n, dtype=np.int64))
+            rows_e[e] = find(k - 1, pre * f + m64[:, k - 1], mat,
+                             np.delete(cols, e))
+        if k + 1 in mats:
+            tables[k] = _key_table(pid * f + m64[:, k - 1])
         ants, conss, confs = [], [], []
-        rows_e = np.empty((k, mat.shape[0]), dtype=np.int32)
-        dk = _deleted_row_keys(mat, f)  # [N, k] or None (wide rows)
         for j in range(k):
-            ant = np.delete(mat, j, axis=1)  # sorted rows stay sorted
-            keys = dk[:, j] if dk is not None else _row_keys(ant, f)
-            idx, found = _lookup_rows(psorted, porder, keys)
-            if not found.all():
-                bad = ant[int(np.argmin(found))].tolist()
-                raise InputError(
-                    f"itemset table is not downward-closed: antecedent "
-                    f"{sorted(bad)} (ranks) of a {k}-itemset is missing "
-                    "from the table — the mining output is incomplete"
-                )
-            ants.append(ant)
+            ants.append(np.delete(mat, j, axis=1))  # sorted rows stay sorted
             conss.append(mat[:, j])
-            confs.append(cnts / pcnts[idx].astype(np.float64))
-            rows_e[j] = idx
+            confs.append(cnts / pcnts[rows_e[j]].astype(np.float64))
         raw[k - 1] = (
             np.concatenate(ants),
             np.concatenate(conss),
             np.concatenate(confs),
         )
         parent_rows[k] = rows_e
+    if stats is not None:
+        stats["key_searches"] = searches
 
     if not raw:
         return []
@@ -436,7 +429,10 @@ def rule_arrays_from_tables(
     engine :func:`_pick_rule_engine` picks (both give the same arrays);
     a ``context`` (device.py ``DeviceContext``) makes the device engine
     eligible, and ``scan_state`` keeps its per-level state on the device
-    for the recommender's scan table.
+    for the recommender's scan table.  Whenever the host engine runs
+    (chosen, or the device engine's fallback) ``metrics`` gets one
+    ``rule_gen_host`` event: levels, raw rules, survivors, the key
+    searches of :func:`_rule_arrays_host` and its wall time.
 
     First the ``rules.start`` rendezvous of the quorum domain (a no-op
     without one): positions a peer walked while mining are adopted
@@ -469,7 +465,19 @@ def rule_arrays_from_tables(
                                error=f"{type(exc).__name__}: {exc}"[:200])
             if scan_state is not None:
                 scan_state.release()
-    return _rule_arrays_host(mats)
+    t0 = time.perf_counter()
+    stats: dict = {}
+    out = _rule_arrays_host(mats, stats)
+    if metrics is not None:
+        metrics.emit(
+            "rule_gen_host",
+            levels=sum(1 for k in mats if k >= 2),
+            raw_rules=_raw_rule_count(mats),
+            survivors=sum(len(c) for _, c, _ in out),
+            key_searches=stats["key_searches"],
+            wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
+        )
+    return out
 
 
 def _rule_arrays_device(

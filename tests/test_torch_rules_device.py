@@ -484,6 +484,9 @@ def test_auto_stays_on_host_below_floor_and_on_cpu(ctx):
     m = MetricsLogger()
     _same_arrays(tgen._rule_arrays_host(mats), tgen.rule_arrays_from_tables(
         mats, context=ctx, config=MinerConfig(), metrics=m))
+    # The host engine's own event; the choice itself records nothing.
+    assert [r["event"] for r in m.records] == ["rule_gen_host"]
+    m = MetricsLogger()
     # On the CPU auto keeps the host engine whatever the floor.
     assert tgen._pick_rule_engine(
         mats, ctx, MinerConfig(rule_device_min_rules=1), m) == "host"
@@ -499,6 +502,27 @@ def test_auto_stays_on_host_below_floor_and_on_cpu(ctx):
         {"event": "rule_gen_engine", "engine": "device", "requested": "auto",
          "raw_rules": raw}]
     assert MinerConfig().rule_device_min_rules == 1 << 21
+
+
+def test_host_engine_records_one_event(ctx):
+    """A host-chosen table: one ``rule_gen_host`` event with the host
+    engine's counts."""
+    mats = CASES["s3"]()
+    m = MetricsLogger()
+    out = tgen.rule_arrays_from_tables(mats, context=ctx,
+                                       config=MinerConfig(), metrics=m)
+    (ev,) = _events(m, "rule_gen_host")
+    assert set(ev) == {"event", "levels", "raw_rules", "survivors",
+                       "key_searches", "wall_ms"}
+    assert ev["raw_rules"] == tgen._raw_rule_count(mats)
+    assert ev["levels"] == sum(1 for k in mats if k >= 2)
+    assert ev["survivors"] == sum(len(c) for _, c, _ in out)
+    # Per k-itemset, k - 1 searches down its prefix chain and one for
+    # each other antecedent.
+    assert ev["key_searches"] == sum(
+        2 * (k - 1) * mat.shape[0] for k, (mat, _) in mats.items())
+    assert ev["wall_ms"] >= 0
+    assert not _events(m, "rule_gen_engine")
 
 
 def test_forced_device_records_its_choice(ctx):
@@ -566,7 +590,7 @@ def test_env_overrides_config(ctx, monkeypatch):
     m = MetricsLogger()
     tgen.rule_arrays_from_tables(CASES["s3"](), context=ctx, config=DEVICE,
                                  metrics=m)
-    assert not m.records
+    assert [r["event"] for r in m.records] == ["rule_gen_host"]
 
 
 # ---------------------------------------------------------------------------
