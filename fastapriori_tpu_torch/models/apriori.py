@@ -1823,8 +1823,15 @@ class FastApriori:
         bound stops at once; a sparse union past its budget reruns the
         same budget dense (a ``count_sparse_overflow`` event, a cascade
         walk and the grown budget remembered).  ``bitmap`` / ``w``: a
-        tensor or the per-shard lists.  Returns ``(levels, None)`` or
-        ``(None, salvaged complete levels or None)``."""
+        tensor or the per-shard lists.  Each attempt's ``fused_mine``
+        span carries its ``attempt`` number, the first level over the
+        budget (``overflow_k``, from the meta row) and that level's rows
+        (``needed``); one ``fused_outcome`` event per call gives the
+        attempts, the last budget, whether the lattice completed or the
+        level the level engine takes over at (``handed_k``), and the
+        ``macs`` of the attempts thrown away (``wasted_macs``).
+        Returns ``(levels, None)`` or ``(None, salvaged complete levels
+        or None)``."""
         cfg = self.config
         ctx = self.ctx
         l_max = cfg.fused_l_max
@@ -1833,12 +1840,16 @@ class FastApriori:
         fixed, at = model
         rows = None
         m_cap_run = 0
+        spent: List[int] = []  # each attempt's macs (0: a sparse overflow)
         while m_cap <= m_cap_max:
             caps = ((self._sparse_cap(f_pad * f_pad, hint_key),
                      self._sparse_cap(m_cap * f_pad, hint_key))
                     if reduce == "sparse" else None)
+            spent.append(0)
+            overflow_k = needed = None
             with self.metrics.timed("fused_mine", m_cap=m_cap,
-                                    reduce=reduce) as met:
+                                    reduce=reduce,
+                                    attempt=len(spent)) as met:
                 fn = make_fused_miner(
                     m_cap, l_max, n_digits, n_chunks, fast_f32,
                     packed_input=packed_input, sparse_caps=caps,
@@ -1849,10 +1860,16 @@ class FastApriori:
                 (a_rows, a_cols, a_counts, n_lvl, incomplete, overflow,
                  sparse_ovf, sparse_nu) = unpack_fused_result(out, l_max)
                 if sparse_ovf:
-                    met.update(sparse_overflow=True, n_union=sparse_nu)
+                    met.update(sparse_overflow=True, n_union=sparse_nu,
+                               overflow_k=None, needed=None)
                 else:
                     rows, cols, counts = a_rows, a_cols, a_counts
                     m_cap_run = m_cap
+                    if overflow:
+                        # The first level whose true survivor count
+                        # passed the budget.
+                        lvl = int(np.argmax(n_lvl > m_cap))
+                        overflow_k, needed = lvl + 2, int(n_lvl[lvl])
                     # Level 2's Gram product, then per loop iteration the
                     # two candidate products and the membership + count
                     # products; the reductions' payloads likewise.
@@ -1861,14 +1878,16 @@ class FastApriori:
                                            caps[0] if caps else None)
                     il = self._reduce_info(m_cap * f_pad,
                                            caps[1] if caps else None)
+                    spent[-1] = (n_digits * t_pad * f_pad * f_pad
+                                 + (n_iters - 1) * (
+                                     2 * m_cap * m_cap * f_pad
+                                     + (1 + n_digits) * t_pad * m_cap * f_pad))
                     met.update(
                         incomplete=incomplete, overflow=overflow,
+                        overflow_k=overflow_k, needed=needed,
                         levels=int(np.count_nonzero(n_lvl)),
                         packed_input=packed_input, n_chunks=n_chunks,
-                        macs=n_digits * t_pad * f_pad * f_pad
-                        + (n_iters - 1) * (
-                            2 * m_cap * m_cap * f_pad
-                            + (1 + n_digits) * t_pad * m_cap * f_pad),
+                        macs=spent[-1],
                         model_bytes=fixed + at(m_cap),
                     )
                     if ctx.txn_shards > 1:
@@ -1893,18 +1912,24 @@ class FastApriori:
                 continue  # the same budget, dense
             if not incomplete:
                 ctx.record_fused_m_cap(profile, m_cap)
+                self.metrics.emit("fused_outcome", attempts=len(spent),
+                                  m_cap=m_cap, completed=True,
+                                  handed_k=None,
+                                  wasted_macs=sum(spent[:-1]))
                 return decode_level_matrices(rows, cols, counts, n_lvl), None
             if not overflow:
                 break  # the l_max bound: more rows cannot help
             # The meta row holds the true survivor counts: jump to a
             # budget that holds the overflowing level.
-            needed = int(max(np.max(n_lvl), m_cap + 1))
             m_cap = max(2 * m_cap, next_pow2(needed))
         ctx.record_fused_fail(profile)
-        if rows is None:
-            return None, None
-        return None, decode_level_matrices(rows, cols, counts, n_lvl,
-                                           max_rows=m_cap_run)
+        salvaged = (None if rows is None else decode_level_matrices(
+            rows, cols, counts, n_lvl, max_rows=m_cap_run))
+        self.metrics.emit("fused_outcome", attempts=len(spent),
+                          m_cap=m_cap_run, completed=False,
+                          handed_k=2 + len(salvaged or ()),
+                          wasted_macs=sum(spent[:-1]))
+        return None, salvaged
 
     def _fused_resident(self, data: CompressedData, bitmap: torch.Tensor,
                         n_chunks: int, t_pad: int, n2: Optional[int] = None,
