@@ -148,6 +148,7 @@ from fastapriori_tpu_torch.ops.count import (
 )
 from fastapriori_tpu_torch.ops.fused import (
     decode_level_matrices,
+    iteration_live_rows,
     make_fused_miner,
     make_pair_counter,
     make_tail_miner,
@@ -1825,8 +1826,12 @@ class FastApriori:
         walk and the grown budget remembered).  ``bitmap`` / ``w``: a
         tensor or the per-shard lists.  Each attempt's ``fused_mine``
         span carries its ``attempt`` number, the first level over the
-        budget (``overflow_k``, from the meta row) and that level's rows
-        (``needed``); one ``fused_outcome`` event per call gives the
+        budget (``overflow_k``, from the meta row), that level's rows
+        (``needed``), the products it ran (``macs``: the Gram, then each
+        loop iteration's at its live rows) and those live rows summed
+        over the iterations (``live_rows``; the budget would run
+        ``m_cap`` an iteration); one ``fused_outcome`` event per call
+        gives the
         attempts, the last budget, whether the lattice completed or the
         level the level engine takes over at (``handed_k``), and the
         ``macs`` of the attempts thrown away (``wasted_macs``).
@@ -1872,22 +1877,24 @@ class FastApriori:
                         overflow_k, needed = lvl + 2, int(n_lvl[lvl])
                     # Level 2's Gram product, then per loop iteration the
                     # two candidate products and the membership + count
-                    # products; the reductions' payloads likewise.
+                    # products over the iteration's live rows; the
+                    # reductions' payloads at the budget.
                     n_iters = max(int(np.count_nonzero(n_lvl)), 1)
                     i2 = self._reduce_info(f_pad * f_pad,
                                            caps[0] if caps else None)
                     il = self._reduce_info(m_cap * f_pad,
                                            caps[1] if caps else None)
-                    spent[-1] = (n_digits * t_pad * f_pad * f_pad
-                                 + (n_iters - 1) * (
-                                     2 * m_cap * m_cap * f_pad
-                                     + (1 + n_digits) * t_pad * m_cap * f_pad))
+                    live = iteration_live_rows(n_lvl, m_cap, l_max)
+                    spent[-1] = n_digits * t_pad * f_pad * f_pad + sum(
+                        2 * mp * mp * f_pad
+                        + (1 + n_digits) * t_pad * mp * f_pad
+                        for mp in live)
                     met.update(
                         incomplete=incomplete, overflow=overflow,
                         overflow_k=overflow_k, needed=needed,
                         levels=int(np.count_nonzero(n_lvl)),
                         packed_input=packed_input, n_chunks=n_chunks,
-                        macs=spent[-1],
+                        macs=spent[-1], live_rows=sum(live),
                         model_bytes=fixed + at(m_cap),
                     )
                     if ctx.txn_shards > 1:

@@ -30,6 +30,11 @@ count) with matrix products only:
   budget, row-major like ``jnp.nonzero(size=, fill_value=0)``, become the
   next level's S.
 
+The host knows each level's survivor count m before the next level, so
+the candidate, membership and count products run over the first
+:func:`live_rows` ``(m, m_cap)`` rows of S only: the rows past m are
+zero, and the survivors' indices come out the same.
+
 The reference runs the loop as one ``lax.while_loop``.  Here a host loop
 issues each level's device work at static shapes and reads one small
 array between levels (the survivor count and the stop flags, through
@@ -87,6 +92,29 @@ def exact_mm(a: torch.Tensor, b_t: torch.Tensor, f32: bool = False):
         b_t = F.pad(b_t, (0, pk, 0, -n % 8))
         return torch._int_mm(a, b_t.t())[:m, :n]
     return torch._int_mm(a, b_t.t())
+
+
+def live_rows(m: int, m_cap: int) -> int:
+    """The rows a fused level's products run over when ``m`` rows of the
+    ``m_cap``-row set matrix are live (every row from ``m`` on is zero):
+    ``m`` rounded up to a multiple of 256, the int8 GEMM tiles' row
+    count, which also keeps a mine's distinct product shapes few and
+    meets :func:`exact_mm`'s more-than-16-rows rule; at most ``m_cap``."""
+    return min(m_cap, -(-m // 256) * 256)
+
+
+def iteration_live_rows(n_lvl, m_cap: int, l_max: int) -> List[int]:
+    """:func:`live_rows` of each loop iteration :func:`fused_mine` ran
+    from level 3 on, read back from the packed result's true survivor
+    counts per level (``n_lvl``): iteration k runs while level k - 1 has
+    at least k rows, fits the budget and k <= ``l_max`` + 1."""
+    out = []
+    for k in range(3, l_max + 2):
+        m = int(n_lvl[k - 3])
+        if m > m_cap or m < k:
+            break
+        out.append(live_rows(m, m_cap))
+    return out
 
 
 def one_hot_rows(cols: torch.Tensor, f: int) -> torch.Tensor:
@@ -297,19 +325,23 @@ def fused_mine(
     overflow = m > m_cap
     k = 3
     while not overflow and not sparse_ovf and m >= k and k <= l_max + 1:
+        # The level's products run over its live rows only; the survivor
+        # indices, the stores and the next set matrix keep the budget.
+        mp = live_rows(m, m_cap)
         with region():
+            s_live = s[:mp]
             cand = gen_candidates_matmul(
-                s, k, col_ids, (slots < m)[:, None], f32=fast_f32,
+                s_live, k, col_ids, (slots[:mp] < m)[:, None], f32=fast_f32,
                 num_items=num_items)
-            s_sh = mesh.broadcast(s, devs)
+            s_sh = mesh.broadcast(s_live, devs)
 
             def contains_prefix(sh, b, k=k):
                 return (exact_mm(s_sh[sh], b, fast_f32) == k - 1).view(
                     torch.int8)
 
-            counts, nu = reducek(scan_counts(contains_prefix, m_cap), cand)
+            counts, nu = reducek(scan_counts(contains_prefix, mp), cand)
             surv = cand & (counts >= min_count)
-            del cand, s_sh
+            del cand, s_sh, s_live
             n = surv.sum(dtype=torch.int32)
             rc = torch.nonzero_static(surv, size=m_cap, fill_value=0)
             del surv

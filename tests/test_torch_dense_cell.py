@@ -11,10 +11,10 @@ small size.
   dense form in the pair program's level 3, the fused engine, and
   ``freqItemset`` and ``recommends`` equal the NumPy reference's bytes.
 - The fused engine's attempts on both input forms: each ``fused_mine``
-  span's ``attempt``, ``overflow_k`` and ``needed``, and the
-  ``fused_outcome`` event, for a mine that regrows 512 -> 1,024 -> 2,048
-  and completes, and for one whose memory budget puts the ceiling below
-  the need, so that the level engine takes over.
+  span's ``attempt``, ``overflow_k``, ``needed``, ``live_rows`` and
+  ``macs``, and the ``fused_outcome`` event, for a mine that regrows
+  512 -> 1,024 -> 2,048 and completes, and for one whose memory budget
+  puts the ceiling below the need, so that the level engine takes over.
 - The cell's three readers (``fused_device_ms``, ``fused_regrow_ms``,
   ``fused_attempts``) on synthetic spans and device traces, and the
   cell run whole through the harness at the small size.
@@ -212,6 +212,21 @@ def test_mine_regrows_twice_and_the_spans_say_so(tmp_path, blocks, traced):
     assert [(s["incomplete"], s["overflow_k"], s["needed"])
             for s in spans] == [(True, 4, LEVELS[2]), (True, 5, LEVELS[3]),
                                 (False, None, None)]
+    # Each attempt's products ran over its levels' live rows: level 2's
+    # Gram, then per loop iteration k the candidate, membership and
+    # count products at level k - 1's rows rounded up to 256, at most the
+    # budget, while level k - 1 fits it and holds k rows or more.
+    t, f = 1504, 896  # the small corpus's padded bitmap; one weight digit
+    for s in spans:
+        live = []
+        for k, m in enumerate(LEVELS, start=3):
+            if m > s["m_cap"] or m < k:
+                break
+            live.append(min(s["m_cap"], -(-m // 256) * 256))
+        assert s["live_rows"] == sum(live)
+        assert s["macs"] == t * f * f + sum(
+            2 * m * m * f + 2 * t * m * f for m in live)
+    assert [s["live_rows"] for s in spans] == [768, 1792, 6656]
     (outcome,) = _records(miner, "fused_outcome")
     assert outcome == {
         "event": "fused_outcome", "attempts": 3, "m_cap": 2048,

@@ -2,12 +2,15 @@
 fold and the engine choice against the JAX package's, on the CPU.
 
 The ops compare the packed int32 results element for element (tolerance
-0) with fastapriori_tpu/ops/fused.py at ``mesh=None``: the fused miner
-with both input forms, one and two weight digits, one and two
-transaction chunks, float32 and int8 products, a row-budget overflow and
-the l_max bound; the pair counter; the tail fold with heavy rows, a
-prefix-budget overflow and the depth bound; the candidate products in
-row blocks; the unpack and decode helpers on the same arrays.  The
+0) with fastapriori_tpu/ops/fused.py at ``mesh=None`` (a two-device mesh
+against the port's two shards): the fused miner with both input forms,
+one and two weight digits, one and two transaction chunks, float32 and
+int8 products, budgets far above the live rows, levels whose live rows
+cross 256-row boundaries, two shards under the sparse reduction, a
+row-budget overflow and the l_max bound; each level's products at its
+live rows (``live_rows``); the pair counter; the tail fold with heavy
+rows, a prefix-budget overflow and the depth bound; the candidate
+products in row blocks; the unpack and decode helpers.  The
 engine runs on both packages at the same block and thread counts (one
 CPU device on the JAX side): the auto choice, the forced fused attempt
 that salvages and falls back, the memory skip, an explicit tail fold
@@ -15,10 +18,14 @@ and the fold's entry test; then the CLI bytes against the JAX CLI's and
 the oracle's.
 """
 
+import functools
 import json
+from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import Mesh
 import pytest
 import torch
 
@@ -56,14 +63,37 @@ def _case(seed, t=600, f=128, n_items=40, heavy=False, pattern_len=6):
 
 
 def _both_fused(b, w, min_count, m_cap, l_max, n_digits, n_chunks, fast_f32,
-                packed_input):
+                packed_input, shards=1, sparse_caps=None):
+    """Both packages' fused miner on the same rows: the JAX one over a
+    ``shards``-device mesh (none for one shard), the port's over the
+    per-shard list; ``sparse_caps`` runs both reductions sparse at each
+    shard's weighted-pigeonhole threshold."""
     x = jf.pack_bitmap(b) if packed_input else b
-    want = np.asarray(jf.make_fused_miner(
-        None, m_cap, l_max, n_digits, n_chunks, fast_f32, packed_input)(
-        jnp.asarray(x), jnp.asarray(w), jnp.int32(min_count)))
+    mesh = (Mesh(np.array(jax.devices()[:shards]), (jf.AXIS,))
+            if shards > 1 else None)
+    thr = None
+    if sparse_caps is not None:
+        w_s = np.split(w.astype(np.int64), shards)
+        thr = [max(1, -(-min_count * int(ws.sum()) // int(w.sum())))
+               for ws in w_s]
+    # The JAX program's replicated result is a psum that shard_map's
+    # varying-axes check cannot infer through its device loop; the
+    # package's compat shim turns the older spelling's check off
+    # (check_rep=False), and this turns off its successor alike.
+    with mock.patch.object(jf.compat, "shard_map", functools.partial(
+            jax.shard_map, check_vma=False)):
+        fn = jf.make_fused_miner(mesh, m_cap, l_max, n_digits, n_chunks,
+                                 fast_f32, packed_input,
+                                 sparse_caps=sparse_caps)
+    want = np.asarray(fn(
+        jnp.asarray(x), jnp.asarray(w), jnp.int32(min_count),
+        *(() if thr is None else (jnp.asarray(thr, dtype=jnp.int32),))))
+    parts = ([torch.from_numpy(p) for p in np.split(x, shards)],
+             [torch.from_numpy(p) for p in np.split(w, shards)])
     got = tf.make_fused_miner(m_cap, l_max, n_digits, n_chunks, fast_f32,
-                              packed_input)(
-        torch.from_numpy(x), torch.from_numpy(w), min_count)
+                              packed_input, sparse_caps=sparse_caps)(
+        *(parts if shards > 1 else (parts[0][0], parts[1][0])), min_count,
+        sparse_thr=thr)
     assert got.dtype == torch.int32
     got = got.numpy()
     assert got.shape == want.shape == (3 * l_max + 1, m_cap)
@@ -90,31 +120,109 @@ def _same_unpacked(got, l_max):
     return n_lvl, incomplete, overflow
 
 
+# The deep case's levels: 215, 450, 744, 896, 784, 494, 220, 66, 12, 1
+# rows, whose live rows cross 256-row boundaries going up and down.
+DEEP = {"seed": 2, "pattern_len": 8, "min_count": 35}
+
+
 @pytest.mark.parametrize(
-    "packed_input, heavy, n_chunks, fast_f32",
-    [(True, False, 1, True), (False, False, 2, False),
-     (True, True, 2, False), (False, True, 1, True)],
+    "packed_input, heavy, n_chunks, fast_f32, m_cap, deep, shards, sparse",
+    [(True, False, 1, True, 1024, False, 1, None),
+     (False, False, 2, False, 1024, False, 1, None),
+     (True, True, 2, False, 1024, False, 1, None),
+     (False, True, 1, True, 1024, False, 1, None),
+     # A budget far above the live rows (at most 129 a level).
+     (True, False, 1, True, 4096, False, 1, None),
+     (False, True, 2, False, 1024, True, 1, None),
+     (True, True, 1, False, 2048, True, 2, (8192, 16384)),
+     (False, False, 2, True, 4096, False, 2, (8192, 16384))],
     ids=["packed-1digit-f32", "resident-1digit-2chunks-int8",
-         "packed-2digits-2chunks-int8", "resident-2digits-f32"],
+         "packed-2digits-2chunks-int8", "resident-2digits-f32",
+         "packed-1digit-f32-budget-4096", "resident-deep-crosses-256",
+         "packed-deep-two-shards-sparse", "resident-two-shards-sparse-4096"],
 )
-def test_fused_miner_matches_jax(packed_input, heavy, n_chunks, fast_f32):
-    b, w = _case(1, heavy=heavy)
+def test_fused_miner_matches_jax(packed_input, heavy, n_chunks, fast_f32,
+                                 m_cap, deep, shards, sparse):
+    if deep:
+        b, w = _case(DEEP["seed"], heavy=heavy,
+                     pattern_len=DEEP["pattern_len"])
+    else:
+        b, w = _case(1, heavy=heavy)
     n_digits = 2 if heavy else 1
     assert (w >= 128).any() == heavy
-    got = _both_fused(b, w, 30, 1024, 10, n_digits, n_chunks, fast_f32,
-                      packed_input)
+    got = _both_fused(b, w, DEEP["min_count"] if deep else 30, m_cap, 10,
+                      n_digits, n_chunks, fast_f32, packed_input, shards,
+                      sparse)
     n_lvl, incomplete, overflow = _same_unpacked(got, 10)
     assert not incomplete and not overflow
-    assert np.count_nonzero(n_lvl) >= 4
+    assert np.count_nonzero(n_lvl) >= (9 if deep else 4)
+    # The levels ran below the budget, and the sparse unions fit theirs.
+    assert min(tf.iteration_live_rows(n_lvl, m_cap, 10)) < m_cap
+    sparse_ovf, census = tf.unpack_fused_result(got, 10)[6:]
+    assert not sparse_ovf and (census > 0) == (sparse is not None)
 
 
-@pytest.mark.parametrize("m_cap", [128, 256], ids=["at-level-2", "mid-loop"])
+@pytest.mark.parametrize(
+    "m, m_cap, want",
+    [(0, 4096, 0), (1, 4096, 256), (256, 4096, 256), (257, 4096, 512),
+     (3573, 8192, 3584), (8000, 8192, 8192), (9301, 8192, 8192),
+     (100, 128, 128), (12, 64, 64)])
+def test_live_rows_rounds_up_to_256_under_the_budget(m, m_cap, want):
+    assert tf.live_rows(m, m_cap) == want
+
+
+@pytest.mark.parametrize("m_cap, l_max", [(2048, 10), (512, 10), (2048, 4)],
+                         ids=["complete", "row-budget-overflow", "l_max"])
+def test_fused_level_products_run_at_the_live_rows(monkeypatch, m_cap,
+                                                   l_max):
+    """Every product of loop iteration k takes its first operand at
+    ``live_rows(level k - 1's rows, m_cap)`` rows (level 2's Gram at F),
+    on two shards, and the iterations the packed result implies are the
+    ones that ran."""
+    calls = []
+    mm, gen = tf.exact_mm, tf.gen_candidates_matmul
+
+    def spy_mm(a, b_t, f32=False):
+        calls[-1][1].append(a.shape[0])
+        return mm(a, b_t, f32)
+
+    def spy_gen(s, k, *args, **kw):
+        calls.append((k, []))
+        return gen(s, k, *args, **kw)
+
+    monkeypatch.setattr(tf, "exact_mm", spy_mm)
+    monkeypatch.setattr(tf, "gen_candidates_matmul", spy_gen)
+    b, w = _case(DEEP["seed"], heavy=True, pattern_len=DEEP["pattern_len"])
+    calls.append((2, []))
+    got = tf.make_fused_miner(m_cap, l_max, 2, 1, False, False)(
+        [torch.from_numpy(b[:300]), torch.from_numpy(b[300:])],
+        [torch.from_numpy(w[:300]), torch.from_numpy(w[300:])],
+        DEEP["min_count"]).numpy()
+    n_lvl = tf.unpack_fused_result(got, l_max)[3]
+    assert calls[0] == (2, [128] * 4)  # two shards, two weight digits
+    live = tf.iteration_live_rows(n_lvl, m_cap, l_max)
+    assert [k for k, _ in calls[1:]] == list(range(3, 3 + len(live)))
+    for (k, rows), mp in zip(calls[1:], live):
+        assert mp == tf.live_rows(int(n_lvl[k - 3]), m_cap)
+        # D, E votes; per shard the membership and two digits' counts.
+        assert rows == [mp] * 8
+    # Levels 2-11 of 215, 450, 744, 896, 784, 494, 220, 66, 12, 1 rows:
+    # level 5 passes a 512-row budget, l_max 4 stops after level 5.
+    assert live == {(2048, 10): [256, 512, 768, 1024, 1024, 512, 256, 256,
+                                 256],
+                    (512, 10): [256, 512],
+                    (2048, 4): [256, 512, 768]}[m_cap, l_max]
+
+
+@pytest.mark.parametrize("m_cap", [128, 256, 512],
+                         ids=["at-level-2", "mid-loop", "mid-loop-live-rows"])
 def test_fused_miner_overflow_matches_jax(m_cap):
     """n2 > m_cap stops before the loop; a later level past m_cap stops
     it there, with the true count in the meta row either way (levels of
-    215, 450, 744, ... rows)."""
-    b, w = _case(2, heavy=True, pattern_len=8)
-    got = _both_fused(b, w, 35, m_cap, 8, 2, 1, False, True)
+    215, 450, 744, ... rows; at 512 the first iteration runs 256 live
+    rows)."""
+    b, w = _case(DEEP["seed"], heavy=True, pattern_len=DEEP["pattern_len"])
+    got = _both_fused(b, w, DEEP["min_count"], m_cap, 8, 2, 1, False, True)
     n_lvl, incomplete, overflow = _same_unpacked(got, 8)
     assert incomplete and overflow and n_lvl.max() > m_cap
     assert (n_lvl[0] > m_cap) == (m_cap == 128)
