@@ -175,8 +175,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "<output>checkpoint.npz after every completed Apriori "
                    "level so an interrupted mine resumes mid-lattice via "
                    "--resume-from (costs eager per-level count fetches; "
-                   "with --engine fused the lattice mines in resumable "
-                   "device segments instead of skipping the engine)")
+                   "under --engine auto or level every level is counted "
+                   "and committed on its own, with no tail fold; with "
+                   "--engine fused the lattice mines in resumable device "
+                   "segments instead of skipping the engine)")
     p.add_argument("--checkpoint-cadence", type=int, default=1,
                    help="with --engine fused and --checkpoint-every-level: "
                    "levels mined per device segment between checkpoint "

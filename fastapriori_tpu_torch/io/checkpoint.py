@@ -43,10 +43,11 @@ Level = Tuple[np.ndarray, np.ndarray]
 
 def save_checkpoint(
     prefix: str, levels: List[Level], meta: Dict[str, int]
-) -> str:
+) -> int:
     """Atomically (re)write ``<prefix>checkpoint.npz`` and its manifest
-    entry.  ``meta`` needs ``n_raw``, ``min_count`` and ``num_items``;
-    an optional ``fence`` is stamped into the meta and the manifest."""
+    entry; returns the npz's size in bytes.  ``meta`` needs ``n_raw``,
+    ``min_count`` and ``num_items``; an optional ``fence`` is stamped into
+    the meta and the manifest."""
     fence = int(meta.get("fence", 0))
     arrays = {
         "meta": np.array(
@@ -60,11 +61,12 @@ def save_checkpoint(
         arrays[f"cnt_{i}"] = np.ascontiguousarray(cnt, dtype=np.int64)
     buf = io.BytesIO()
     np.savez(buf, **arrays)
+    raw = buf.getvalue()
     manifest: Dict[str, dict] = {}
-    path = write_artifact_bytes(prefix + CHECKPOINT_NAME, [buf.getvalue()],
-                                CHECKPOINT_NAME, manifest)
+    write_artifact_bytes(prefix + CHECKPOINT_NAME, [raw], CHECKPOINT_NAME,
+                         manifest)
     write_manifest(prefix, manifest, fence=fence or None)
-    return path
+    return len(raw)
 
 
 def checkpoint_available(prefix: str) -> bool:

@@ -72,6 +72,7 @@ the reference package does:
   off on the CPU), the remaining levels run as one tail fold
   (ops/fused.py ``tail_mine``, a ``tail_fuse`` event); a fold that
   overflows its budgets resumes per level from its last complete level.
+  The fold runs only without a checkpoint prefix.
 
 How a level's counts reach the host (``_level_loop``): by default each
 level reads only its survivor bitmask (one fetch per level, all its
@@ -85,7 +86,9 @@ counts, fetched eagerly, and ``set_resume_levels`` seeds a later mine
 from such a checkpoint: the level loop restarts after its deepest level.
 A resume or a checkpoint prefix skips the fused whole-loop engine, except
 that ``engine="fused"`` with a checkpoint prefix mines in checkpointed
-segments of ``checkpoint_every_levels`` levels.  A transient error that
+segments of ``checkpoint_every_levels`` levels; under ``auto`` and
+``level`` a checkpoint prefix also skips the tail fold, so every level
+is counted and committed on its own.  A transient error that
 an audited fetch's retries gave up on walks the cascade
 (reliability/retry.py ``exhausted``): fused -> level, tail -> level,
 vertical -> bitmap; an error raised anywhere else, a kernel's launch
@@ -625,7 +628,8 @@ class FastApriori:
         """After a completed level: with ``checkpoint_prefix``, the
         writer (rank 0 of the world and the quorum domain's writer)
         atomically rewrites ``<prefix>checkpoint.npz`` and its manifest
-        entry (a ``checkpoint`` metrics event), stamped with the domain's
+        entry (a ``checkpoint`` metrics event and span, args ``levels``,
+        ``k`` and ``bytes``: the npz's size), stamped with the domain's
         fence (a superseded writer raises ``StaleFenceError``); then the
         ``level.<k>`` failpoint, k the deepest level written, so a test
         can kill the run where the checkpoint exists and nothing after
@@ -651,7 +655,8 @@ class FastApriori:
                 with self.metrics.timed("checkpoint", levels=len(levels),
                                         k=k) as m:
                     fence = quorum.checkpoint_fence()
-                    save_checkpoint(prefix, levels, dict(meta, fence=fence))
+                    m.update(bytes=save_checkpoint(prefix, levels,
+                                                   dict(meta, fence=fence)))
                     if fence:
                         m.update(fence=fence)
         failpoints.fire(f"level.{k}")
@@ -2313,16 +2318,17 @@ class FastApriori:
         (:meth:`_drain_pending`).  A checkpoint prefix fetches each
         level's counts eagerly: a durable level carries its counts.
 
-        On the bitmap layout a seed level k - 1 with k > 3 and at most the
-        fold threshold's rows hands the rest to :meth:`_mine_tail`, at
-        most twice, each seed smaller than the last; an incomplete fold
-        resumes here from its last complete level.  With
-        ``engine="fused"`` and a checkpoint prefix every step is a
-        segment of ``checkpoint_every_levels`` levels (the tail program
-        with 2x row headroom and flat slot caps), checkpointed after
-        each; a segment that overflows at its first level, or that the
-        memory model refuses, walks the cascade to per-level counting
-        until the lattice shrinks under the failed seed.
+        On the bitmap layout without a checkpoint prefix, a seed level
+        k - 1 with k > 3 and at most the fold threshold's rows hands the
+        rest to :meth:`_mine_tail`, at most twice, each seed smaller than
+        the last; an incomplete fold resumes here from its last complete
+        level.  Under a checkpoint prefix every level is counted and
+        committed on its own, except that with ``engine="fused"`` every
+        step is a segment of ``checkpoint_every_levels`` levels (the tail
+        program with 2x row headroom and flat slot caps), checkpointed
+        after each; a segment that overflows at its first level, or that
+        the memory model refuses, walks the cascade to per-level
+        counting until the lattice shrinks under the failed seed.
 
         ``table`` and ``weights`` are the mesh's per-position lists (one
         tensor each on one device); ``red`` is the mine's count reduction
@@ -2354,9 +2360,12 @@ class FastApriori:
             # The fold saves per-level launches and host round trips,
             # which the CPU does not pay.
             tail_rows = 0 if self.ctx.platform == "cpu" else 65536
-        # The folds run over the transaction shards of a 1-D mesh.
+        # The folds run over the transaction shards of a 1-D mesh.  Under
+        # a checkpoint prefix the only fold is the fused engine's segment:
+        # a tail fold would commit its levels together, after the last.
         one_d = self.ctx.cand_shards == 1
-        tail_ok = tail_rows > 0 and not vertical and one_d
+        tail_ok = (tail_rows > 0 and not vertical and one_d
+                   and not cfg.checkpoint_prefix)
         fused_ckpt = (self.engine == "fused" and bool(cfg.checkpoint_prefix)
                       and not vertical and one_d)
         cur = levels[-1][0]

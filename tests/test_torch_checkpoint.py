@@ -242,6 +242,75 @@ def test_checkpoint_written_every_level_and_resumed_once(corpus, tmp_path):
     _levels_equal(again, clean)
 
 
+# The card's fold threshold (``tail_fuse_rows`` None is 65,536 on CUDA):
+# every seed of the corpus is under it, so the tail fold would take the
+# levels after 3 in one program.
+CARD_FOLD_ROWS = 1 << 16
+
+
+def _commits(miner):
+    return [r for r in miner.metrics.records if r["event"] == "checkpoint"]
+
+
+@pytest.mark.parametrize("engine", ["auto", "level"])
+def test_every_level_commits_under_the_cards_fold_threshold(
+        corpus, tmp_path, engine):
+    """Under a checkpoint prefix no tail fold runs outside the fused
+    engine's segments: one commit per level 2..L, each one level deeper,
+    each span's ``bytes`` the npz it wrote."""
+    clean = _miner(engine="level").run_file_raw(corpus + "D.dat")[0]
+    prefix = str(tmp_path / "ck") + "/"
+    miner = _miner(engine=engine, checkpoint_prefix=prefix,
+                   tail_fuse_rows=CARD_FOLD_ROWS)
+    got = miner.run_file_raw(corpus + "D.dat")[0]
+    _levels_equal(got, clean)
+    deepest = clean[-1][0].shape[1]
+    commits = _commits(miner)
+    assert [r["k"] for r in commits] == list(range(2, deepest + 1))
+    assert [r["levels"] for r in commits] == list(range(1, deepest))
+    assert not any(r["event"] in ("tail_fuse", "fused_mine")
+                   for r in miner.metrics.records)
+    assert commits[-1]["bytes"] == os.path.getsize(prefix + "checkpoint.npz")
+    assert all(r["bytes"] > 0 for r in commits)
+    _levels_equal(ckpt.load_checkpoint(prefix)[0], clean)
+
+
+def test_kill_inside_the_fold_range_then_resume(corpus, tmp_path):
+    """A ``level.5`` abort where the card would fold levels 4-6 finds
+    levels 2-5 committed; the resume (folding again, as it may without a
+    prefix) gives the clean levels."""
+    clean = _miner(engine="level").run_file_raw(corpus + "D.dat")[0]
+    prefix = str(tmp_path / "ck") + "/"
+    failpoints.arm("level.5", "abort")
+    miner = _miner(checkpoint_prefix=prefix, tail_fuse_rows=CARD_FOLD_ROWS)
+    with pytest.raises(failpoints.InjectedAbort, match="level.5"):
+        miner.run_file_raw(corpus + "D.dat")
+    failpoints.disarm_all()
+    assert [r["k"] for r in _commits(miner)] == [2, 3, 4, 5]
+    levels, meta = ckpt.load_checkpoint(prefix)
+    _levels_equal(levels, clean[:4])
+    resumed = _miner(tail_fuse_rows=CARD_FOLD_ROWS)
+    resumed.set_resume_levels(levels, meta, label=prefix)
+    _levels_equal(resumed.run_file_raw(corpus + "D.dat")[0], clean)
+    assert [r["from_k"] for r in resumed.metrics.records
+            if r["event"] == "level_resume"] == [6]
+
+
+def test_fused_segments_hold_under_the_cards_fold_threshold(corpus,
+                                                            tmp_path):
+    """``engine="fused"`` keeps its cadence segments, whatever the tail
+    fold's threshold: one commit per segment."""
+    clean = _miner(engine="level").run_file_raw(corpus + "D.dat")[0]
+    prefix = str(tmp_path / "ck") + "/"
+    miner = _miner(engine="fused", checkpoint_prefix=prefix,
+                   checkpoint_every_levels=2, tail_fuse_rows=CARD_FOLD_ROWS)
+    _levels_equal(miner.run_file_raw(corpus + "D.dat")[0], clean)
+    segs = [r for r in miner.metrics.records if r["event"] == "tail_fuse"]
+    assert segs and all(r["checkpoint_segment"] and r["l_max"] == 2
+                        for r in segs)
+    assert len(_commits(miner)) == 2 + len(segs)
+
+
 def test_resume_meta_mismatch_is_input_error(corpus, tmp_path):
     prefix = str(tmp_path / "ck") + "/"
     failpoints.arm("level.2", "abort")
