@@ -26,7 +26,8 @@
 //     are unaffected, so cross-shard dedup is unnecessary.
 //
 // C ABI only (loaded via ctypes): fa_preprocess_buffer / fa_count_buffer /
-// fa_compress_with_ranks / fa_fill_packed_bitmap / fa_free_*.
+// fa_compress_with_ranks / fa_fill_packed_bitmap / fa_free_*, and
+// fa_format_lines, which lays out the output artifacts (io/writer.py).
 
 #include <algorithm>
 #include <atomic>
@@ -39,11 +40,13 @@
 #include <cstdlib>
 #include <cstring>
 #include <deque>
+#include <memory>
 #include <mutex>
 #include <new>
 #include <string>
 #include <thread>
 #include <string_view>
+#include <system_error>
 #include <unordered_map>
 #include <vector>
 
@@ -1716,6 +1719,287 @@ FaResult* fa_preprocess_buffer_blocks2(const char* data, int64_t len,
                                        FaBlockCb cb, void* cb_ctx) {
   return preprocess_buffer_blocks_impl(data, len, min_support, n_blocks,
                                        n_threads, pass1_cb, cb, cb_ctx);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Output layout (io/writer.py): rows of token ids printed as text lines and
+// laid out whole in one buffer, so an artifact is hashed and written as one
+// chunk.  freqItemset / freqItems (Utils.scala:29-41, 51-63): each row's
+// tokens in descending rank order (the row reversed), one space apart, an
+// optional "[count]" suffix, the lines sorted; recommends (Utils.scala:48):
+// one token a row, in the order given.
+
+namespace {
+
+struct LineRef {
+  int64_t off;  // start in the unsorted buffer
+  int64_t len;  // bytes, without the newline
+};
+
+// Buckets of at most this many lines are sorted by comparison.
+constexpr int64_t kSmallBucket = 64;
+
+// A line's bucket at `depth`: 0 when it ends there (a proper prefix of
+// every other line in its bucket, so it sorts first), else 1 + its byte.
+inline int line_bucket(const char* base, const LineRef& r, int64_t depth) {
+  return r.len > depth
+             ? 1 + static_cast<uint8_t>(base[r.off + depth])
+             : 0;
+}
+
+// Counts the lines of each bucket at `depth` into start[0..257] as
+// bucket offsets (bucket c is [start[c], start[c + 1])).  Returns the
+// bucket that holds all n lines, or -1.
+int bucket_starts(const LineRef* refs, int64_t n, const char* base,
+                  int64_t depth, int64_t* start) {
+  int64_t cnt[257] = {0};
+  for (int64_t i = 0; i < n; ++i) ++cnt[line_bucket(base, refs[i], depth)];
+  int64_t pos = 0;
+  int whole = -1;
+  for (int c = 0; c < 257; ++c) {
+    if (cnt[c] == n) whole = c;
+    start[c] = pos;
+    pos += cnt[c];
+  }
+  start[257] = pos;
+  return whole;
+}
+
+// Moves the lines into their buckets (start from bucket_starts).
+void scatter_lines(LineRef* refs, LineRef* tmp, int64_t n, const char* base,
+                   int64_t depth, const int64_t* start) {
+  int64_t fill[257];
+  std::memcpy(fill, start, sizeof fill);
+  for (int64_t i = 0; i < n; ++i)
+    tmp[fill[line_bucket(base, refs[i], depth)]++] = refs[i];
+  std::memcpy(refs, tmp, sizeof(LineRef) * static_cast<size_t>(n));
+}
+
+// Sorts n lines that agree on their first `depth` bytes into byte order,
+// a proper prefix first: Python's order of the decoded str lines, since
+// UTF-8 keeps code-point order.  A most-significant-byte radix sort: one
+// byte a pass over each bucket, the small buckets by comparison; tmp
+// holds n refs.  The buckets still to sort are kept on a heap stack, so
+// lines with long shared prefixes cannot exhaust a thread's stack.
+void sort_line_refs(LineRef* refs, LineRef* tmp, int64_t n, const char* base,
+                    int64_t depth) {
+  struct Part {
+    int64_t lo, n, depth;
+  };
+  std::vector<Part> todo{{0, n, depth}};
+  while (!todo.empty()) {
+    const Part part = todo.back();
+    todo.pop_back();
+    LineRef* r = refs + part.lo;
+    const int64_t d = part.depth;
+    if (part.n <= kSmallBucket) {
+      std::sort(r, r + part.n, [base, d](const LineRef& x, const LineRef& y) {
+        const int64_t rx = x.len - d, ry = y.len - d;
+        const int c = std::memcmp(base + x.off + d, base + y.off + d,
+                                  static_cast<size_t>(rx < ry ? rx : ry));
+        return c != 0 ? c < 0 : rx < ry;
+      });
+      continue;
+    }
+    int64_t start[258];
+    const int whole = bucket_starts(r, part.n, base, d, start);
+    if (whole == 0) continue;  // every line ends here: all equal
+    if (whole > 0) {
+      todo.push_back({part.lo, part.n, d + 1});
+      continue;
+    }
+    scatter_lines(r, tmp + part.lo, part.n, base, d, start);
+    for (int c = 1; c < 257; ++c)
+      if (start[c + 1] - start[c] > 1)
+        todo.push_back({part.lo + start[c], start[c + 1] - start[c], d + 1});
+  }
+}
+
+// sort_line_refs from depth 0, the buckets of the first byte sorted on up
+// to 8 threads, the largest first (the host is idle while a job writes).
+void sort_lines(LineRef* refs, LineRef* tmp, int64_t n, const char* base) {
+  int64_t start[258];
+  if (n <= kSmallBucket || bucket_starts(refs, n, base, 0, start) >= 0) {
+    sort_line_refs(refs, tmp, n, base, 0);
+    return;
+  }
+  scatter_lines(refs, tmp, n, base, 0, start);
+  std::vector<int> todo;
+  for (int c = 1; c < 257; ++c)
+    if (start[c + 1] - start[c] > 1) todo.push_back(c);
+  std::sort(todo.begin(), todo.end(), [&start](int x, int y) {
+    return start[x + 1] - start[x] > start[y + 1] - start[y];
+  });
+  std::atomic<size_t> next{0};
+  std::atomic<bool> out_of_memory{false};
+  auto work = [&]() {
+    try {
+      for (size_t w; (w = next++) < todo.size();) {
+        const int c = todo[w];
+        sort_line_refs(refs + start[c], tmp + start[c],
+                       start[c + 1] - start[c], base, 1);
+      }
+    } catch (const std::bad_alloc&) {
+      out_of_memory = true;
+    }
+  };
+  const unsigned hw = std::thread::hardware_concurrency();
+  const size_t n_threads =
+      std::min<size_t>({hw ? hw : 1u, 8u, todo.size()});
+  std::vector<std::thread> threads;
+  try {
+    for (size_t t = 1; t < n_threads; ++t) threads.emplace_back(work);
+  } catch (const std::system_error&) {
+    // Fewer threads than asked: the calling thread takes the rest.
+  }
+  work();
+  for (std::thread& t : threads) t.join();
+  if (out_of_memory) throw std::bad_alloc();
+}
+
+inline uint64_t magnitude(int64_t v) {
+  return v < 0 ? 0 - static_cast<uint64_t>(v) : static_cast<uint64_t>(v);
+}
+
+// Characters of str(v).
+inline int64_t decimal_len(int64_t v) {
+  uint64_t u = magnitude(v);
+  int64_t n = v < 0 ? 2 : 1;
+  while (u >= 10) {
+    u /= 10;
+    ++n;
+  }
+  return n;
+}
+
+inline char* put_decimal(char* p, int64_t v) {
+  uint64_t u = magnitude(v);
+  if (v < 0) *p++ = '-';
+  char buf[20];
+  int n = 0;
+  do {
+    buf[n++] = static_cast<char>('0' + u % 10);
+    u /= 10;
+  } while (u);
+  while (n) *p++ = buf[--n];
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// pool/pool_len: n_tokens tokens, '\n'-separated (no trailing newline).
+// mats[l]: int32 [rows[l], ks[l]] row-major token ids, each row printed
+// from its last column to its first, one space apart.  counts: null, or
+// one int64 [rows[l]] per level, printed as "[count]" after the row.
+// sorted_lines != 0 sorts the lines (sort_lines); else they follow the rows.
+// Every line ends with '\n'.  out == nullptr asks for the size.  Returns
+// the bytes the lines take (written to out when given), -1 for malformed
+// input (a token id out of range, a pool with another number of tokens,
+// ks[l] < 1, rows[l] < 0), -2 when out_len is too small, -3 when memory
+// runs out.
+int64_t fa_format_lines(const char* pool, int64_t pool_len, int32_t n_tokens,
+                        int32_t n_levels, const int32_t* const* mats,
+                        const int64_t* rows, const int32_t* ks,
+                        const int64_t* const* counts, int32_t sorted_lines,
+                        char* out, int64_t out_len) {
+  try {
+    if (n_tokens < 0 || n_levels < 0 || pool_len < 0) return -1;
+    std::vector<int64_t> tok_start(n_tokens), tok_len(n_tokens);
+    {
+      int64_t start = 0;
+      for (int32_t t = 0; t < n_tokens; ++t) {
+        const void* nl =
+            t + 1 < n_tokens
+                ? std::memchr(pool + start, '\n',
+                              static_cast<size_t>(pool_len - start))
+                : nullptr;
+        if (t + 1 < n_tokens && !nl) return -1;
+        const int64_t end =
+            nl ? static_cast<const char*>(nl) - pool : pool_len;
+        tok_start[t] = start;
+        tok_len[t] = end - start;
+        start = end + 1;
+      }
+      const int64_t used = n_tokens ? start - 1 : 0;
+      if (used != pool_len ||
+          (n_tokens &&
+           std::memchr(pool + tok_start[n_tokens - 1], '\n',
+                       static_cast<size_t>(tok_len[n_tokens - 1]))))
+        return -1;
+    }
+    int64_t total = 0, n_lines = 0;
+    for (int32_t l = 0; l < n_levels; ++l) {
+      const int64_t r = rows[l], k = ks[l];
+      if (k < 1 || r < 0) return -1;
+      const int32_t* m = mats[l];
+      for (int64_t i = 0; i < r * k; ++i) {
+        const int32_t id = m[i];
+        if (id < 0 || id >= n_tokens) return -1;
+        total += tok_len[id];
+      }
+      total += r * k;  // k - 1 spaces and the newline a row
+      if (counts)
+        for (int64_t i = 0; i < r; ++i) total += 2 + decimal_len(counts[l][i]);
+      n_lines += r;
+    }
+    if (!out) return total;
+    if (out_len < total) return -2;
+
+    auto emit = [&](char* p, int32_t l, int64_t i) {
+      const int32_t k = ks[l];
+      const int32_t* row = mats[l] + i * k;
+      for (int32_t j = k - 1; j >= 0; --j) {
+        const int32_t id = row[j];
+        std::memcpy(p, pool + tok_start[id], static_cast<size_t>(tok_len[id]));
+        p += tok_len[id];
+        if (j) *p++ = ' ';
+      }
+      if (counts) {
+        *p++ = '[';
+        p = put_decimal(p, counts[l][i]);
+        *p++ = ']';
+      }
+      return p;
+    };
+
+    if (!sorted_lines) {
+      char* p = out;
+      for (int32_t l = 0; l < n_levels; ++l)
+        for (int64_t i = 0; i < rows[l]; ++i) {
+          p = emit(p, l, i);
+          *p++ = '\n';
+        }
+      return total;
+    }
+    // The lines without their newlines, in row order, then sorted by
+    // reference and copied out.
+    std::unique_ptr<char[]> text(new char[total - n_lines + 1]);
+    std::vector<LineRef> refs(static_cast<size_t>(n_lines));
+    std::vector<LineRef> tmp(static_cast<size_t>(n_lines));
+    char* p = text.get();
+    int64_t x = 0;
+    for (int32_t l = 0; l < n_levels; ++l)
+      for (int64_t i = 0; i < rows[l]; ++i) {
+        char* start = p;
+        p = emit(p, l, i);
+        refs[x++] = {start - text.get(), p - start};
+      }
+    const char* base = text.get();
+    sort_lines(refs.data(), tmp.data(), n_lines, base);
+    char* q = out;
+    for (const LineRef& ref : refs) {
+      std::memcpy(q, base + ref.off, static_cast<size_t>(ref.len));
+      q += ref.len;
+      *q++ = '\n';
+    }
+    return total;
+  } catch (const std::bad_alloc&) {
+    return -3;
+  }
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ fastapriori_tpu/io/writer.py; reference Utils.scala:29-49).
 ``<output>freqItemset``: itemset lines print ranks in descending order
 mapped back to item strings, the whole file sorted lexicographically
 (Utils.scala:36-39).  ``<output>recommends``: one item (or "0") per line
-in original row order (Utils.scala:48).
+in original row order (Utils.scala:48).  Each is laid out whole, as one
+chunk, by the native library (``fa_format_lines``), or by NumPy and
+``list.sort`` when the library is unavailable: the same bytes.
 
 Every artifact goes through :func:`write_artifact_bytes`: a ``.tmp``
 file, fsync, then an atomic rename, so a crash mid-write never leaves a
@@ -40,6 +42,7 @@ from typing import (
 
 import numpy as np
 
+from fastapriori_tpu_torch.native import loader
 from fastapriori_tpu_torch.obs import trace
 from fastapriori_tpu_torch.reliability import failpoints
 
@@ -80,8 +83,10 @@ def write_artifact_bytes(
     the manifest entry ``manifest[name]`` records the full intended
     content (size and sha256), so a truncation is exactly what
     resume-side validation rejects.  Traced as a ``write`` span (args
-    ``artifact``, ``bytes``) that covers the chunks' formatting, with a
-    ``fsync`` child from the flush to the rename."""
+    ``artifact``, ``bytes``; ``lines`` and ``formatter`` for the
+    artifacts :func:`_laid_out` builds) that covers the chunks'
+    formatting, with a ``fsync`` child from the flush to the rename.
+    A chunk is any bytes-like object."""
     site = "write." + name
     with trace.span("write", artifact=name) as sp:
         failpoints.fire(site)
@@ -179,21 +184,68 @@ def _level_joined(levels, freq_items: Sequence[str]):
         yield joined, cnts
 
 
-def format_itemset_line(ranks: Iterable[int],
-                        freq_items: Sequence[str]) -> str:
-    """One itemset: ranks sorted descending, mapped to item strings,
-    joined by a single space (Utils.scala:38)."""
-    return " ".join(freq_items[r] for r in sorted(ranks, reverse=True))
+def _text(lines: List[str]) -> bytes:
+    """``lines`` as one UTF-8 chunk, each line ended by a newline."""
+    return ("\n".join(lines) + "\n").encode("utf-8") if lines else b""
 
 
-def _sorted_lines(make: Callable[[], List[str]]) -> Iterator[str]:
-    """``make()``'s lines sorted lexicographically, each with its
-    newline: a generator, so the formatting and the sort run inside the
-    write's span."""
-    lines = make()
+def _laid_out(build: Callable[[], Tuple[object, int, str]]) -> Iterator:
+    """The artifact's one chunk, ``build()``'s bytes, built inside a
+    ``write_format`` span (the layout before the first byte is written);
+    the enclosing ``write`` span gets the ``lines`` and the ``formatter``
+    (``native`` or ``python``) that ``build`` reports."""
+    with trace.span("write_format"):
+        data, lines, formatter = build()
+    trace.annotate(lines=lines, formatter=formatter)
+    yield data
+
+
+def _itemset_text(levels, freq_items: Sequence[str],
+                  with_counts: bool) -> Tuple[object, int, str]:
+    """The itemset lines of ``levels`` (``[(ascending rank rows [N, k],
+    counts [N]), ...]``, the 1-itemsets among them), sorted as Python
+    sorts their strings, with ``[count]`` suffixes when ``with_counts``:
+    ``(bytes, lines, formatter)``.  The native library lays them out
+    whole when it loads (native/loader.py ``format_lines``, whose
+    ``get_lib`` records ``native_unavailable`` when it does not); else
+    NumPy joins each level's strings and ``list.sort`` orders them."""
+    n = sum(len(mat) for mat, _ in levels)
+    data = loader.format_lines(
+        freq_items, [mat for mat, _ in levels],
+        [cnts for _, cnts in levels] if with_counts else None, sort=True)
+    if data is not None:
+        return memoryview(data), n, "native"
+    lines: List[str] = []
+    for strings, cnts in _level_joined(levels, freq_items):
+        if with_counts:
+            strings = np.char.add(
+                np.char.add(strings, "["),
+                np.char.add(np.asarray(cnts).astype(np.str_), "]"))
+        lines.extend(strings.tolist())
     lines.sort()
-    for line in lines:
-        yield line + "\n"
+    return _text(lines), n, "python"
+
+
+def _write_itemsets(path: str, name: str, levels, freq_items: Sequence[str],
+                    with_counts: bool,
+                    manifest: Optional[Dict[str, dict]]) -> str:
+    return write_artifact_bytes(
+        path,
+        _laid_out(lambda: _itemset_text(levels, freq_items, with_counts)),
+        name, manifest)
+
+
+def _pair_levels(freq_itemsets: Sequence[Tuple[frozenset, int]]):
+    """``(rank frozenset, count)`` pairs as level matrices, one per
+    itemset size: ``[(ascending rank rows [N, k], counts [N]), ...]``."""
+    by_k: Dict[int, Tuple[list, list]] = {}
+    for s, c in freq_itemsets:
+        rows, counts = by_k.setdefault(len(s), ([], []))
+        rows.append(sorted(s))
+        counts.append(c)
+    return [(np.array(rows, dtype=np.int32).reshape(len(rows), k),
+             np.array(counts, dtype=np.int64))
+            for k, (rows, counts) in by_k.items()]
 
 
 def save_freq_itemsets(
@@ -204,12 +256,9 @@ def save_freq_itemsets(
 ) -> str:
     """Write ``<output>freqItemset`` (Utils.scala:29-41) from ``(rank
     frozenset, count)`` pairs, lines sorted lexicographically."""
-    return write_artifact(
-        output_prefix + "freqItemset",
-        _sorted_lines(lambda: [format_itemset_line(s, freq_items)
-                               for s, _ in freq_itemsets]),
-        "freqItemset", manifest,
-    )
+    return _write_itemsets(output_prefix + "freqItemset", "freqItemset",
+                           _pair_levels(freq_itemsets), freq_items, False,
+                           manifest)
 
 
 def save_freq_itemsets_with_count(
@@ -220,13 +269,9 @@ def save_freq_itemsets_with_count(
 ) -> str:
     """Write ``<output>freqItems`` with counts as ``...[count]``
     (Utils.scala:51-63) from ``(rank frozenset, count)`` pairs."""
-    return write_artifact(
-        output_prefix + "freqItems",
-        _sorted_lines(lambda: [
-            format_itemset_line(s, freq_items) + "[" + str(c) + "]"
-            for s, c in freq_itemsets]),
-        "freqItems", manifest,
-    )
+    return _write_itemsets(output_prefix + "freqItems", "freqItems",
+                           _pair_levels(freq_itemsets), freq_items, True,
+                           manifest)
 
 
 def save_freq_itemsets_levels(
@@ -243,32 +288,13 @@ def save_freq_itemsets_levels(
     ``<output>freqItems``, the same itemsets with ``[count]`` suffixes
     (the 1-itemsets' from ``item_counts``), the phase-1 resume
     artifact."""
-    joined: list = []  # each level's joined strings and counts
-
-    def itemsets() -> List[str]:
-        joined.extend(_level_joined(levels, freq_items))
-        lines: list = []
-        for strings, _ in joined:
-            lines.extend(strings.tolist())
-        lines.extend(freq_items)
-        return lines
-
-    def counted() -> List[str]:
-        lines: list = []
-        for strings, cnts in joined:
-            lines.extend(np.char.add(
-                np.char.add(strings, "["),
-                np.char.add(np.asarray(cnts).astype(np.str_), "]"),
-            ).tolist())
-        lines.extend(f"{tok}[{int(c)}]"
-                     for tok, c in zip(freq_items, np.asarray(item_counts)))
-        return lines
-
+    ones = np.arange(len(freq_items), dtype=np.int32)[:, None]
+    levels = [(ones, item_counts), *levels]
     path = output_prefix + "freqItemset"
-    write_artifact(path, _sorted_lines(itemsets), "freqItemset", manifest)
+    _write_itemsets(path, "freqItemset", levels, freq_items, False, manifest)
     if with_counts_path:
-        write_artifact(output_prefix + "freqItems", _sorted_lines(counted),
-                       "freqItems", manifest)
+        _write_itemsets(output_prefix + "freqItems", "freqItems", levels,
+                        freq_items, True, manifest)
     return path
 
 
@@ -280,9 +306,15 @@ def save_recommends(
     """Write ``<output>recommends``: sorted by original row index, one
     recommended item (or "0") per line (Utils.scala:43-49)."""
 
-    def rows() -> Iterator[str]:
-        for _, item in sorted(recommends, key=lambda x: x[0]):
-            yield item + "\n"
+    def build() -> Tuple[object, int, str]:
+        rows, items = zip(*recommends) if recommends else ((), ())
+        order = np.argsort(np.asarray(rows, dtype=np.int64), kind="stable")
+        data = loader.format_lines(items, [order[:, None]])
+        if data is not None:
+            return memoryview(data), len(items), "native"
+        return _text(list(map(items.__getitem__, order.tolist()))), \
+            len(items), "python"
 
     path = output_prefix + "recommends"
-    return write_artifact(path, rows(), "recommends", manifest)
+    return write_artifact_bytes(path, _laid_out(build), "recommends",
+                                manifest)

@@ -2,7 +2,8 @@
 JAX package's ``native`` module).
 
 ``csrc/preprocess.cc`` (tokenize + count + rank + dedup in one pass over
-the raw bytes, the block-replay ingest and the candidate join + prune) is
+the raw bytes, the block-replay ingest, the candidate join + prune and
+the output artifacts' layout for io/writer.py) is
 built at first use by ops/build.py with the host compiler into
 ``_build/`` and loaded through ctypes (native/loader.py).  The engine
 choice lives in preprocess.py ``_use_native``; this module only answers

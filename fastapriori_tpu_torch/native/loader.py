@@ -7,7 +7,9 @@ When it cannot be built or loaded, :func:`get_lib` returns None and
 :func:`load_error` says why (the compiler's first error line): callers
 that may fall back to the Python path (preprocess.py ``_use_native``)
 put that reason on their metrics line and the degradation ledger gets a
-``native_unavailable`` event; the entry points below raise.  A failure
+``native_unavailable`` event; the entry points below raise, but for
+``fill_packed_bitmap`` and ``format_lines`` (io/writer.py's layout),
+which return False / None for their callers' Python path.  A failure
 inside the library is never turned into a fallback: it raises.  The
 failpoint sites ``native.load`` (before the library is loaded) and
 ``native.blocks`` (the block ingest's entry) inject faults here
@@ -161,6 +163,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.fa_free_candidates.argtypes = [ctypes.POINTER(_FaCandidates)]
     lib.fa_free_candidates.restype = None
+    lib.fa_format_lines.restype = ctypes.c_int64
+    lib.fa_format_lines.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int32,
+        ctypes.c_void_p,
+        ctypes.c_int64,
+    ]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -546,6 +562,58 @@ def gen_candidates_native(level: np.ndarray):
         return x_idx, y
     finally:
         lib.fa_free_candidates(res_ptr)
+
+
+def format_lines(
+    tokens: Sequence[str],
+    mats: Sequence[np.ndarray],
+    counts: Optional[Sequence[np.ndarray]] = None,
+    sort: bool = False,
+) -> Optional[np.ndarray]:
+    """Rows of token ids laid out as text lines in one uint8 buffer
+    (``fa_format_lines``): each row of ``mats`` (int [N, k], k >= 1)
+    printed from its last column to its first, the tokens one space
+    apart, ``[count]`` after it when ``counts`` (one int [N] per matrix)
+    is given, every line ended by a newline; ``sort`` orders the lines
+    as Python's ``list.sort`` orders their strings.  None when the
+    library is unavailable (the caller formats in Python); ValueError
+    for a token id out of range.  No ``tokens`` entry may hold a
+    newline."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    mats = [np.ascontiguousarray(m, dtype=np.int32) for m in mats]
+    if any(m.ndim != 2 or m.shape[1] < 1 for m in mats):
+        raise ValueError("each matrix must be 2-D with at least one column")
+    n = len(mats)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    mat_ptrs = (i32p * max(n, 1))(*(m.ctypes.data_as(i32p) for m in mats))
+    rows = np.array([m.shape[0] for m in mats] or [0], dtype=np.int64)
+    ks = np.array([m.shape[1] for m in mats] or [1], dtype=np.int32)
+    cnt_ptrs = None
+    if counts is not None:
+        counts = [np.ascontiguousarray(c, dtype=np.int64) for c in counts]
+        if [c.shape for c in counts] != [(m.shape[0],) for m in mats]:
+            raise ValueError("counts must hold one int [N] per matrix")
+        cnt_ptrs = (i64p * max(n, 1))(*(c.ctypes.data_as(i64p)
+                                         for c in counts))
+    pool = "\n".join(tokens).encode("utf-8")
+    args = (pool, len(pool), len(tokens), n, mat_ptrs,
+            rows.ctypes.data_as(i64p), ks.ctypes.data_as(i32p), cnt_ptrs,
+            int(sort))
+    size = lib.fa_format_lines(*args, None, 0)
+    if size == -3:
+        raise MemoryError("fa_format_lines failed")
+    if size < 0:
+        raise ValueError("fa_format_lines: a token id out of range, or a "
+                         "token that holds a newline")
+    out = np.empty(size, dtype=np.uint8)
+    if size:
+        got = lib.fa_format_lines(*args, out.ctypes.data, size)
+        if got != size:
+            raise MemoryError(f"fa_format_lines failed ({got})")
+    return out
 
 
 def join_transactions(transactions: Sequence[Sequence[str]]) -> bytes:

@@ -844,11 +844,12 @@ def test_cli_profile_dir_on_the_cpu(tmp_path, capsys):
 #   basket x rule checks (models/recommender.py DEVICE_MIN_CHECKS), the
 #   JAX package from 3 * 10^7, so here only the port's scan fetches.
 # - the job's frame, user and writer spans ("job_setup", "read_users",
-#   "user_fanout", "write", "fsync") and the pair program's launch
-#   ("pair_program"), which the port's benchmark reads and the JAX
-#   package does not open.
+#   "user_fanout", "write", "write_format", "fsync") and the pair
+#   program's launch ("pair_program"), which the port's benchmark reads
+#   and the JAX package does not open.
 ONLY_PORT = {"upload", "fetch.rec_match", "job_setup", "read_users",
-             "user_fanout", "write", "fsync", "pair_program"}
+             "user_fanout", "write", "write_format", "fsync",
+             "pair_program"}
 ONLY_JAX: set = set()
 
 
@@ -944,7 +945,10 @@ def test_traced_cli_job_span_tree(traced_corpus, tmp_path, monkeypatch):
     """The job's span frame: ``run`` holds every span of the main
     thread, among them ``job_setup``, ``read_users`` and both phases;
     each write has its artifact and one ``fsync`` child; the pair
-    program's launch sits under ``bitmap_build``; the tree repeats."""
+    program's launch sits under ``bitmap_build``; the tree repeats.
+    ``freqItemset`` and ``recommends`` are laid out under a
+    ``write_format`` child first, their ``write`` spans carrying the
+    ``lines`` and the ``formatter`` (the native library loads here)."""
     monkeypatch.setenv("FA_TRACE", "1")
     trace.reload_from_env()
     trees = []
@@ -969,12 +973,21 @@ def test_traced_cli_job_span_tree(traced_corpus, tmp_path, monkeypatch):
     for w in writes:
         assert w["parent"].startswith("main:run#0/phase#")
         kids = [e for e in spans if e["parent"] == w["sid"]]
-        assert [e["name"] for e in kids] == ["fsync"]
+        if w["args"]["artifact"] == "MANIFEST.json":
+            assert [e["name"] for e in kids] == ["fsync"]
+        else:
+            assert [e["name"] for e in kids] == ["write_format", "fsync"]
+            assert w["args"]["formatter"] == "native"
         assert w["args"]["bytes"] > 0
     written = {e["args"]["artifact"]: e["args"]["bytes"] for e in writes
                if e["args"]["artifact"] != "MANIFEST.json"}
     for name, size in written.items():
         assert os.path.getsize(tmp_path / "1" / name) == size
+    lines = {e["args"]["artifact"]: e["args"]["lines"] for e in writes
+             if e["args"]["artifact"] != "MANIFEST.json"}
+    for name, n in lines.items():
+        assert (tmp_path / "1" / name).read_bytes().count(b"\n") == n
+    assert lines["recommends"] == 500
     pair = [e for e in spans if e["name"] == "pair_program"]
     assert pair, "the CPU path launches the pair program on this corpus"
     assert all(by_sid[e["parent"]]["name"] == "bitmap_build" for e in pair)
